@@ -2,11 +2,12 @@
 
 The block-parallel POES demodulator of ``project_desert_tortoise_tpu`` (the
 JAX reference, which stays in the repository unchanged) rebuilt on PyTorch,
-with the fused demodulation chain as a hand-written CUDA kernel for Hopper
-(``csrc/fused_demod.cu``).  Module paths and names follow the JAX package so
-each counterpart is easy to find; this package imports torch and numpy and
-never jax.  Its ``utils.config``, ``utils.wav``, ``utils.synth`` and
-``models.registry`` hand on the reference's jax-free modules of those names.
+with the chain's per-lane recurrences as hand-written CUDA kernels for
+Hopper (``csrc/``): the fused chain, the front half (PLL + FIR + AGC), the
+PLL, the AGC and Gardner timing with the Manchester decision.  Module paths
+and names follow the JAX package so each counterpart is easy to find; this
+package imports torch and numpy, never jax and nothing of the JAX package
+(it keeps its own copies of the jax-free modules it needs).
 """
 
 __version__ = "0.1.0"

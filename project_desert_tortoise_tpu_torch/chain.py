@@ -3,8 +3,8 @@
 ``ChainParams`` has the fields of the JAX package's record
 (``project_desert_tortoise_tpu/chain.py:36-99``) so the two compare field by
 field; ``make_params`` builds the fast path's parameters (``quirks=False``),
-and ``from_jax`` converts the JAX package's parameters and PLL state, the
-"weights" of this system, into the port's.  The exact chunked chain
+and ``from_jax`` converts the JAX package's parameters and stream states,
+the "weights" of this system, into the port's.  The exact chunked chain
 (``chunk_step``) is not part of this package yet.
 """
 
@@ -15,8 +15,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from project_desert_tortoise_tpu_torch.ops import agc as agc_ops
 from project_desert_tortoise_tpu_torch.ops import clock as clock_ops
 from project_desert_tortoise_tpu_torch.ops import fir as fir_ops
+from project_desert_tortoise_tpu_torch.ops import manchester as man_ops
 from project_desert_tortoise_tpu_torch.ops import pll as pll_ops
 
 
@@ -75,23 +77,27 @@ def make_params(mode_cfg, fs: float) -> ChainParams:
 
 
 def from_jax(obj, device="cpu"):
-    """Convert a JAX ``ChainParams`` or ``PLLState`` into the port's.
+    """Convert a JAX ``ChainParams`` or a JAX stream state (``PLLState``,
+    ``AGCState``, ``GardnerState``, ``ManchesterState``) into the port's.
 
     Parameters are python floats and a taps tuple on both sides and carry
-    over field by field; a PLL state's arrays become float32 (``locked``:
-    bool) tensors on `device`.  Works by field names, so jax need not be
-    importable here.
+    over field by field; a state's arrays become tensors on `device`:
+    float32, ``locked`` bool, the Manchester ``clockmod``/``evenodd``
+    int32.  Works by field names, so jax need not be importable here.
     """
     if hasattr(obj, "taps"):
         fields = obj._asdict()
         fields["pll"] = pll_ops.PLLParams(**obj.pll._asdict())
         fields["taps"] = tuple(float(v) for v in obj.taps)
         return ChainParams(**fields)
-    if hasattr(obj, "locked"):
-        def conv(name, v):
-            a = np.asarray(v)
-            dt = torch.bool if name == "locked" else torch.float32
-            return torch.tensor(a, device=device).to(dt)
-        return pll_ops.PLLState(**{k: conv(k, v)
-                                   for k, v in obj._asdict().items()})
+    kinds = {pll_ops.PLLState: {"locked": torch.bool},
+             agc_ops.AGCState: {},
+             clock_ops.GardnerState: {},
+             man_ops.ManchesterState: {"clockmod": torch.int32,
+                                       "evenodd": torch.int32}}
+    for cls, dtypes in kinds.items():
+        if getattr(obj, "_fields", None) == cls._fields:
+            return cls(**{k: torch.tensor(np.asarray(v), device=device).to(
+                dtypes.get(k, torch.float32))
+                for k, v in obj._asdict().items()})
     raise TypeError(f"cannot convert {type(obj).__name__}")

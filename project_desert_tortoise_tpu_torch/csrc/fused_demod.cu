@@ -28,35 +28,26 @@
 //    __sinf), IEEE division, rintf for round-half-to-even, truncating
 //    float->int casts, fmodf on values >= 0.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "pdt_common.cuh"
+
+using namespace pdt;
 
 namespace {
 
-constexpr int kThreads = 32;   // one warp per block: spread lanes over SMs
 constexpr int kMaxInterp = 3;
 constexpr int kMaxHist = 26;
 
 enum Squelch { kSquelchNone = 0, kSquelchAfterPll = 1, kSquelchAfterAgc = 2 };
 
-// Order must match _PARAM_FIELDS in ops/kernels/fused_kernel.py.
+// Order must match _param_block in ops/kernels/fused_kernel.py.
 struct FusedParams {
-  float alpha_acq, beta_acq, alpha_track, beta_track, max_freq;
-  float lock_alpha, lock_threshold, sweep_threshold, avg_phase_alpha;
+  PllParams pll;
   float agc_attack, agc_decay, squelch_thr, step_size, gardner_gain;
   float err_limit, resync_threshold;
   float poly[kMaxInterp][kMaxHist];   // poly[p][m] = h[(N-1-p) - m*interp]
 };
-
-// Constants rounded from double to float like the host-side float32 casts.
-constexpr double kPiD = 3.14159265358979311600;   // numpy's pi
-constexpr float kPi = static_cast<float>(kPiD);
-constexpr float kTwoPi = static_cast<float>(2.0 * kPiD);
-constexpr float kHalfPi = static_cast<float>(kPiD / 2.0);
-constexpr float kAgcReference = 1.0f;
-constexpr float kAgcMaxGain = 5000.0f;
-constexpr float kAgcMinGain = static_cast<float>(10e-5);
 
 template <typename T>
 __device__ __forceinline__ float load_sample(const T* __restrict__ p,
@@ -75,33 +66,6 @@ __device__ __forceinline__ float load_sample<int16_t>(
   return static_cast<float>(p[i]) * (1.0f / 32768.0f);
 }
 
-// quarter-circle rational atan2 (CarrierTrackingPLL.c:15)
-__device__ __forceinline__ float arctan2_approx(float y, float x) {
-  const float c1 = static_cast<float>(0.78539816339744825);
-  const float c2 = static_cast<float>(2.35619449019234475);
-  const float abs_y = fabsf(y) + static_cast<float>(1e-10);
-  const float r_pos = (x - abs_y) / (x + abs_y);
-  const float r_neg = (x + abs_y) / (abs_y - x);
-  const float angle = x >= 0.0f ? c1 - c1 * r_pos : c2 - c1 * r_neg;
-  return y < 0.0f ? -angle : angle;
-}
-
-// bit-trick inverse square root, two Newton rounds (CarrierTrackingPLL.c:43)
-__device__ __forceinline__ float q_rsqrt(float x) {
-  const float xhalf = 0.5f * x;
-  const int i = __float_as_int(x);
-  // unsigned subtraction: the int32 wrap of the reference without UB
-  const int j = static_cast<int>(0x5F3759DFu - static_cast<unsigned>(i >> 1));
-  float g = __int_as_float(j);
-  g = g * (1.5f - xhalf * g * g);
-  g = g * (1.5f - xhalf * g * g);
-  return g;
-}
-
-__device__ __forceinline__ float sgn(float x) {
-  return (x > 0.0f ? 1.0f : 0.0f) - (x < 0.0f ? 1.0f : 0.0f);
-}
-
 template <int INTERP, int HIST, int RING_T, int N_TG, int SQ, typename TIn>
 __global__ void __launch_bounds__(kThreads)
 fused_demod_kernel(const TIn* __restrict__ zre, const TIn* __restrict__ zim,
@@ -116,12 +80,7 @@ fused_demod_kernel(const TIn* __restrict__ zre, const TIn* __restrict__ zim,
   if (b >= B) return;
 
   // state_in rows: PLL phase, freq, locksig, avg_phase, sweep, locked; gain
-  float phase = st_in[b];
-  float freq = st_in[B + b];
-  float locksig = st_in[2 * B + b];
-  float avg_phase = st_in[3 * B + b];
-  float sweep = st_in[4 * B + b];
-  bool locked = st_in[5 * B + b] > 0.5f;
+  PllState pll = load_pll(st_in, B, b);
   float gain = st_in[6 * B + b];
 
   float hist[HIST];     // hist[m]: PLL output m samples back, 0 = newest
@@ -142,40 +101,8 @@ fused_demod_kernel(const TIn* __restrict__ zre, const TIn* __restrict__ zim,
     const float xim = load_sample<TIn>(zim, o);
 
     // --- PLL (ops/pll.py::_step) ---
-    const float t_im = sinf(phase);
-    const float t_re = cosf(phase);
-    const float out = xim * t_re - xre * t_im;
-    const float pll_re = xre * t_re + xim * t_im;
-    const float out_phase = arctan2_approx(out, pll_re);
-    const float n_avg = avg_phase * (1.0f - p.avg_phase_alpha)
-                        + p.avg_phase_alpha * fabsf(out_phase);
-    const float sample_phase = arctan2_approx(xim, xre);
-    float err = sample_phase - phase;
-    err = err > kPi ? err - kTwoPi : (err < -kPi ? err + kTwoPi : err);
-    const float alpha = locked ? p.alpha_track : p.alpha_acq;
-    const float beta = locked ? p.beta_track : p.beta_acq;
-    float n_freq = freq + beta * err;
-    float n_phase = phase + n_freq + alpha * err;
-    n_phase = n_phase > kTwoPi ? n_phase - kTwoPi : n_phase;
-    n_phase = n_phase < -kTwoPi ? n_phase + kTwoPi : n_phase;
-    n_freq = fminf(fmaxf(n_freq, -p.max_freq), p.max_freq);
-    const float inv = q_rsqrt(xre * xre + xim * xim);
-    const float n_lock = locksig * (1.0f - p.lock_alpha)
-                         + p.lock_alpha * ((xre * inv) * t_re
-                                           + (xim * inv) * t_im);
-    const bool sweeping = fabsf(kHalfPi - n_avg) < p.sweep_threshold
-                          && !locked;
-    const float freq_swept = n_freq + sweep;
-    const bool at_edge = freq_swept >= p.max_freq
-                         || freq_swept <= -p.max_freq;
-    const float sweep_new =
-        at_edge ? -sweep : (freq_swept >= 0.0f ? fabsf(sweep) : -fabsf(sweep));
-    freq = sweeping ? freq_swept : n_freq;
-    sweep = sweeping ? sweep_new : sweep;
-    locked = locked || n_lock > p.lock_threshold;
-    phase = n_phase;
-    locksig = n_lock;
-    avg_phase = n_avg;
+    float n_lock;
+    const float out = pll_step(pll, p.pll, xre, xim, &n_lock);
 
     float soft = out;
     if (SQ == kSquelchAfterPll) {
@@ -193,12 +120,8 @@ fused_demod_kernel(const TIn* __restrict__ zre, const TIn* __restrict__ zim,
       float y = 0.0f;
 #pragma unroll
       for (int m = 0; m < HIST; ++m) y = y + p.poly[ph][m] * hist[m];
-      y = y * gain;
-      const float error = fabsf(y) - kAgcReference;
-      const float rate = fabsf(error) > gain ? p.agc_attack : p.agc_decay;
-      gain = gain - error * rate;
-      gain = gain < 0.0f ? kAgcMinGain : gain;
-      gain = gain > kAgcMaxGain ? kAgcMaxGain : gain;
+      y = agc_step(y, gain, p.agc_attack, p.agc_decay, kAgcReference,
+                   kAgcMaxGain, kAgcMinGain);
       if (SQ == kSquelchAfterAgc) {
         y = fabsf(n_lock) < p.squelch_thr ? 0.0f : y;
       }
@@ -265,7 +188,7 @@ fused_demod_kernel(const TIn* __restrict__ zre, const TIn* __restrict__ zim,
     prev_sym = emit_sym ? cur : prev_sym;
     mprev = emit_sym ? prev : mprev;
   }
-  avg_out[b] = avg_phase;
+  avg_out[b] = pll.avg_phase;
 }
 
 template <int INTERP, int HIST, int RING_T, int N_TG, typename TIn>

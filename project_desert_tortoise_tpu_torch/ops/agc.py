@@ -1,12 +1,22 @@
-"""Gain: the static normalisation probe.
+"""Gain control: the static normalisation probe, the running AGC and the
+squelch.
 
-Twin of ``project_desert_tortoise_tpu/ops/agc.py::static_gain``
-(``common/AGC.c:48-75``).  The running AGC lives inside the fused kernel.
+Twins of ``project_desert_tortoise_tpu/ops/agc.py`` (``common/AGC.c``).
+The AGC recurrence runs in the kernel ``ops/kernels/scan_kernels.py::
+agc_scan`` on the card (and inside the chain kernels on the fused and
+front paths); the squelch is elementwise.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
+import torch
+
+from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels
+from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
+    AGC_MAX_GAIN, AGC_MIN_GAIN, AGC_REFERENCE)
 
 
 def static_gain(iq: np.ndarray, desired_level: float, dtype=np.float32) -> float:
@@ -28,3 +38,35 @@ def static_gain(iq: np.ndarray, desired_level: float, dtype=np.float32) -> float
         # inf out of the stream
         return 1.0
     return float(dt.type(np.float64(desired_level) / np.float64(avg)))
+
+
+class AGCState(NamedTuple):
+    gain: torch.Tensor
+
+
+def agc_init(initial_gain, batch_shape=(), *, device,
+             dtype=torch.float32) -> AGCState:
+    return AGCState(gain=torch.full(batch_shape, float(np.float32(
+        initial_gain)), dtype=dtype, device=device))
+
+
+def agc_scan(state: AGCState, x, attack_rate: float, decay_rate: float,
+             reference: float = AGC_REFERENCE, max_gain: float = AGC_MAX_GAIN,
+             min_gain: float = AGC_MIN_GAIN):
+    """GNURadio-style attack/decay AGC (``AGC.c:78-132``) over the last
+    axis of (B, n) `x`.  Returns (state, y).
+
+    JAX's ``window`` argument (VMEM-sized chunks of its scan) has no
+    counterpart: the arithmetic does not depend on it.  CUDA tensors launch
+    the kernel, CPU tensors run its plain version."""
+    gain, y = scan_kernels.agc_scan(
+        state.gain, x, scan_kernels.AGCParams(attack_rate, decay_rate,
+                                              reference, max_gain, min_gain))
+    return AGCState(gain=gain), y
+
+
+def squelch(x, squelch_stream, threshold: float):
+    """Zero samples whose side channel (the PLL lock) is below threshold
+    (``AGC.c:24-46``)."""
+    return torch.where(squelch_stream < float(np.float32(threshold)),
+                       torch.zeros((), dtype=x.dtype, device=x.device), x)

@@ -1,13 +1,18 @@
-"""FIR design: the Blackman windowed-sinc lowpass of the reference.
+"""FIR design and application: the Blackman windowed-sinc lowpass of the
+reference, the zero-stuffing interpolator and its output time axis.
 
-Twin of ``project_desert_tortoise_tpu/ops/fir.py::make_lpfir``
-(``common/LowPassFilter.c:127-175``).  The filter is applied inside the fused
-kernel in polyphase form (``ops/kernels/fused_kernel.py::polyphase``).
+Twins of ``project_desert_tortoise_tpu/ops/fir.py``: ``make_lpfir``
+(``common/LowPassFilter.c:127-175``), ``fir_interp`` and ``fir_out_times``
+(``fir.py:59-111``).  ``fir_interp`` is one plain convolution over the
+block, as XLA computes it in the JAX package (a conv with
+``lhs_dilation``); the chain kernels apply the same filter in polyphase
+form instead (``ops/kernels/chain_kernel.py::polyphase``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def make_lpfir(order: int, cutoff_hz: float, fs_hz: float, interp: int,
@@ -29,3 +34,48 @@ def make_lpfir(order: int, cutoff_hz: float, fs_hz: float, interp: int,
     wn = (0.42 - 0.5 * np.cos(2 * np.pi * n / (order - 1))
           + 0.08 * np.cos(4 * np.pi * n / (order - 1)))
     return (hd * wn * float(interp)).astype(dtype)
+
+
+def fir_interp(x, taps, interp: int, history=None):
+    """Zero-stuffing 1:interp upsampler + FIR over one block.
+
+    x: (..., n) real float32 (or float64) block; history: (..., H) previous real samples
+    with H = ceil((N-1)/interp), or None for stream start (zeros).  Returns
+    y of shape (..., n*interp): the JAX convolution's output, with its
+    padding (the stuffed history's excess trimmed on the left, `interp - 1`
+    zeros on the right).  The sums run in float32: cuDNN's TF32 (10-bit
+    mantissa) is switched off for the call on the card, through the
+    process-wide cuDNN flags; their order is the convolution library's, not
+    XLA's.
+    """
+    # float32 taps, in x's type (a float64 x gives the exact-sum reference)
+    taps = torch.as_tensor(np.asarray(taps, np.float32),
+                           device=x.device).to(x.dtype)
+    n_taps = taps.shape[0]
+    hist_len = -(-(n_taps - 1) // interp)  # ceil
+    lead = tuple(x.shape[:-1])
+    if history is None:
+        history = torch.zeros(lead + (hist_len,), dtype=x.dtype,
+                              device=x.device)
+    xh = torch.cat([history, x], dim=-1).reshape(-1, 1, hist_len
+                                                 + x.shape[-1])
+    # zero-stuffed: the dilated input and its interp-1 right-pad zeros
+    s = torch.zeros((xh.shape[0], 1, xh.shape[-1] * interp), dtype=x.dtype,
+                    device=x.device)
+    s[..., ::interp] = xh
+    excess = hist_len * interp - (n_taps - 1)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        y = torch.nn.functional.conv1d(s[..., excess:],
+                                       taps.reshape(1, 1, n_taps))
+    return y.reshape(lead + (-1,))
+
+
+def fir_out_times(t_next, interp: int):
+    """Output time axis: group i carries t[i+1] (LowPassFilter.c:68).
+
+    `t_next` is the time axis shifted by one sample (t_next[i] = time of
+    input sample i+1); each value is repeated for the group's `interp`
+    outputs."""
+    return torch.repeat_interleave(t_next, interp, dim=-1)

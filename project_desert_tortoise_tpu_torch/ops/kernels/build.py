@@ -1,10 +1,12 @@
 """Build and bind the CUDA kernels of this package.
 
-``nvcc`` compiles ``csrc/fused_demod.cu`` into a shared library with a plain
-C entry point, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+``nvcc`` compiles each ``csrc/*.cu`` source into an object file, all at
+once in parallel, and links them into one shared library with plain C entry
+points, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  The library is built at first use into ``_build/`` beside the
-sources and keyed by a hash of the sources and flags, so a fresh checkout
-builds it on its first call and an edited source rebuilds.
+sources and keyed by a hash of the sources, the shared header and the
+flags, so a fresh checkout builds it on its first call and an edited source
+rebuilds.
 """
 
 from __future__ import annotations
@@ -18,20 +20,34 @@ import subprocess
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[2]
-SOURCES = (PKG / "csrc" / "fused_demod.cu",)
+CSRC = PKG / "csrc"
+SOURCES = tuple(CSRC / f for f in ("fused_demod.cu", "chain_kernel.cu",
+                                   "pll_kernel.cu", "scan_kernels.cu"))
+HEADERS = (CSRC / "pdt_common.cuh",)
 BUILD_DIR = PKG / "_build"
-# -fmad=false and no fast math: the kernel matches its plain PyTorch version
-# operation for operation (see the source's header)
+# -fmad=false and no fast math: the kernels match their plain PyTorch
+# versions operation for operation (see csrc/pdt_common.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# pdt_fused_demod(zre, zim, tn, st_in, be, btime, avg_out, B, L, in_int16,
-#                 squelch, interp, hist, ring_t, n_tg, params, n_params,
-#                 stream)
-_SIGNATURE = [_P] * 7 + [_I] * 8 + [_P, _I, _P]
+# argument types of each entry point (see the extern "C" functions)
+_SIGNATURES = {
+    # zre, zim, tn, st_in, be, btime, avg_out, B, L, in_int16, squelch,
+    # interp, hist, ring_t, n_tg, params, n_params, stream
+    "pdt_fused_demod": [_P] * 7 + [_I] * 8 + [_P, _I, _P],
+    # zre, zim, st_in, y, lock, st_out, B, L, interp, hist,
+    # squelch_after_pll, params, n_params, stream
+    "pdt_pll_fir_agc": [_P] * 6 + [_I] * 5 + [_P, _I, _P],
+    # zre, zim, st_in, out, lock, st_out, B, L, params, n_params, stream
+    "pdt_pll_scan": [_P] * 6 + [_I] * 2 + [_P, _I, _P],
+    # x, g_in, y, g_out, B, n, params, n_params, stream
+    "pdt_agc_scan": [_P] * 4 + [_I] * 2 + [_P, _I, _P],
+    # x, t, n_valid, st_f_in, st_i_in, bits, btimes, emit, st_f_out,
+    # st_i_out, B, n_win, window, margin, spw, params, n_params, stream
+    "pdt_gardner_manchester": [_P] * 10 + [_I] * 5 + [_P, _I, _P],
+}
 
 
 def nvcc_path() -> str:
@@ -46,7 +62,8 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"pdt_kernels_{h.hexdigest()[:16]}.so"
@@ -54,18 +71,40 @@ def library_path() -> Path:
 
 def build() -> tuple:
     """Compile the library if it is not built yet; returns
-    (path, compiler output), the output empty when nothing was built."""
+    (path, compiler output), the output empty when nothing was built.
+    One nvcc per source runs in parallel, then one link."""
     so = library_path()
     if so.exists():
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    if not failed:
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        r = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                            *map(str, objs)],
+                           capture_output=True, text=True)
+        logs.append(r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed.append(f"link ({r.returncode})")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
     os.replace(tmp, so)          # atomic: concurrent builds race safely
-    return so, r.stdout + r.stderr
+    return so, log
 
 
 @functools.cache
@@ -73,6 +112,8 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     so, _ = build()
     lib = ctypes.CDLL(str(so))
-    lib.pdt_fused_demod.argtypes = _SIGNATURE
-    lib.pdt_fused_demod.restype = _I
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
     return lib

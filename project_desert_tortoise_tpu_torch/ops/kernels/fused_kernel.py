@@ -30,22 +30,19 @@ import torch
 
 from project_desert_tortoise_tpu_torch.ops import fastmath
 from project_desert_tortoise_tpu_torch.ops import pll as pll_ops
-
-# AGC constants of the fused chain (JAX fused_kernel.py:362-363)
-AGC_REFERENCE = 1.0
-AGC_MAX_GAIN = 5000.0
-AGC_MIN_GAIN = 10e-5
+# the AGC constants are those of JAX fused_kernel.py:362-363, the same as
+# the front-half chain's
+from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
+    AGC_MAX_GAIN, AGC_MIN_GAIN, AGC_REFERENCE, MAX_HIST, MAX_INTERP,
+    fir_agc, lane_const, poly_columns, polyphase)
+from project_desert_tortoise_tpu_torch.ops.kernels.common import (
+    check, launch, state_rows)
+from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
+    pll_param_block)
 
 # geometries csrc/fused_demod.cu instantiates: (interp, hist, ring_t, n_tg)
 KERNEL_GEOMETRIES = {(3, 26, 6, 2)}      # POES at 50 kHz
 _SQUELCH_CODE = {None: 0, "after_pll": 1, "after_agc": 2}
-# order of the float parameter block; must match FusedParams in the source
-_PARAM_FIELDS = (
-    "alpha_acq", "beta_acq", "alpha_track", "beta_track", "max_freq",
-    "lock_alpha", "lock_threshold", "sweep_threshold", "avg_phase_alpha",
-    "agc_attack", "agc_decay", "squelch_thr", "step_size", "gardner_gain",
-    "err_limit", "resync_threshold")
-_MAX_INTERP, _MAX_HIST = 3, 26
 
 _TGEN_MSG = ("t_next=None (in-kernel time generation) is not ported yet; "
              "pass the staged (B, L) time plane")
@@ -64,15 +61,6 @@ def ring_t_size(step_size: float, err_limit: float, interp: int) -> int:
     need = interp + int(np.ceil(err_limit)) + 2
     return min(max(4, -(-need // 2) * 2),
                ring_size(step_size, err_limit, interp))
-
-
-def polyphase(taps, interp: int):
-    """g[p][m] = h[(N-1-p) - m*interp] as python floats
-    (twin of JAX chain_kernel.py:33-38)."""
-    n = len(taps)
-    hist = n // interp
-    return [[float(taps[(n - 1 - p) - m * interp]) for m in range(hist)]
-            for p in range(interp)]
 
 
 class Geometry(NamedTuple):
@@ -103,10 +91,6 @@ def geometry(chain_params) -> Geometry:
                     ring_t=ring_t, n_tg=-(-ring_t // interp))
 
 
-def _f32(v) -> float:
-    return float(np.float32(v))
-
-
 class _Consts(NamedTuple):
     """The chain's float32 constants as (B,) lane tensors (tensor-tensor
     ops dispatch fastest), each rounded as the JAX kernel's ``c(v)``."""
@@ -128,12 +112,10 @@ class _Consts(NamedTuple):
 
 
 def _consts(cp, g: Geometry, like: torch.Tensor) -> _Consts:
-    full = lambda v: torch.full(like.shape, _f32(v), dtype=torch.float32,
-                                device=like.device)
-    poly = torch.tensor(g.poly, dtype=torch.float32, device=like.device)
+    full = lambda v: lane_const(v, like)
     return _Consts(
         pll=pll_ops.loop_consts(cp.pll, like),
-        poly=[poly[:, m:m + 1] for m in range(g.hist)],
+        poly=poly_columns(g.poly, like),
         zero=full(0.0),
         squelch=full(cp.squelch_threshold or 0.0),
         attack=full(cp.agc_attack), decay=full(cp.agc_decay),
@@ -185,24 +167,13 @@ def _step(cp, g: Geometry, c: _Consts, s: _Carry, x, tval_in, i: int):
         # |lock|: block relock may settle at the inverted BPSK point
         soft = torch.where(torch.abs(lock) < c.squelch, c.zero, soft)
 
-    # polyphase FIR, the interp phases side by side:
-    # y[p] = sum_m poly[p][m] * hist[m], accumulated from m = 0
+    # polyphase FIR and AGC on the interp outputs of this sample
     hist = [soft] + s.hist[:-1]
-    y_all = torch.zeros((interp,) + soft.shape, dtype=f32, device=soft.device)
-    for m in range(g.hist):
-        y_all = y_all + c.poly[m] * hist[m]
-    gain = s.gain
-    produced = []
-    for p in range(interp):
-        y = y_all[p] * gain
-        error = torch.abs(y) - c.reference
-        rate = torch.where(torch.abs(error) > gain, c.attack, c.decay)
-        gain = gain - error * rate
-        gain = torch.where(gain < c.zero, c.min_gain, gain)
-        gain = torch.where(gain > c.max_gain, c.max_gain, gain)
-        if cp.squelch_position == "after_agc":
-            y = torch.where(torch.abs(lock) < c.squelch, c.zero, y)
-        produced.append(y)
+    produced, gain = fir_agc(c.poly, hist, s.gain, c.attack, c.decay,
+                             c.reference, c.min_gain, c.max_gain, c.zero)
+    if cp.squelch_position == "after_agc":
+        produced = [torch.where(torch.abs(lock) < c.squelch, c.zero, y)
+                    for y in produced]
     ring = produced[::-1] + s.ring[:g.ring_t - interp]
     tgroups = [tval_in] + s.tgroups[:-1]
 
@@ -300,26 +271,16 @@ def fused_demod_ref(chain_params, pll_state, agc_gain, z, t_next):
 
 
 def _param_block(cp, g: Geometry) -> np.ndarray:
-    vals = dict(cp.pll._asdict(), agc_attack=cp.agc_attack,
-                agc_decay=cp.agc_decay,
-                squelch_thr=cp.squelch_threshold or 0.0,
-                step_size=cp.step_size, gardner_gain=cp.gardner_gain,
-                err_limit=cp.gardner_err_limit,
-                resync_threshold=cp.resync_threshold)
-    poly = np.zeros((_MAX_INTERP, _MAX_HIST), np.float32)
+    """The float block of FusedParams in csrc/fused_demod.cu, in its
+    order."""
+    poly = np.zeros((MAX_INTERP, MAX_HIST), np.float32)
     poly[:g.interp, :g.hist] = g.poly
-    return np.concatenate([np.array([vals[k] for k in _PARAM_FIELDS],
-                                    np.float32), poly.ravel()])
-
-
-def _check(name, t, shape, dtypes, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtypes}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {shape}")
+    return np.concatenate([
+        pll_param_block(cp.pll),
+        np.array([cp.agc_attack, cp.agc_decay, cp.squelch_threshold or 0.0,
+                  cp.step_size, cp.gardner_gain, cp.gardner_err_limit,
+                  cp.resync_threshold], np.float32),
+        poly.ravel()])
 
 
 def fused_demod(chain_params, pll_state, agc_gain, z, t_next):
@@ -350,36 +311,28 @@ def fused_demod(chain_params, pll_state, agc_gain, z, t_next):
             f"(interp, hist, ring_t, n_tg) = {key}; "
             f"available: {sorted(KERNEL_GEOMETRIES)}")
     B, L = zre.shape
-    _check("zre", zre, (B, L), (torch.float32, torch.int16), dev)
-    _check("zim", zim, (B, L), (zre.dtype,), dev)
-    _check("t_next", t_next, (B, L), (torch.float32,), dev)
+    check("zre", zre, (B, L), (torch.float32, torch.int16), dev)
+    check("zim", zim, (B, L), (zre.dtype,), dev)
+    check("t_next", t_next, (B, L), (torch.float32,), dev)
     for name, s in zip(pll_ops.PLLState._fields, pll_state):
-        _check(name, s, (B,), (torch.bool if name == "locked"
+        check(name, s, (B,), (torch.bool if name == "locked"
                                else torch.float32,), dev)
-    _check("agc_gain", agc_gain, (B,), (torch.float32,), dev)
+    check("agc_gain", agc_gain, (B,), (torch.float32,), dev)
 
-    from project_desert_tortoise_tpu_torch.ops.kernels import build
-    lib = build.load()
     # time-major (L, B) planes: a warp reads 32 neighbouring lanes per step
     xre = zre.t().contiguous()
     xim = zim.t().contiguous()
     tn = t_next.t().contiguous()
-    st_in = torch.stack([*pll_state[:5], pll_state.locked.to(torch.float32),
-                         agc_gain]).contiguous()
+    st_in = state_rows(pll_state, agc_gain)
     be = torch.empty((L, B), dtype=torch.float32, device=dev)
     btime = torch.empty((L, B), dtype=torch.float32, device=dev)
     avg_phase = torch.empty((B,), dtype=torch.float32, device=dev)
     params = _param_block(chain_params, g)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pdt_fused_demod(
-            xre.data_ptr(), xim.data_ptr(), tn.data_ptr(), st_in.data_ptr(),
-            be.data_ptr(), btime.data_ptr(), avg_phase.data_ptr(), B, L,
-            int(zre.dtype == torch.int16),
-            _SQUELCH_CODE[chain_params.squelch_position], *key,
-            params.ctypes.data_as(ctypes.c_void_p), params.size, stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_demod kernel launch failed: CUDA error {rc}")
+    launch(dev, "pdt_fused_demod", xre.data_ptr(), xim.data_ptr(),
+           tn.data_ptr(), st_in.data_ptr(), be.data_ptr(), btime.data_ptr(),
+           avg_phase.data_ptr(), B, L, int(zre.dtype == torch.int16),
+           _SQUELCH_CODE[chain_params.squelch_position], *key,
+           params.ctypes.data_as(ctypes.c_void_p), params.size)
     fused_demod.launches += 1
     be = be.t()
     emit = be > 1.5                   # merged plane: 2 + bit on emission

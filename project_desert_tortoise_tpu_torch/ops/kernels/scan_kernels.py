@@ -1,0 +1,233 @@
+"""The per-lane recurrences of the scan branch: the AGC and Gardner timing
+with the Manchester decision.
+
+Counterparts of the JAX package's XLA scans ``ops/agc.py::agc_scan``
+(``agc.py:65-98``) and ``ops/clock.py::gardner_manchester_windowed``
+(``clock.py:151-263``); as per-sample torch loops they would take minutes
+per launch at the main path's size, so each is a hand-written kernel in
+``csrc/scan_kernels.cu``.
+
+- :func:`agc_scan` and :func:`gardner_manchester` are the entry points.  A
+  CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
+  version.  ``.launches`` on each counts kernel launches.
+- :func:`agc_scan_ref` and :func:`gardner_manchester_ref` are the plain
+  PyTorch versions, on any device: loops over the steps, all lanes at once,
+  in the JAX scans' order of float32 operations, so on the card they agree
+  with the kernels bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from project_desert_tortoise_tpu_torch.ops import fastmath
+from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
+    AGC_MAX_GAIN, AGC_MIN_GAIN, AGC_REFERENCE, agc_step, lane_const)
+from project_desert_tortoise_tpu_torch.ops.kernels.common import (
+    check, launch)
+
+
+class AGCParams(NamedTuple):
+    attack: float
+    decay: float
+    reference: float = AGC_REFERENCE
+    max_gain: float = AGC_MAX_GAIN
+    min_gain: float = AGC_MIN_GAIN
+
+
+def agc_scan_ref(gain, x, p: AGCParams):
+    """Plain PyTorch version of :func:`agc_scan`."""
+    gain = gain.to(torch.float32)
+    c = lambda v: lane_const(v, gain)
+    attack, decay, reference = c(p.attack), c(p.decay), c(p.reference)
+    max_gain, min_gain, zero = c(p.max_gain), c(p.min_gain), c(0.0)
+    ys = []
+    for xi in x.t().contiguous().unbind(0):
+        y, gain = agc_step(xi, gain, attack, decay, reference, min_gain,
+                           max_gain, zero)
+        ys.append(y)
+    return gain, torch.stack(ys, 1)
+
+
+def agc_scan(gain, x, p: AGCParams):
+    """Attack/decay AGC over the last axis of (B, n) float32 `x` from
+    (B,) gains.  Returns (gain (B,), y (B, n)).  CPU tensors run
+    :func:`agc_scan_ref`."""
+    dev = x.device
+    if dev.type == "cpu":
+        return agc_scan_ref(gain, x, p)
+    if dev.type != "cuda":
+        raise ValueError(f"agc_scan runs on cpu or cuda, not {dev}")
+    B, n = x.shape
+    check("x", x, (B, n), (torch.float32,), dev)
+    check("gain", gain, (B,), (torch.float32,), dev)
+    xt = x.t().contiguous()           # time-major: coalesced warp access
+    y = torch.empty_like(xt)
+    g_in = gain.contiguous()
+    g_out = torch.empty_like(g_in)
+    params = np.array(p, np.float32)
+    launch(dev, "pdt_agc_scan", xt.data_ptr(), g_in.data_ptr(), y.data_ptr(),
+           g_out.data_ptr(), B, n, params.ctypes.data_as(ctypes.c_void_p),
+           params.size)
+    agc_scan.launches += 1
+    return g_out, y.t()
+
+
+agc_scan.launches = 0
+
+
+class GardnerParams(NamedTuple):
+    step_size: float
+    err_limit: float
+    kp: float
+    resync_threshold: float
+
+
+class Layout(NamedTuple):
+    """Window layout of the windowed Gardner scan (JAX clock.py:171-181)."""
+    n_win: int         # windows
+    window: int        # interpolated samples per window
+    margin: int        # left context of each window
+    spw: int           # symbol slots per window
+
+
+def layout(cap: int, window: int, step_size: float, err_limit: float,
+           margin=None) -> Layout:
+    if margin is None:
+        # the mid-bit sample lies step_size/2 behind the on-time read
+        margin = max(16, int(np.ceil(step_size / 2.0 + err_limit)) + 2)
+    if cap % window:
+        raise ValueError(f"length {cap} is not a multiple of the window "
+                         f"{window}")
+    return Layout(n_win=cap // window, window=window, margin=margin,
+                  spw=int(window / step_size * 1.08) + 4)
+
+
+def gardner_manchester_ref(fstate, istate, x, t, n, p: GardnerParams,
+                           lay: Layout):
+    """Plain PyTorch version of :func:`gardner_manchester`: the JAX windowed
+    scan, slot by slot, with the window buffers read in place (window w's
+    buffer entry k is sample w*window - margin + k, zero before the
+    stream)."""
+    f32, i32 = torch.float32, torch.int32
+    ns, half_raw, prev_bit, m_cur, m_prev, m_prevprev = fstate
+    clockmod, evenodd = istate
+    dev = x.device
+    like = ns
+    c = lambda v: lane_const(v, like)
+    kp, err_limit, neg_limit = c(p.kp), c(p.err_limit), c(-np.float32(
+        p.err_limit))
+    step = c(p.step_size)
+    half_step = c(np.float32(p.step_size) / np.float32(2.0))
+    thr, zero = c(p.resync_threshold), c(0.0)
+    one_u8 = torch.ones(like.shape, dtype=torch.uint8, device=dev)
+    span = lay.window + lay.margin
+    # xp[j] = x[j - margin]: every window's buffer is a slice of it
+    xp = torch.nn.functional.pad(x.to(f32), (lay.margin, 0))
+    tp = torch.nn.functional.pad(t.to(f32), (lay.margin, 0))
+    bits, btimes, emits = [], [], []
+    for w in range(lay.n_win):
+        w_end = torch.clamp(n, max=(w + 1) * lay.window).to(f32)
+        base = w * lay.window - lay.margin
+        for _ in range(lay.spw):
+            idxf = torch.round(ns)
+            active = idxf < w_end
+            ii = torch.clamp(idxf.to(i32) - base, 0, span - 1)
+            at = (ii + w * lay.window).to(torch.int64)[:, None]
+            cur = torch.gather(xp, 1, at)[:, 0]
+            tval = torch.gather(tp, 1, at)[:, 0]
+            hidxf = torch.round(half_raw)
+            hl = hidxf.to(i32) - base
+            h_ok = (hl >= 0) & (hl < span) & (hidxf >= 0)
+            hat = (torch.clamp(hl, 0, span - 1)
+                   + w * lay.window).to(torch.int64)[:, None]
+            hval = torch.where(h_ok, torch.gather(xp, 1, hat)[:, 0], zero)
+
+            err = torch.clamp(kp * (cur - prev_bit) * hval, neg_limit,
+                              err_limit)
+            ns_adj = ns - err
+            half_new = ns_adj + half_step
+            ns_new = ns_adj + step
+
+            # Manchester on this symbol (ManchesterDecode.c:27-97)
+            prevprev, prev = m_prev, m_cur
+            mismatch = evenodd != clockmod
+            strong = (torch.abs(prevprev) > thr) & (torch.abs(prev) > thr)
+            resync = mismatch & (fastmath.sign(prevprev)
+                                 == fastmath.sign(prev)) & strong
+            cm = torch.where(resync, evenodd, clockmod)
+            boundary = evenodd == cm
+            use_prev = torch.abs(prev) > torch.abs(cur)
+            bit = torch.where(use_prev, (prev > 0).to(torch.uint8),
+                              one_u8 - (cur > 0).to(torch.uint8))
+            bits.append(bit)
+            btimes.append(tval)
+            emits.append(active & boundary)
+
+            ns = torch.where(active, ns_new, ns)
+            half_raw = torch.where(active, half_new, half_raw)
+            prev_bit = torch.where(active, cur, prev_bit)
+            clockmod = torch.where(active, cm, clockmod)
+            evenodd = torch.where(active, (evenodd + 1) & 1, evenodd)
+            m_cur = torch.where(active, cur, m_cur)
+            m_prev = torch.where(active, prev, m_prev)
+            m_prevprev = torch.where(active, prevprev, m_prevprev)
+    # chunk rollover (JAX clock.py:262): half_raw is kept
+    ns = ns - n.to(f32)
+    return ((ns, half_raw, prev_bit, m_cur, m_prev, m_prevprev),
+            (clockmod, evenodd), torch.stack(bits, 1),
+            torch.stack(btimes, 1), torch.stack(emits, 1))
+
+
+def gardner_manchester(fstate, istate, x, t, n, p: GardnerParams,
+                       lay: Layout):
+    """Gardner timing + Manchester decision over (B, cap) float32 `x` and
+    time plane `t`, cap = lay.n_win * lay.window; n: (B,) int32 valid
+    lengths.  fstate: six (B,) float32 planes (next_sample, half_raw,
+    prev_bit, Manchester cur, prev, prevprev); istate: two (B,) int32
+    planes (clockmod, evenodd).  Returns (fstate, istate, bits
+    (B, n_win*spw) uint8, bit_times float32, emit bool).  CPU tensors run
+    :func:`gardner_manchester_ref`."""
+    dev = x.device
+    if dev.type == "cpu":
+        return gardner_manchester_ref(fstate, istate, x, t, n, p, lay)
+    if dev.type != "cuda":
+        raise ValueError(f"gardner_manchester runs on cpu or cuda, not {dev}")
+    B, cap = x.shape
+    if cap != lay.n_win * lay.window:
+        raise ValueError(f"x has {cap} samples, layout {lay} needs "
+                         f"{lay.n_win * lay.window}")
+    check("x", x, (B, cap), (torch.float32,), dev)
+    check("t", t, (B, cap), (torch.float32,), dev)
+    check("n", n, (B,), (torch.int32,), dev)
+    for k, s in enumerate(fstate):
+        check(f"fstate[{k}]", s, (B,), (torch.float32,), dev)
+    for k, s in enumerate(istate):
+        check(f"istate[{k}]", s, (B,), (torch.int32,), dev)
+    xt = x.t().contiguous()           # time-major (cap, B)
+    tt = t.t().contiguous()
+    f_in = torch.stack(list(fstate)).contiguous()
+    i_in = torch.stack(list(istate)).contiguous()
+    n = n.contiguous()
+    slots = lay.n_win * lay.spw
+    bits = torch.empty((slots, B), dtype=torch.uint8, device=dev)
+    btimes = torch.empty((slots, B), dtype=torch.float32, device=dev)
+    emit = torch.empty((slots, B), dtype=torch.bool, device=dev)
+    f_out = torch.empty_like(f_in)
+    i_out = torch.empty_like(i_in)
+    params = np.array(p, np.float32)
+    launch(dev, "pdt_gardner_manchester", xt.data_ptr(), tt.data_ptr(),
+           n.data_ptr(), f_in.data_ptr(), i_in.data_ptr(), bits.data_ptr(),
+           btimes.data_ptr(), emit.data_ptr(), f_out.data_ptr(),
+           i_out.data_ptr(), B, lay.n_win, lay.window, lay.margin, lay.spw,
+           params.ctypes.data_as(ctypes.c_void_p), params.size)
+    gardner_manchester.launches += 1
+    return (tuple(f_out.unbind(0)), tuple(i_out.unbind(0)), bits.t(),
+            btimes.t(), emit.t())
+
+
+gardner_manchester.launches = 0

@@ -1,13 +1,32 @@
-"""Bit compaction of the fused kernel's dense per-sample output.
+"""Manchester decoder state and bit compaction.
 
-Twins of ``project_desert_tortoise_tpu/ops/manchester.py::compress_sorted``
-and ``compress_spaced`` (``manchester.py:93-135``).  The Manchester decision
-itself runs inside the fused kernel.
+Twins of ``project_desert_tortoise_tpu/ops/manchester.py``:
+``ManchesterState``, ``manchester_init`` (``manchester.py:20-31``),
+``compress_sorted`` and ``compress_spaced`` (``manchester.py:93-135``).  The
+Manchester decision itself runs inside the kernels (the fused kernel, and
+``ops/kernels/scan_kernels.py::gardner_manchester``).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+
+class ManchesterState(NamedTuple):
+    clockmod: torch.Tensor   # int32 0/1
+    evenodd: torch.Tensor    # int32 0/1 (uchar counter mod 2)
+    cur: torch.Tensor
+    prev: torch.Tensor
+    prevprev: torch.Tensor
+
+
+def manchester_init(batch_shape=(), *, device,
+                    dtype=torch.float32) -> ManchesterState:
+    z = torch.zeros(batch_shape, dtype=dtype, device=device)
+    zi = torch.zeros(batch_shape, dtype=torch.int32, device=device)
+    return ManchesterState(clockmod=zi, evenodd=zi, cur=z, prev=z, prevprev=z)
 
 
 def compress_sorted(values, times, mask, capacity: int):

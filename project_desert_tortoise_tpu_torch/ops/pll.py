@@ -6,8 +6,8 @@ second-order loop on the wrapped fast-atan2 phase error, BPSK data on the
 imaginary arm, EWMA lock detector over the Q_rsqrt-normalised carrier
 projection, triangle frequency sweep during acquisition and a one-shot
 acquisition->track bandwidth switch.  Every operation is one float32 op in
-the JAX order, so the kernel in ``csrc/fused_demod.cu`` can match it bit for
-bit on the card.
+the JAX order, so the kernels' step (``csrc/pdt_common.cuh::pll_step``)
+matches it bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -191,9 +191,12 @@ def step(params: PLLParams, state: PLLState, zre, zim):
                            *input_terms(zre, zim))
 
 
-def pll_scan(params: PLLParams, state: PLLState, zre, zim):
-    """Plain loop over the last axis of (..., n) planes; returns
-    (state, out, locksig) with the outputs shaped like the input."""
+def pll_scan_ref(params: PLLParams, state: PLLState, zre, zim):
+    """The PLL over the last axis of (..., n) planes (JAX ``pll_scan``) as
+    a plain loop, on any device; returns (state, out, locksig) with the
+    outputs shaped like the input.  It is the plain version of the kernel
+    ``ops/kernels/pll_kernel.py::pll_scan_kernel``, the entry point that
+    runs it on CPU tensors."""
     k = loop_consts(params, state.phase)
     cols = [x.unbind(-1) for x in (zre, zim, *input_terms(zre, zim))]
     outs, locks = [], []

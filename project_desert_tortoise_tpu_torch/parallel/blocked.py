@@ -3,9 +3,16 @@
 Counterpart of ``project_desert_tortoise_tpu/parallel/blocked.py``.  The
 recording is cut into overlapping ``[head | core | tail]`` blocks; each
 block's PLL is warm-started from an FFT estimate of its own carrier, every
-block is one lane of the fused kernel (``ops/kernels/fused_kernel.py``), and
-the frames found in each block are kept when their sync falls inside the
-block's core, which tiles the recording exactly.
+block is one lane of the chain, and the frames found in each block are kept
+when their sync falls inside the block's core, which tiles the recording
+exactly.
+
+The chain runs on one of three branches, JAX's ``use_pallas`` values:
+``"fused"`` (the whole chain in one kernel, ``ops/kernels/fused_kernel.py``;
+the port's default), ``"front"`` (PLL + FIR + AGC in one kernel,
+``ops/kernels/chain_kernel.py``, then the windowed Gardner/Manchester
+kernel) and ``False`` (the PLL kernel, the FIR as a convolution, the AGC
+kernel, then the same Gardner/Manchester kernel).
 
 Lanes are the only parallel axis on the card, so by default all blocks of a
 recording go into one launch (capped by a memory budget); the JAX package's
@@ -32,16 +39,25 @@ import torch
 
 from project_desert_tortoise_tpu_torch import chain as chain_lib
 from project_desert_tortoise_tpu_torch.ops import agc as agc_ops
+from project_desert_tortoise_tpu_torch.ops import clock as clock_ops
+from project_desert_tortoise_tpu_torch.ops import fir as fir_ops
 from project_desert_tortoise_tpu_torch.ops import framer as framer_ops
 from project_desert_tortoise_tpu_torch.ops import manchester as man_ops
 from project_desert_tortoise_tpu_torch.ops import pll as pll_ops
 from project_desert_tortoise_tpu_torch.ops.framer import Frame
+from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
+    pll_fir_agc)
 from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
     fused_demod)
+from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
+    pll_scan_kernel)
 
-# device bytes one (lane, sample) needs across the path: input, time and
-# output planes, their time-major copies and the compaction temporaries
-_LANE_SAMPLE_BYTES = 64
+# device bytes one (lane, input sample) needs across each branch: input,
+# time and output planes, their time-major copies and the compaction
+# temporaries; the two unfused branches also hold the interpolated stream
+# (`interp` values per sample) and its time plane.  About 1.5x the peaks
+# measured on a 12-minute POES pass (~56 and ~60 bytes, PERF.md).
+_LANE_SAMPLE_BYTES = {"fused": 64, "front": 80, False: 96}
 _BATCH_BYTES = 8 << 30
 
 
@@ -69,9 +85,21 @@ def default_plan(mode_cfg, fs: float, core: Optional[int] = None,
     return BlockPlan(core=core, head=head, tail=tail, max_frames=max_frames)
 
 
-def max_lanes(plan: BlockPlan) -> int:
-    """Blocks per launch that fit the memory budget."""
-    return max(1, _BATCH_BYTES // (plan.total * _LANE_SAMPLE_BYTES))
+def branch(use_pallas):
+    """The branch a JAX ``use_pallas`` value names: "fused", "front"
+    (also True, as in JAX) or False."""
+    if use_pallas is True:
+        return "front"
+    if use_pallas in ("fused", "front") or use_pallas is False:
+        return use_pallas
+    raise ValueError(f"use_pallas={use_pallas!r}: expected False, 'front' "
+                     "(or True) or 'fused'")
+
+
+def max_lanes(plan: BlockPlan, use_pallas="fused") -> int:
+    """Blocks per launch that fit the memory budget of the branch."""
+    return max(1, _BATCH_BYTES // (plan.total
+                                   * _LANE_SAMPLE_BYTES[branch(use_pallas)]))
 
 
 def coarse_carrier_est(zre, zim, fs: float, line_spacing_hz: float = 8320.0,
@@ -129,23 +157,70 @@ def warm_state(params: chain_lib.ChainParams, freq_est, fs: float,
 
 
 def demod_blocks(params: chain_lib.ChainParams, total: int, blocks_re,
-                 blocks_im, fs: float, t_next, freq_est, norm_gain: float):
-    """Demodulate (B, total) sample blocks -> compressed per-block bits.
+                 blocks_im, fs: float, t_next, freq_est, norm_gain: float,
+                 window: int = 4096, use_pallas="fused"):
+    """Demodulate (B, total) sample blocks -> compressed per-block bits
+    (JAX ``demod_blocks``, ``blocked.py:175-323``).
 
     t_next: (B, total) float32 time plane, the values the chain reports as
     bit times (here :func:`sample_positions`); freq_est: (B,) coarse
-    carrier in Hz.
+    carrier in Hz.  use_pallas picks the branch (:func:`branch`); window:
+    input samples per Gardner window of the unfused branches (JAX's
+    default), which fixes their slot layout (total % window == 0).
     Returns (bits (B, cap) uint8, bit_times, n_bits, avg_phase).
     """
+    use_pallas = branch(use_pallas)
     pll_state, gain0 = warm_state(params, freq_est, fs, norm_gain)
-    bits_f, btimes_f, emit_f, avg_phase = fused_demod(
-        params, pll_state, gain0, (blocks_re, blocks_im), t_next)
-    # bit emissions are >= ~6 input samples apart (one per 2 Gardner
-    # symbols), so a 4-sample chunk holds at most one
-    max_bits = total // 4 + 8
-    bits_c, times_c, n_bits = man_ops.compress_spaced(
-        bits_f.to(torch.uint8), btimes_f, emit_f, max_bits, min_spacing=4)
-    return bits_c, times_c, n_bits, avg_phase
+    if use_pallas == "fused":
+        bits_f, btimes_f, emit_f, avg_phase = fused_demod(
+            params, pll_state, gain0, (blocks_re, blocks_im), t_next)
+        # bit emissions are >= ~6 input samples apart (one per 2 Gardner
+        # symbols), so a 4-sample chunk holds at most one
+        max_bits = total // 4 + 8
+        bits_c, times_c, n_bits = man_ops.compress_spaced(
+            bits_f.to(torch.uint8), btimes_f, emit_f, max_bits,
+            min_spacing=4)
+        return bits_c, times_c, n_bits, avg_phase
+
+    if total % window:
+        raise ValueError(f"block length {total} is not a multiple of the "
+                         f"window {window}")
+    interp = params.interp
+    if params.squelch_position == "after_agc" and interp > 1:
+        # JAX squelches y (B, total*interp) with |locksig| (B, total)
+        # there, which only broadcasts for interp == 1
+        raise ValueError("an after-AGC squelch needs interp == 1 on the "
+                         f"unfused branches (interp = {interp})")
+    if blocks_re.dtype == torch.int16:     # PCM planes: exact /32768
+        blocks_re = blocks_re.to(torch.float32) * (1.0 / 32768.0)
+        blocks_im = blocks_im.to(torch.float32) * (1.0 / 32768.0)
+    # |locksig| in the squelches: warm-started blocks may settle at the
+    # inverted BPSK lock point (JAX blocked.py:274-282)
+    if use_pallas == "front":
+        pll_state, _, y, locksig = pll_fir_agc(
+            params, pll_state, gain0, (blocks_re, blocks_im))
+    else:
+        pll_state, soft, locksig = pll_scan_kernel(
+            params.pll, pll_state, (blocks_re, blocks_im))
+        if params.squelch_position == "after_pll":
+            soft = agc_ops.squelch(soft, torch.abs(locksig),
+                                   params.squelch_threshold)
+        y = fir_ops.fir_interp(soft, params.taps, interp)
+        _, y = agc_ops.agc_scan(agc_ops.AGCState(gain=gain0), y,
+                                params.agc_attack, params.agc_decay)
+    if params.squelch_position == "after_agc":
+        y = agc_ops.squelch(y, torch.abs(locksig), params.squelch_threshold)
+    t_out = fir_ops.fir_out_times(t_next, interp) if interp > 1 else t_next
+
+    B, dev = blocks_re.shape[0], blocks_re.device
+    _, _, bits, bit_times, bit_mask = clock_ops.gardner_manchester_windowed(
+        clock_ops.gardner_init((B,), device=dev),
+        man_ops.manchester_init((B,), device=dev), y, t_out, total * interp,
+        params.step_size, params.gardner_err_limit, params.gardner_gain,
+        params.resync_threshold, window=window * interp)
+    bits_c, times_c, n_bits = man_ops.compress_sorted(
+        bits, bit_times, bit_mask, bits.shape[-1] // 2 + 8)
+    return bits_c, times_c, n_bits, pll_state.avg_phase
 
 
 def sample_positions(lo, n: int, total: int, shift: int):
@@ -162,7 +237,7 @@ def sample_positions(lo, n: int, total: int, shift: int):
 
 def demod_frames(params: chain_lib.ChainParams, plan: BlockPlan, framer_cfg,
                  fs: float, blocks_re, blocks_im, lo, n: int, freq_est,
-                 norm_gain: float):
+                 norm_gain: float, window: int = 4096, use_pallas="fused"):
     """demod_blocks + frame extraction + stitching on sample positions.
 
     lo: (B,) int64 global index of each block's first sample; n: samples in
@@ -173,7 +248,7 @@ def demod_frames(params: chain_lib.ChainParams, plan: BlockPlan, framer_cfg,
     pos = sample_positions(lo, n, plan.total, shift)
     bits_c, pos_c, n_bits, _ = demod_blocks(
         params, plan.total, blocks_re, blocks_im, fs, pos, freq_est,
-        norm_gain)
+        norm_gain, window, use_pallas)
     B = blocks_re.shape[0]
     fb = framer_ops.frame_extract(bits_c, pos_c, n_bits, framer_cfg,
                                   plan.max_frames)
@@ -230,14 +305,22 @@ def stage_blocks(re, im, plan: BlockPlan, b0: int, bn: int, dt):
 def demodulate_blocked(iq, t, fs, mode_cfg, norm_factor: Optional[float] = None,
                        plan: Optional[BlockPlan] = None,
                        batch_blocks: Optional[int] = None,
+                       window: int = 4096, use_pallas="fused",
                        *, device="cuda") -> List[Frame]:
     """Demodulate a whole recording via parallel blocks on `device`;
     returns complete frames in stream order, timed by `t` (the
     reference's float32 accumulated axis as ``utils/wav.py`` builds it).
 
     Runs float32.  batch_blocks=None puts every block of the recording into
-    one launch, as far as :func:`max_lanes` allows.  A CUDA device runs the
-    fused kernel; a CPU device runs its plain PyTorch version.
+    one launch, as far as :func:`max_lanes` allows for the branch.  A CUDA
+    device runs the kernels; a CPU device runs their plain PyTorch
+    versions.
+
+    use_pallas picks the branch ("fused", "front" or True, False; see
+    :func:`demod_blocks`).  The default, "fused", differs from JAX's
+    default (False, its XLA scans), which is what the JAX CLI's ``--fast``
+    runs.  The port runs the branch it is asked for at any block count;
+    JAX silently falls back to its XLA branch when B % 128 != 0.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -257,7 +340,7 @@ def demodulate_blocked(iq, t, fs, mode_cfg, norm_factor: Optional[float] = None,
         else np.zeros(1, dt)
 
     n_blocks = max(1, -(-n // plan.core))
-    batch_blocks = batch_blocks or max_lanes(plan)
+    batch_blocks = batch_blocks or max_lanes(plan, use_pallas)
     frames: List[Frame] = []
     pending = None
     for b0 in range(0, n_blocks, batch_blocks):
@@ -269,7 +352,7 @@ def demodulate_blocked(iq, t, fs, mode_cfg, norm_factor: Optional[float] = None,
                                   mode_cfg.gardner.baud / 2.0)
         stitched = demod_frames(params, plan, mode_cfg.framer, float(fs),
                                 jre, jim, torch.from_numpy(lo).to(dev), n,
-                                fest, float(norm_factor))
+                                fest, float(norm_factor), window, use_pallas)
         # fetch batch k-1 only after dispatching batch k: host staging of
         # the next batch overlaps device compute of the current one
         if pending is not None:

@@ -44,11 +44,30 @@ def recording():
     return iq, t, sent, frames
 
 
-def test_demodulate_blocked_matches_jax(recording):
+@pytest.fixture(scope="module")
+def jax_frames(recording):
+    """JAX's frames for the recording through its XLA branch, what the JAX
+    CLI's ``--fast`` runs."""
+    iq, t, _, _ = recording
+    return JB.demodulate_blocked(iq, t, FS, POES_TIP,
+                                 plan=JB.BlockPlan(*PLAN), use_pallas=False)
+
+
+def test_demodulate_blocked_matches_jax(recording, jax_frames):
     iq, t, sent, tf = recording
-    jf = JB.demodulate_blocked(iq, t, FS, POES_TIP, plan=JB.BlockPlan(*PLAN),
-                               use_pallas=False)
-    _parity(jf, tf)
+    _parity(jax_frames, tf)
+    sent = {bytes(s) for s in sent}
+    assert sum(bytes(f.data) in sent for f in tf) >= len(sent) - 1
+
+
+@pytest.mark.parametrize("use_pallas", ["front", False])
+def test_unfused_branches_match_jax(recording, jax_frames, use_pallas):
+    """The front (PLL+FIR+AGC kernel) and scan (PLL, FIR, AGC kernels)
+    branches against JAX's XLA branch."""
+    iq, t, sent, _ = recording
+    tf = TB.demodulate_blocked(iq, t, FS, POES_TIP, plan=TB.BlockPlan(*PLAN),
+                               use_pallas=use_pallas, device="cpu")
+    _parity(jax_frames, tf)
     sent = {bytes(s) for s in sent}
     assert sum(bytes(f.data) in sent for f in tf) >= len(sent) - 1
 

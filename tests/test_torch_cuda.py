@@ -1,11 +1,13 @@
-"""The CUDA fused kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+the fused chain, the front-half chain (PLL+FIR+AGC), the PLL scan, the AGC
+scan and the windowed Gardner/Manchester scan.
 
 Marked ``cuda``; skips without a card.  On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-The kernel is built with -fmad=false and without fast math, so it agrees
-with the plain version bit for bit: emitted bits, bit times and emit masks.
+The kernels are built with -fmad=false and without fast math, so they
+agree with the plain versions bit for bit on every output.
 """
 
 import numpy as np
@@ -13,9 +15,14 @@ import pytest
 import torch
 
 from project_desert_tortoise_tpu_torch import chain
-from project_desert_tortoise_tpu_torch.ops import pll
+from project_desert_tortoise_tpu_torch.ops import fir, pll
+from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
+    pll_fir_agc, pll_fir_agc_ref)
 from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
     fused_demod, fused_demod_ref)
+from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
+    pll_scan_kernel)
 from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
 
 FS = 50000.0
@@ -74,3 +81,107 @@ def test_kernel_refuses_bad_input(card):
     argos_like = params._replace(interp=1, taps=params.taps[:50])
     with pytest.raises(NotImplementedError):
         fused_demod(argos_like, st, gain, (z, z), z)
+
+
+def _equal(got, want):
+    for a, b in zip(got, want):
+        if isinstance(a, tuple):
+            _equal(a, b)
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("squelch", [None, "after_pll"])
+def test_pll_fir_agc_matches_plain_on_card(card, squelch):
+    params = chain.make_params(POES_TIP, FS)._replace(
+        squelch_threshold=0.05 if squelch else None, squelch_position=squelch)
+    B, L = 100, 1500
+    re, im, _ = _input(B, L, 2, card)
+    z = (torch.from_numpy(re).to(card), torch.from_numpy(im).to(card))
+    st = pll.init_state(params.pll, (B,), device=card)
+    gain = torch.full((B,), 17.58, device=card)
+    before = pll_fir_agc.launches
+    got = pll_fir_agc(params, st, gain, z)
+    torch.cuda.synchronize()
+    assert pll_fir_agc.launches == before + 1
+    _equal(got, pll_fir_agc_ref(params, st, gain, z))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True])
+def test_pll_scan_matches_plain_on_card(card, warm):
+    params = chain.make_params(POES_TIP, FS).pll
+    B, L = 100, 1500
+    re, im, _ = _input(B, L, 3, card)
+    st = pll.init_state(params, (B,), device=card)
+    if warm:
+        st = st._replace(freq=torch.full((B,), 0.1, device=card),
+                         locked=torch.ones((B,), dtype=torch.bool,
+                                           device=card))
+    z = (torch.from_numpy(re).to(card), torch.from_numpy(im).to(card))
+    before = pll_scan_kernel.launches
+    got = pll_scan_kernel(params, st, z)
+    torch.cuda.synchronize()
+    assert pll_scan_kernel.launches == before + 1
+    _equal(got, pll.pll_scan_ref(params, st, *z))
+
+
+@pytest.mark.cuda
+def test_agc_scan_matches_plain_on_card(card):
+    params = chain.make_params(POES_TIP, FS)
+    B, n = 100, 4500
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.standard_normal((B, n)) * np.linspace(
+        0.01, 2.0, n)).astype(np.float32)).to(card)
+    gain = torch.full((B,), 17.58, device=card)
+    p = sk.AGCParams(params.agc_attack, params.agc_decay)
+    before = sk.agc_scan.launches
+    got = sk.agc_scan(gain, x, p)
+    torch.cuda.synchronize()
+    assert sk.agc_scan.launches == before + 1
+    _equal(got, sk.agc_scan_ref(gain, x, p))
+
+
+@pytest.mark.cuda
+def test_fir_interp_full_float32_on_card(card):
+    """The scan branch's FIR convolution sums in float32 on the card (no
+    TF32): within 1e-5 of the float64 sum at unit input amplitude.  TF32's
+    10-bit mantissa would be off by about 1e-3 wherever cuDNN picked a
+    TF32 algorithm for this one-channel convolution."""
+    params = chain.make_params(POES_TIP, FS)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (100, 4500)).astype(np.float32))
+    want = fir.fir_interp(x.double(), params.taps, params.interp)
+    got = fir.fir_interp(x.to(card), params.taps, params.interp)
+    assert got.dtype == torch.float32
+    assert float((got.cpu().double() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_gardner_manchester_matches_plain_on_card(card):
+    params = chain.make_params(POES_TIP, FS)
+    B, L = 100, 1500
+    re, im, _ = _input(B, L, 5, card)
+    z = (torch.from_numpy(re).to(card), torch.from_numpy(im).to(card))
+    st = pll.init_state(params.pll, (B,), device=card)
+    _, _, y, _ = pll_fir_agc_ref(params, st, torch.full((B,), 17.58,
+                                                        device=card), z)
+    cap = 3 * 1536                         # two windows of 768 samples
+    y = torch.nn.functional.pad(y, (0, cap - y.shape[1]))
+    t = torch.arange(1, cap + 1, dtype=torch.float32,
+                     device=card).expand(B, cap)
+    p = sk.GardnerParams(params.step_size, params.gardner_err_limit,
+                         params.gardner_gain, params.resync_threshold)
+    lay = sk.layout(cap, cap // 2, params.step_size,
+                    params.gardner_err_limit)
+    zf = torch.zeros((B,), device=card)
+    zi = torch.zeros((B,), dtype=torch.int32, device=card)
+    n = torch.full((B,), 3 * L - 100, dtype=torch.int32, device=card)
+    args = ((zf,) * 6, (zi, zi), y, t, n, p, lay)
+    before = sk.gardner_manchester.launches
+    got = sk.gardner_manchester(*args)
+    torch.cuda.synchronize()
+    assert sk.gardner_manchester.launches == before + 1
+    assert int(got[4].sum()) > 10 * B
+    _equal(got, sk.gardner_manchester_ref(*args))

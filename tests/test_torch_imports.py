@@ -1,4 +1,5 @@
-"""The PyTorch port imports without jax, and no port file imports jax."""
+"""The PyTorch port imports without jax and without the JAX package, and
+no port file (nor chip_smoke.py) imports either."""
 
 import os
 import pathlib
@@ -12,9 +13,15 @@ PKG = REPO / "project_desert_tortoise_tpu_torch"
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 
+JAX_PKG = "project_desert_tortoise_tpu"
+
+def blocked(name):
+    return (name == "jax" or name.startswith(("jax.", "jaxlib"))
+            or name == JAX_PKG or name.startswith(JAX_PKG + "."))
+
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if blocked(name):
             raise ImportError(f"{name} is blocked")
 
 sys.meta_path.insert(0, BlockJax())
@@ -22,7 +29,7 @@ import project_desert_tortoise_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
-assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+assert not any(blocked(k) for k in sys.modules)
 print(len(mods))
 """
 
@@ -41,3 +48,13 @@ def test_no_port_file_imports_jax():
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert offenders == []
+
+
+def test_no_port_file_imports_the_jax_package():
+    pat = re.compile(r"^\s*(import|from)\s+project_desert_tortoise_tpu[\s.]",
+                     re.M)
+    files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [str(f) for f in files if pat.search(f.read_text())]
+    assert offenders == []
+    assert pat.search("from project_desert_tortoise_tpu.utils import wav")
+    assert not pat.search("from project_desert_tortoise_tpu_torch import x")
