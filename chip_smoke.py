@@ -2,19 +2,28 @@
 """On-card smoke run of the PyTorch/CUDA port (one CUDA card).
 
 Builds the kernels from the sources of this checkout (one library, one
-nvcc per source in parallel), holds each against its plain PyTorch version
-on the card, checks the block-parallel slice on the CPU against the card
-on each of its three branches (``use_pallas`` "fused", "front", False),
-and decodes a synthetic 12-minute NOAA POES pass (50 kHz, 36 M samples)
-through the port's CLI, ``demod_poes --fast`` (the fused branch), and
-through ``demodulate_blocked`` on the front and scan branches.  It then
-times the steps of each path one by one (``stages`` lines), and times each
-kernel on the main path's blocks and holds it there against its plain
-version bit for bit (the fused kernel on the whole blocks, the others on
-their first 32,768 samples).  Each phase prints one JSON line; any
-failure raises and the script exits non-zero.  The last lines are the
-kernel table, the card's name and power limit as nvidia-smi reports them,
-and ``{"ok": true, "device": {...}}``.
+nvcc per source in parallel) and holds each against its plain PyTorch
+version on the card, bit for bit: at small shapes, then on the blocks the
+main paths stage (their first 32,768 or 8,192 samples).  It checks the
+block-parallel slice on the CPU against the card on each of its three
+branches (``use_pallas`` "fused", "front", False), for POES and for ARGOS,
+and drives the port's three entry points:
+
+- a synthetic 12-minute NOAA POES pass (50 kHz, 36 M samples, 7,201
+  minor frames) through ``demod_poes --fast`` (the fused branch, on
+  in-kernel time generation), whose lines must equal those of the fused
+  path on the staged position plane, then through ``demodulate_blocked``
+  on the front and scan branches;
+- a synthetic 12-minute ARGOS pass (32 kHz, 23.04 M samples, 589
+  packets) through ``demod_argos --fast`` and the same two branches;
+- the two ablation tools (``project_desert_tortoise_tpu_torch/tools``),
+  every variant at 128 and at 4,224 lanes (``ablation`` lines).
+
+It times the steps of each pass one by one (``stages`` lines) and each
+kernel on the blocks of its pass.  Each phase prints one JSON line, with
+``t`` the seconds since the start; any failure raises and the script exits
+non-zero.  The last lines are the kernel table, the card's name and power
+limit as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py
 
@@ -24,8 +33,12 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -34,13 +47,38 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-FS = 50000.0
+T0 = time.time()
+POES_FS, ARGOS_FS = 50000.0, 32000.0
 SMALL_PLAN = (8192, 12288, 8192, 8)      # core, head, tail, max_frames
+ARGOS_SMALL_PLAN = (8192, 8192, 8192, 8)  # tests/test_blocked_argos.py's
 PASS_FRAMES = 7200                       # 12 minutes of 0.1 s minor frames
-# samples per lane of the unfused branches' kernels' plain-version checks
-# on the main path's blocks: 8 of its 4,096-sample Gardner windows (the
-# plain versions are per-sample loops of ~0.1-1.7 ms a step on the card)
+ARGOS_PACKETS = 589                      # 12 minutes of 1.2225 s packets
+# the packets of that ARGOS pass which the JAX package's fast path
+# (demodulate_blocked, use_pallas=False, default plan) does not decode:
+# after each 0.9 s noise gap the squelch after the AGC (|lock| below its
+# threshold) can zero a packet's preamble and sync word before the lock
+# signal has risen.  tests/test_torch_argos_pass.py recomputes the list
+# with the JAX package on the CPU.
+ARGOS_REFERENCE_MISSED = (
+    0, 11, 12, 13, 24, 47, 55, 86, 102, 105, 109, 115, 170, 175, 178, 203,
+    208, 214, 215, 219, 222, 229, 273, 290, 306, 343, 381, 397, 403, 404,
+    447, 453, 459, 464, 470, 482, 500, 534, 555, 556, 558, 575, 587)
+# what else that fast path decodes on the pass (packets whose tail the
+# squelch zeroed), in hex; the test recomputes it too
+ARGOS_REFERENCE_EXTRA = ("250e9fffffffff", "77b73fffffffff")
+# samples per lane of the plain-version checks on the main paths' blocks:
+# 8 of the unfused branches' 4,096-sample Gardner windows (the plain
+# versions are per-sample loops of ~0.1-3.5 ms a step on the card); the
+# POES fused kernel on the staged plane, which the CLI no longer runs, and
+# ARGOS's scan-branch kernels (two of its Gardner windows), on the first
+# 8,192
 MAIN_CHECK_L = 32768
+PLANE_CHECK_L = 8192
+# the ablation tools: lane counts (S x 128) of the timed runs, at each of
+# which every variant is checked against its plain version over
+# (steps, window)
+ABLATION_S = (1, 33)
+ABLATION_CHECK = (1024, 256)
 CSRC = "project_desert_tortoise_tpu_torch/csrc/"
 JAX = "project_desert_tortoise_tpu/"
 # name: (source, the TPU kernel or XLA scan it replaces)
@@ -52,18 +90,30 @@ KERNELS = {
     "pll_scan": (CSRC + "pll_kernel.cu", JAX + "ops/pallas/pll_kernel.py:60"),
     "agc_scan": (CSRC + "scan_kernels.cu", JAX + "ops/agc.py:65"),
     "gardner_manchester": (CSRC + "scan_kernels.cu", JAX + "ops/clock.py:151"),
+    "ablate_kernel": (CSRC + "ablate_kernel.cu", "tools/ablate_kernel.py:32"),
+    "ablate_fused": (CSRC + "ablate_fused.cu", "tools/ablate_fused.py:42"),
 }
-# the kernels each branch of the main path launches
-BRANCH_KERNELS = {"fused": ("fused_demod",),
-                  "front": ("pll_fir_agc", "gardner_manchester"),
-                  False: ("pll_scan", "agc_scan", "gardner_manchester")}
+# the kernels each main path launches: the branches of demod_blocks and
+# the two ablation tools
+PATH_KERNELS = {"fused": ("fused_demod",),
+                "front": ("pll_fir_agc", "gardner_manchester"),
+                False: ("pll_scan", "agc_scan", "gardner_manchester"),
+                "ablate_kernel": ("ablate_kernel",),
+                "ablate_fused": ("ablate_fused",)}
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 flop/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 
 
 def emit(phase: str, **kv):
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    print(json.dumps({"phase": phase, "t": round(time.time() - T0, 1),
+                      **kv}), flush=True)
+
+
+def modes():
+    """name: (mode config, sample rate) of the two passes."""
+    from project_desert_tortoise_tpu_torch.utils.config import ARGOS, POES_TIP
+    return {"poes": (POES_TIP, POES_FS), "argos": (ARGOS, ARGOS_FS)}
 
 
 def kernel_fns() -> dict:
@@ -75,12 +125,16 @@ def kernel_fns() -> dict:
         fused_demod)
     from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
         pll_scan_kernel)
+    from project_desert_tortoise_tpu_torch.tools import (
+        ablate_fused, ablate_kernel)
     return {"fused_demod": fused_demod, "pll_fir_agc": pll_fir_agc,
             "pll_scan": pll_scan_kernel, "agc_scan": scan_kernels.agc_scan,
-            "gardner_manchester": scan_kernels.gardner_manchester}
+            "gardner_manchester": scan_kernels.gardner_manchester,
+            "ablate_kernel": ablate_kernel.ablate_kernel,
+            "ablate_fused": ablate_fused.ablate_fused}
 
 
-def drive(path: str, fn):
+def drive(path, fn):
     """Run one main path: every kernel count set to 0 just before fn(),
     read just after; fails unless each kernel of the path launched.
     Returns (fn's result, {kernel: launches})."""
@@ -92,7 +146,7 @@ def drive(path: str, fn):
     out = fn()
     torch.cuda.synchronize()
     counts = {k: f.launches for k, f in fns.items()}
-    missing = [k for k in BRANCH_KERNELS[path] if counts[k] <= 0]
+    missing = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
     if missing:
         raise AssertionError(f"path {path!r} did not launch {missing}")
     return out, counts
@@ -111,7 +165,7 @@ def max_abs_err(a, b) -> float:
     """Largest absolute difference over matching outputs (nested tuples of
     tensors)."""
     if isinstance(a, (tuple, list)):
-        return max(max_abs_err(x, y) for x, y in zip(a, b))
+        return max((max_abs_err(x, y) for x, y in zip(a, b)), default=0.0)
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
@@ -198,8 +252,34 @@ def test_input(B: int, L: int, seed: int = 0):
     base = np.repeat(sym, 3, axis=1)[:, :L]
     re = (base * 0.01 + 0.002 * rng.standard_normal((B, L))).astype(np.float32)
     im = (0.002 * rng.standard_normal((B, L))).astype(np.float32)
-    tn = np.tile(np.arange(1, L + 1, dtype=np.float32) / FS, (B, 1))
+    tn = np.tile(np.arange(1, L + 1, dtype=np.float32) / POES_FS, (B, 1))
     return re, im, tn
+
+
+def argos_input(B: int, L: int, seed: int = 0):
+    """The ARGOS test input of tests/test_pallas_fused.py:101-108:
+    40-sample BPSK symbols with noise, float32."""
+    rng = np.random.default_rng(seed)
+    sym = rng.choice([-1.0, 1.0], size=(B, L // 40 + 2))
+    base = np.repeat(sym, 40, axis=1)[:, :L]
+    re = (base * 0.01 + 0.001 * rng.standard_normal((B, L))).astype(np.float32)
+    im = (0.001 * rng.standard_normal((B, L))).astype(np.float32)
+    return re, im
+
+
+def to_int16(a):
+    return np.clip(np.round(a * 32768.0), -32768, 32767).astype(np.int16)
+
+
+def tgen_inputs(B: int, fs: float, pad: int, dev):
+    """Time generation's inputs for a small check: lane b seeded at
+    0.25 b + ts, lane 0 with a zero-padded head of `pad` samples."""
+    import torch
+    ts = float(np.float32(1.0) / np.float32(fs))
+    seed = torch.arange(B, dtype=torch.float32, device=dev) * 0.25 + ts
+    pad0 = torch.zeros(B, device=dev)
+    pad0[0] = float(pad)
+    return seed, pad0, ts
 
 
 def phase_toolchain():
@@ -236,28 +316,27 @@ def phase_kernel():
     from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
 
     dev = torch.device("cuda")
-    params = chain.make_params(POES_TIP, FS)
+    params = chain.make_params(POES_TIP, POES_FS)
     B, L = 256, 4096
     re, im, tn = test_input(B, L)
-    r16 = np.clip(np.round(re * 32768.0), -32768, 32767).astype(np.int16)
-    i16 = np.clip(np.round(im * 32768.0), -32768, 32767).astype(np.int16)
     st = pll.init_state(params.pll, (B,), device=dev)
     gain = torch.full((B,), 17.58, device=dev)
     t_next = torch.from_numpy(tn).to(dev)
-    for name, (a, b) in (("f32", (re, im)), ("int16", (r16, i16))):
+    for name, (a, b) in (("f32", (re, im)),
+                         ("int16", (to_int16(re), to_int16(im)))):
         z = (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
         plain_ms, ref = cuda_ms(
             lambda: fused_demod_ref(params, st, gain, z, t_next))
         fused_demod(params, st, gain, z, t_next)          # warm-up
         ms, kern = cuda_ms(lambda: fused_demod(params, st, gain, z, t_next),
                            reps=5)
-        c = compare(kern, ref, FS)
+        c = compare(kern, ref, POES_FS)
         check_parity(c, f"kernel vs plain ({name})")
         emit("kernel_vs_plain", input=name, B=B, L=L, ms=ms,
              plain_ms=plain_ms, card=card_line(), **c)
 
     # the capture-latch guard refuses geometries the latch cannot serve
-    bad = params._replace(step_size=4.0, baud=FS * 3 / 4.0)
+    bad = params._replace(step_size=4.0, baud=POES_FS * 3 / 4.0)
     z = torch.zeros((B, 512), device=dev)
     try:
         fused_demod(bad, st, gain, (z, z), z)
@@ -272,7 +351,8 @@ def phase_kernel():
 def time_pair(name: str, case: str, kern, plain, shape, stats: dict):
     """One kernel against its plain version on the same inputs: bit-exact
     or raise; CUDA-event ms of both (the kernel's after a warm-up, over 5
-    runs).  Keeps the worst error and the slowest plain time per kernel."""
+    runs).  Keeps the worst error and the slowest plain time per kernel
+    in stats; returns (ms, plain_ms, max_abs_err)."""
     plain_ms, want = cuda_ms(plain)
     kern()
     ms, got = cuda_ms(kern, reps=5)
@@ -284,6 +364,41 @@ def time_pair(name: str, case: str, kern, plain, shape, stats: dict):
     st["max_abs_err"] = max(st["max_abs_err"], err)
     if plain_ms > st["plain_ms"]:
         st.update(plain_ms=plain_ms, plain_shape=shape)
+    return ms, plain_ms, err
+
+
+def phase_tgen_small(stats: dict):
+    """The fused kernel with in-kernel time generation against its plain
+    version at B=256, L=2048: POES f32 and int16, ARGOS f32, lane 0 with a
+    zero-padded head of 700 samples.  stats: per mode."""
+    import torch
+    from project_desert_tortoise_tpu_torch import chain
+    from project_desert_tortoise_tpu_torch.ops import pll
+    from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
+        fused_demod, fused_demod_ref)
+
+    dev = torch.device("cuda")
+    B, L, pad = 256, 2048, 700
+    poes_re, poes_im, _ = test_input(B, L, seed=1)
+    argos_re, argos_im = argos_input(B, L, seed=2)
+    cases = (("poes", "f32", poes_re, poes_im),
+             ("poes", "int16", to_int16(poes_re), to_int16(poes_im)),
+             ("argos", "f32", argos_re, argos_im))
+    for mode_name, dtype, re, im in cases:
+        mode, fs = modes()[mode_name]
+        params = chain.make_params(mode, fs)
+        re, im = re.copy(), im.copy()
+        re[0, :pad] = 0
+        im[0, :pad] = 0
+        z = (torch.from_numpy(re).to(dev), torch.from_numpy(im).to(dev))
+        st = pll.init_state(params.pll, (B,), device=dev)
+        gain = torch.full((B,), 17.58, device=dev)
+        seed, pad0, ts = tgen_inputs(B, fs, pad, dev)
+        time_pair("fused_demod", f"{mode_name} {dtype}, time generation",
+                  lambda: fused_demod(params, st, gain, z, None, seed, pad0,
+                                      ts),
+                  lambda: fused_demod_ref(params, st, gain, z, None, seed,
+                                          pad0, ts), [B, L], stats[mode_name])
 
 
 def phase_new_kernels(stats: dict):
@@ -305,7 +420,7 @@ def phase_new_kernels(stats: dict):
     from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
 
     dev = torch.device("cuda")
-    params = chain.make_params(POES_TIP, FS)
+    params = chain.make_params(POES_TIP, POES_FS)
     B, L = 256, 4096
     re, im, tn = test_input(B, L)
     z = (torch.from_numpy(re).to(dev), torch.from_numpy(im).to(dev))
@@ -346,10 +461,52 @@ def phase_new_kernels(stats: dict):
               lambda: sk.gardner_manchester_ref(*args), list(y.shape), stats)
 
 
+def phase_argos_kernels(stats: dict):
+    """The ARGOS geometry (interp 1, 50-tap FIR; the fused kernel's
+    (1, 50, 4, 4)) against the plain versions at B=256, L=2048: fused_demod
+    on a staged time plane with the mode's squelch after the AGC, f32 and
+    int16 input, and pll_fir_agc (whose caller applies that squelch)."""
+    import torch
+    from project_desert_tortoise_tpu_torch import chain
+    from project_desert_tortoise_tpu_torch.ops import pll
+    from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
+        pll_fir_agc, pll_fir_agc_ref)
+    from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
+        fused_demod, fused_demod_ref, geometry)
+    from project_desert_tortoise_tpu_torch.utils.config import ARGOS
+
+    dev = torch.device("cuda")
+    params = chain.make_params(ARGOS, ARGOS_FS)
+    g = geometry(params)
+    if ((g.interp, g.hist, g.ring_t, g.n_tg) != (1, 50, 4, 4)
+            or params.squelch_position != "after_agc"):
+        raise AssertionError(f"ARGOS geometry {g[0]}, {g[2:]}, squelch "
+                             f"{params.squelch_position}")
+    B, L = 256, 2048
+    re, im = argos_input(B, L)
+    st = pll.init_state(params.pll, (B,), device=dev)
+    gain = torch.full((B,), 50.0, device=dev)
+    tn = torch.arange(L, dtype=torch.float32, device=dev).expand(B, L)
+    tn = tn.contiguous()
+    for name, (a, b) in (("f32", (re, im)),
+                         ("int16", (to_int16(re), to_int16(im)))):
+        z = (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+        time_pair("fused_demod", f"argos {name}, staged times, squelch "
+                  "after the AGC",
+                  lambda: fused_demod(params, st, gain, z, tn),
+                  lambda: fused_demod_ref(params, st, gain, z, tn), [B, L],
+                  stats)
+    z = (torch.from_numpy(re).to(dev), torch.from_numpy(im).to(dev))
+    time_pair("pll_fir_agc", "argos", lambda: pll_fir_agc(params, st, gain, z),
+              lambda: pll_fir_agc_ref(params, st, gain, z), [B, L], stats)
+
+
 def frame_parity(a, b, fs: float) -> dict:
     """Frame-level parity: counts, payloads, timestamp shifts."""
     if len(a) != len(b):
         raise AssertionError(f"frame counts differ: {len(a)} vs {len(b)}")
+    if not a:
+        raise AssertionError("no frames decoded")
     payload_diff = sum(not np.array_equal(x.data, y.data) or
                        x.inverted != y.inverted for x, y in zip(a, b))
     shifted = sum(x.time != y.time for x, y in zip(a, b))
@@ -362,104 +519,154 @@ def frame_parity(a, b, fs: float) -> dict:
                 time_shifted=shifted)
 
 
-def phase_slice():
+def phase_slice(mode_name: str):
     """The slice on the CPU (plain versions) against the card (kernels),
-    on each branch."""
+    on each branch: POES 40 frames, ARGOS 6 packets, small plans."""
     from project_desert_tortoise_tpu_torch.parallel.blocked import (
         BlockPlan, demodulate_blocked)
     from project_desert_tortoise_tpu_torch.utils import synth, wav as W
-    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
 
-    iq, _ = synth.make_poes_recording(n_frames=40, fs=FS)
-    t = W.time_axis(len(iq), FS, np.float32)
-    plan = BlockPlan(*SMALL_PLAN)
+    mode, fs = modes()[mode_name]
+    if mode_name == "poes":
+        iq, _ = synth.make_poes_recording(n_frames=40, fs=fs)
+        plan = BlockPlan(*SMALL_PLAN)
+    else:
+        iq, _ = synth.make_argos_recording(n_packets=6, fs=fs)
+        plan = BlockPlan(*ARGOS_SMALL_PLAN)
+    t = W.time_axis(len(iq), fs, mode.np_dtype())
     for br in ("fused", "front", False):
         t0 = time.time()
-        cpu = demodulate_blocked(iq, t, FS, POES_TIP, plan=plan,
-                                 use_pallas=br, device="cpu")
+        cpu = demodulate_blocked(iq, t, fs, mode, plan=plan, use_pallas=br,
+                                 device="cpu")
         t1 = time.time()
-        gpu = demodulate_blocked(iq, t, FS, POES_TIP, plan=plan,
-                                 use_pallas=br, device="cuda")
+        gpu = demodulate_blocked(iq, t, fs, mode, plan=plan, use_pallas=br,
+                                 device="cuda")
         t2 = time.time()
-        emit("slice_cpu_vs_card", use_pallas=br, cpu_s=t1 - t0,
-             card_s=t2 - t1, **frame_parity(cpu, gpu, FS))
+        emit("slice_cpu_vs_card", mode=mode_name, use_pallas=br,
+             cpu_s=t1 - t0, card_s=t2 - t1, **frame_parity(cpu, gpu, fs))
 
 
-def phase_main_path(workdir: str):
-    """A 12-minute pass through demod_poes --fast on the card.  Returns
-    the WAV's path, the CLI's wall seconds, the kernels' launches, the
-    synthesized payloads and the (timestamp, payload) lines written."""
-    from project_desert_tortoise_tpu_torch.apps import demod_poes
+def synth_pass(mode_name: str, workdir: str):
+    """The 12-minute pass as a WAV.  Returns (path, the payloads to
+    recover, the acquisition lead-in's payload or None)."""
     from project_desert_tortoise_tpu_torch.utils import synth, wav as W
+
+    t0 = time.time()
+    _, fs = modes()[mode_name]
+    if mode_name == "poes":
+        # frame 0 is the acquisition lead-in (the receiver locks during it,
+        # as on a real pass entered mid-stream); frames 1..7200 are checked
+        iq, frames = synth.make_poes_recording(n_frames=PASS_FRAMES + 1,
+                                               fs=fs)
+        want, lead_in = frames[1:], bytes(frames[0])
+    else:
+        iq, want = synth.make_argos_recording(n_packets=ARGOS_PACKETS, fs=fs)
+        lead_in = None
+    wav = os.path.join(workdir, f"{mode_name}_pass.wav")
+    W.write_iq_wav(wav, iq / (np.abs(iq).max() * 1.2), int(fs))
+    emit("synth", mode=mode_name, samples=len(iq), payloads=len(want),
+         seconds=time.time() - t0)
+    return wav, [bytes(w) for w in want], lead_in
+
+
+def payload_check(mode_name: str, got, want, lead_in) -> dict:
+    """How many of the synthesized payloads came out exactly once, which
+    were missed or repeated, and what else was decoded (the acquisition
+    lead-in apart).  Raises if any repeats, or unless the missed and the
+    extra payloads are exactly the reference's: POES none, ARGOS
+    ARGOS_REFERENCE_MISSED and ARGOS_REFERENCE_EXTRA."""
+    counts = collections.Counter(got)
+    wanted = set(want)
+    missed = [i for i, w in enumerate(want) if counts[w] == 0]
+    repeated = [i for i, w in enumerate(want) if counts[w] > 1]
+    extra = sorted(g.hex() for g in got if g not in wanted and g != lead_in)
+    once = len(want) - len(missed) - len(repeated)
+    argos = mode_name == "argos"
+    ref = ARGOS_REFERENCE_MISSED if argos else ()
+    ref_extra = list(ARGOS_REFERENCE_EXTRA) if argos else []
+    differ = sorted(set(missed) ^ set(ref))
+    out = dict(frames_written=len(got), recovered_once=once, of=len(want),
+               missed=missed, repeated=repeated, extra=len(extra),
+               extra_payloads=extra[:10], reference_missed=len(ref),
+               missed_unlike_reference=differ,
+               extra_as_reference=extra == ref_extra)
+    if lead_in is not None:
+        out["lead_in_recovered"] = counts[lead_in]
+    if repeated or differ or extra != ref_extra:
+        raise AssertionError(f"payloads: {once} of {len(want)} once, "
+                             f"missed {missed[:20]}, repeated "
+                             f"{repeated[:20]}, unlike the reference "
+                             f"{differ[:20]}, extra {extra[:10]} (the "
+                             f"reference's {ref_extra})")
+    return out
+
+
+def phase_cli_path(mode_name: str, workdir: str, wav: str, want, lead_in):
+    """The pass through the port's CLI on the card, ``demod_poes --fast``
+    or ``demod_argos --fast`` (the fused branch, on time generation).
+    Returns the output file, the wall seconds, the kernels' launches and
+    the (timestamp, payload) lines written."""
+    import torch
+    from project_desert_tortoise_tpu_torch.apps import demod_argos, demod_poes
     from project_desert_tortoise_tpu_torch.utils.output import (
         parse_frames_file)
 
-    # frame 0 is the acquisition lead-in (the receiver locks during it, as
-    # on a real pass that is entered mid-stream); frames 1..7200 are checked
-    t0 = time.time()
-    iq, frames = synth.make_poes_recording(n_frames=PASS_FRAMES + 1, fs=FS)
-    wav = os.path.join(workdir, "pass.wav")
-    W.write_iq_wav(wav, iq / (np.abs(iq).max() * 1.2), int(FS))
-    emit("synth", samples=len(iq), frames=PASS_FRAMES + 1,
-         seconds=time.time() - t0)
-    del iq
+    out = os.path.join(workdir, f"{mode_name}_cli.txt")
+    argv = [wav, "--fast", "--out", out]
 
-    out = os.path.join(workdir, "frames.txt")
+    def cli():
+        if mode_name == "poes":
+            return demod_poes.run(argv)
+        try:
+            demod_argos.main(argv)
+        except SystemExit as done:
+            return done.code
+        raise AssertionError("demod_argos.main returned without an exit code")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    rc, counts = drive("fused", lambda: demod_poes.run(
-        [wav, "--fast", "--out", out]))
+    rc, counts = drive("fused", cli)
     wall = time.time() - t0
     if rc != 0:
-        raise AssertionError(f"demod_poes exited {rc}")
+        raise AssertionError(f"the {mode_name} CLI exited {rc}")
     lines = [(f"{t:.5f}", bytes(b)) for t, _, b in parse_frames_file(out)]
-    emit("main_path", use_pallas="fused", launches=counts, wall_s=wall,
-         card=card_line(), **payload_check([b for _, b in lines], frames))
-    return wav, wall, counts, frames, lines
+    emit("main_path", mode=mode_name, use_pallas="fused", entry="cli",
+         launches=counts, wall_s=wall,
+         peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+         card=card_line(),
+         **payload_check(mode_name, [b for _, b in lines], want, lead_in))
+    return out, wall, counts, lines
 
 
-def payload_check(got, frames) -> dict:
-    """Every payload of frames 1..7200 exactly once (frame 0 is the
-    acquisition lead-in)."""
-    counts = {}
-    for g in got:
-        counts[g] = counts.get(g, 0) + 1
-    want = [bytes(f) for f in frames[1:]]
-    missing = sum(counts.get(w, 0) == 0 for w in want)
-    dup = sum(counts.get(w, 0) > 1 for w in want)
-    if missing or dup:
-        raise AssertionError(f"{missing} payloads missing, {dup} repeated "
-                             f"of {len(want)}")
-    return dict(frames_written=len(got), recovered=len(want) - missing,
-                of=len(want), lead_in_recovered=counts.get(bytes(frames[0]), 0))
-
-
-def phase_branch_path(wav: str, br, frames, fused_lines):
-    """The 12-minute pass through ``demodulate_blocked(use_pallas=br)`` on
-    the card with the default plan, from the WAV: every payload once, the
-    branch's kernels launched, wall seconds, peak device memory, and how
-    many frames match the fused path's in payload and timestamp."""
+def phase_branch_path(mode_name: str, wav: str, br, want, lead_in,
+                      fused_lines):
+    """The pass through ``demodulate_blocked(use_pallas=br)`` on the card
+    with the default plan, from the WAV: the payloads, the branch's
+    kernels launched, wall seconds, peak device memory, and how many
+    frames match the fused path's in payload and timestamp."""
     import torch
     from project_desert_tortoise_tpu_torch.parallel.blocked import (
         demodulate_blocked)
     from project_desert_tortoise_tpu_torch.utils import wav as W
-    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
 
+    mode, _ = modes()[mode_name]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
 
     def run():
-        iq, t, fs, _ = W.load_iq_wav(wav)
-        return demodulate_blocked(iq, t, fs, POES_TIP, use_pallas=br,
+        iq, t, fs, _ = W.load_iq_wav(wav, mode.np_dtype())
+        return demodulate_blocked(iq, t, fs, mode, use_pallas=br,
                                   device="cuda")
     got, counts = drive(br, run)
     wall = time.time() - t0
     fused = set(fused_lines)
     same = sum((f"{f.time:.5f}", bytes(f.data)) in fused for f in got)
-    emit("main_path", use_pallas=br, launches=counts, wall_s=wall,
+    emit("main_path", mode=mode_name, use_pallas=br, launches=counts,
+         wall_s=wall,
          peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
          frames_as_fused=same, fused_frames=len(fused_lines),
          card=card_line(),
-         **payload_check([bytes(f.data) for f in got], frames))
+         **payload_check(mode_name, [bytes(f.data) for f in got], want,
+                         lead_in))
     return counts
 
 
@@ -473,31 +680,34 @@ def timed(stages: dict, name: str, fn):
     return out
 
 
-def phase_stages(wav: str, workdir: str, cli_wall: float, reps: int = 2):
-    """Where the main path's time goes: the steps of demod_poes --fast
+def phase_stages(mode_name: str, wav: str, workdir: str, cli_wall: float,
+                 reps: int = 2):
+    """Where the CLI path's time goes: the steps of ``--fast``
     (parallel/blocked.py::demodulate_blocked and the frame writer) once
     more, one by one, on the host clock with a device synchronise after
-    each.  Returns the last run's staged blocks for the kernel phase."""
+    each.  Returns the last run's staged blocks and state for the kernel
+    phases, and the extended time axis."""
     import torch
     from project_desert_tortoise_tpu_torch import chain
     from project_desert_tortoise_tpu_torch.ops import agc
     from project_desert_tortoise_tpu_torch.parallel import blocked
     from project_desert_tortoise_tpu_torch.utils import wav as W
-    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
     from project_desert_tortoise_tpu_torch.utils.output import FrameWriter
 
+    mode, _ = modes()[mode_name]
     dev = torch.device("cuda")
     dt = np.dtype(np.float32)
     for rep in range(reps):
         st = {}
-        iq, t, fs, _ = timed(st, "load_wav", lambda: W.load_iq_wav(wav))
-        params = chain.make_params(POES_TIP, fs)
-        plan = blocked.default_plan(POES_TIP, fs)
+        iq, t, fs, _ = timed(st, "load_wav",
+                             lambda: W.load_iq_wav(wav, mode.np_dtype()))
+        params = chain.make_params(mode, fs)
+        plan = blocked.default_plan(mode, fs)
         n = len(iq)
 
         def planes():
-            norm = agc.static_gain(iq[:POES_TIP.chunk_size],
-                                   POES_TIP.static_gain_level, dt)
+            norm = agc.static_gain(iq[:mode.chunk_size],
+                                   mode.static_gain_level, dt)
             t_ext = np.concatenate([np.asarray(t, dt),
                                     [dt.type(t[-1] + dt.type(1.0)
                                              / dt.type(fs))]])
@@ -512,59 +722,153 @@ def phase_stages(wav: str, workdir: str, cli_wall: float, reps: int = 2):
             torch.from_numpy(a).to(dev) for a in (brs, bis, lo)])
         del brs, bis
         fest = timed(st, "carrier_est", lambda: blocked.coarse_carrier_est(
-            zre, zim, fs, POES_TIP.gardner.baud / 2.0))
+            zre, zim, fs, mode.gardner.baud / 2.0))
         stitched = timed(st, "demod_frames", lambda: blocked.demod_frames(
-            params, plan, POES_TIP.framer, fs, zre, zim, lo, n, fest, norm))
+            params, plan, mode.framer, fs, zre, zim, lo, n, fest, norm))
         frames = timed(st, "fetch",
                        lambda: blocked._fetch_frames(stitched, t_ext))
 
         def write():
             with FrameWriter(os.path.join(workdir, "stages.txt"),
-                             inverted_mark=POES_TIP.framer.inverted_mark) as w:
+                             inverted_mark=mode.framer.inverted_mark) as w:
                 w.write_all(frames)
         timed(st, "write", write)
-        emit("stages", rep=rep, frames=len(frames), total_s=sum(st.values()),
-             cli_wall_s=cli_wall, card=card_line(),
+        emit("stages", mode=mode_name, use_pallas="fused", rep=rep,
+             frames=len(frames), B=int(zre.shape[0]), L=int(zre.shape[1]),
+             total_s=sum(st.values()), cli_wall_s=cli_wall, card=card_line(),
              **{k + "_s": v for k, v in st.items()})
-    return params, plan, fs, n, norm, zre, zim, lo, fest
+    return (params, plan, fs, n, norm, zre, zim, lo, fest), t_ext
 
 
-def phase_kernel_at_main_shape(params, plan, fs, n, norm, zre, zim, lo, fest,
-                               cli_wall: float) -> dict:
-    """The fused kernel on the blocks the main path stages, timed (CUDA
-    events) and held against its plain version on the same inputs."""
+def phase_plane_lines(mode_name: str, staged, t_ext, cli_out: str,
+                      workdir: str):
+    """The fused path on the staged position plane (what the CLI ran
+    before time generation) on the same blocks: its frames, written as
+    the CLI writes them, must equal the CLI's file line for line."""
+    import torch
+    from project_desert_tortoise_tpu_torch.ops import framer
+    from project_desert_tortoise_tpu_torch.parallel import blocked
+    from project_desert_tortoise_tpu_torch.utils.output import FrameWriter
+
+    mode, _ = modes()[mode_name]
+    params, plan, fs, n, norm, zre, zim, lo, fest = staged
+    pos = blocked.sample_positions(lo, n, plan.total,
+                                   1 if params.interp > 1 else 0)
+    bits_c, pos_c, n_bits, _ = blocked.demod_blocks(
+        params, plan.total, zre, zim, fs, pos, fest, norm)
+    fb = framer.frame_extract(bits_c, pos_c, n_bits, mode.framer,
+                              plan.max_frames)
+    fb = fb._replace(times=fb.times.to(torch.float64) + lo[:, None])
+    cs = lo + plan.head
+    bounds = torch.stack([cs, torch.clamp(cs + plan.core, max=n)], 1)
+    frames = blocked._fetch_frames(
+        framer.stitch_frames(fb, bounds, zre.shape[0] * plan.max_frames),
+        t_ext)
+    path = os.path.join(workdir, f"{mode_name}_plane.txt")
+    with FrameWriter(path, inverted_mark=mode.framer.inverted_mark) as w:
+        w.write_all(frames)
+    with open(cli_out) as f:
+        cli = f.read().splitlines()
+    with open(path) as f:
+        plane = f.read().splitlines()
+    differ = sum(a != b for a, b in zip(cli, plane))
+    if len(cli) != len(plane) or differ:
+        raise AssertionError(f"time generation wrote {len(cli)} lines, the "
+                             f"staged plane {len(plane)}; {differ} differ")
+    emit("tgen_vs_plane_lines", mode=mode_name, cli_lines=len(cli),
+         plane_lines=len(plane), identical=True)
+
+
+def plane_agreement(gen, plane, pos, n_tg: int) -> dict:
+    """The fused kernel's results with time generation and with the staged
+    position plane on the same blocks: bits, emissions and avg_phase must
+    be equal, and bit times wherever the plane holds positions for every
+    input sample the time ring reaches (the plane holds -1 where a window
+    lies outside the recording, the generator 0 in a padded head and
+    further positions past the end)."""
+    import torch
+    for k, what in ((0, "bits"), (2, "emit"), (3, "avg_phase")):
+        if not torch.equal(gen[k], plane[k]):
+            raise AssertionError(f"time generation changed {what}")
+    valid = pos >= 0
+    for k in range(1, n_tg):
+        valid[:, k:] &= pos[:, :-k] >= 0
+    if not torch.equal(gen[1][valid], plane[1][valid]):
+        raise AssertionError("generated bit times differ from the plane's")
+    return dict(samples_compared=int(valid.sum()),
+                emitted_compared=int((valid & gen[2]).sum()),
+                samples_outside=int((~valid).sum()))
+
+
+def phase_fused_at_main_shape(mode_name: str, staged, cli_wall: float,
+                              stats: dict) -> None:
+    """The fused kernel on the blocks the pass stages: timed (CUDA events)
+    with time generation (the path's mode) and with the staged position
+    plane on the whole blocks, the two held to each other; then the
+    path's mode held bit for bit to the plain version on the blocks' first
+    MAIN_CHECK_L samples (block 0's padded head among them), and for POES
+    the staged plane on the first PLANE_CHECK_L."""
     from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
-        fused_demod, fused_demod_ref)
+        fused_demod, fused_demod_ref, geometry)
     from project_desert_tortoise_tpu_torch.parallel import blocked
 
-    t_next = blocked.sample_positions(lo, n, plan.total, 1)
+    params, plan, fs, n, norm, zre, zim, lo, fest = staged
+    shift = 1 if params.interp > 1 else 0
+    pos = blocked.sample_positions(lo, n, plan.total, shift)
+    seed, pad0 = blocked.position_seeds(lo, shift)
     st, gain = blocked.warm_state(params, fest, fs, norm)
-    ms, kern = cuda_ms(lambda: fused_demod(params, st, gain, (zre, zim),
-                                           t_next))
-    plain_ms, ref = cuda_ms(
-        lambda: fused_demod_ref(params, st, gain, (zre, zim), t_next))
-    c = compare(kern, ref, 1.0)       # bit times are sample positions here
-    check_parity(c, "kernel vs plain at the main path's shape")
     B, L = zre.shape
-    emit("main_path_kernel", kernel="fused_demod", B=B, L=L, kernel_ms=ms,
-         plain_ms=plain_ms, kernel_share_of_cli_wall=ms / 1e3 / cli_wall,
-         card=card_line(), **c)
-    # f32 re, im and time in; merged bit plane and bit time out; ~240 flops
-    # a sample (PLL ~40 counting sinf/cosf as one each, FIR 156, AGC 24,
-    # Gardner and Manchester ~20)
-    return dict(max_abs_err=c["max_abs_err"], ms=ms, plain_ms=plain_ms,
-                shape=[B, L], plain_shape=[B, L],
-                **bound(B * L * 20.0, B * L * 240.0))
+
+    def gen(z, ref=False):
+        f = fused_demod_ref if ref else fused_demod
+        return f(params, st, gain, z, None, seed, pad0, 1.0)
+
+    def plane(z, p, ref=False):
+        f = fused_demod_ref if ref else fused_demod
+        return f(params, st, gain, z, p)
+    z = (zre, zim)
+    gen(z)
+    ms_gen, k_gen = cuda_ms(lambda: gen(z), reps=3)
+    plane(z, pos)
+    ms_plane, k_plane = cuda_ms(lambda: plane(z, pos), reps=3)
+    agree = plane_agreement(k_gen, k_plane, pos, geometry(params).n_tg)
+    emit("main_path_kernel", mode=mode_name, kernel="fused_demod", B=B, L=L,
+         time_generation_ms=ms_gen, staged_plane_ms=ms_plane,
+         kernel_share_of_cli_wall=ms_gen / 1e3 / cli_wall, card=card_line(),
+         **agree)
+
+    if float(pad0.max()) <= 0:
+        raise AssertionError("no padded block among the main blocks")
+    zc = tuple(x[:, :MAIN_CHECK_L].contiguous() for x in z)
+    time_pair("fused_demod", f"{mode_name} main blocks, time generation",
+              lambda: gen(zc), lambda: gen(zc, ref=True),
+              [B, MAIN_CHECK_L], stats)
+    if mode_name == "poes":
+        zc = tuple(x[:, :PLANE_CHECK_L].contiguous() for x in z)
+        pc = pos[:, :PLANE_CHECK_L].contiguous()
+        time_pair("fused_demod", "poes main blocks, staged plane",
+                  lambda: plane(zc, pc), lambda: plane(zc, pc, ref=True),
+                  [B, PLANE_CHECK_L], stats)
+    # float32 re, im in and the merged bit plane and bit time out (no time
+    # plane with time generation); operations counted from the source
+    # (sinf/cosf one each): PLL ~40 a sample, FIR 2 a tap, AGC 8 an
+    # output, Gardner and Manchester ~20
+    ops = 40.0 + 2 * len(params.taps) + 8 * params.interp + 20
+    stats["fused_demod"].update(ms=ms_gen, shape=[B, L],
+                                staged_plane_ms=ms_plane,
+                                **bound(B * L * 16.0, B * L * ops))
 
 
-def phase_new_kernels_at_main_shape(params, plan, fs, n, norm, zre, zim, lo,
-                                    fest, stats: dict, window: int = 4096):
+def phase_new_kernels_at_main_shape(mode_name: str, staged, stats: dict,
+                                    window: int = 4096):
     """The kernels of the front and scan branches against their plain
-    versions on the inputs demod_blocks gives them on the main path: its
-    lanes, warm PLL state and gains, cut to the first MAIN_CHECK_L samples,
-    and its Gardner layout (windows of window * interp), each bit-exact.
-    Also fir_interp on the card against the float64 sum, which TF32 would
-    miss (its error is reported beside)."""
+    versions on the inputs demod_blocks gives them on the pass: its lanes,
+    warm PLL state and gains, its squelch and its Gardner layout (windows
+    of window * interp), each bit-exact.  pll_fir_agc on the blocks' first
+    MAIN_CHECK_L samples; the rest on the first MAIN_CHECK_L (POES) or
+    PLANE_CHECK_L (ARGOS: two Gardner windows).  Also fir_interp on the
+    card against the float64 sum, which TF32 would miss (its error is
+    reported beside)."""
     import torch
     from project_desert_tortoise_tpu_torch.ops import agc, clock, fir, pll
     from project_desert_tortoise_tpu_torch.ops import manchester as man
@@ -575,15 +879,19 @@ def phase_new_kernels_at_main_shape(params, plan, fs, n, norm, zre, zim, lo,
         pll_scan_kernel)
     from project_desert_tortoise_tpu_torch.parallel import blocked
 
+    params, plan, fs, n, norm, zre, zim, lo, fest = staged
     B, L, interp = zre.shape[0], MAIN_CHECK_L, params.interp
     z = tuple(x[:, :L].contiguous() for x in (zre, zim))
-    pos = blocked.sample_positions(lo, n, plan.total, 1 if interp > 1 else 0)
-    pos = pos[:, :L].contiguous()
     pst, gain0 = blocked.warm_state(params, fest, fs, norm)
-    case = "main path blocks"
+    case = f"{mode_name} main path blocks"
     time_pair("pll_fir_agc", case,
               lambda: pll_fir_agc(params, pst, gain0, z),
               lambda: pll_fir_agc_ref(params, pst, gain0, z), [B, L], stats)
+    if mode_name != "poes":
+        L = PLANE_CHECK_L
+        z = tuple(x[:, :L].contiguous() for x in z)
+    pos = blocked.sample_positions(lo, n, plan.total, 1 if interp > 1 else 0)
+    pos = pos[:, :L].contiguous()
     time_pair("pll_scan", case, lambda: pll_scan_kernel(params.pll, pst, z),
               lambda: pll.pll_scan_ref(params.pll, pst, *z), [B, L], stats)
 
@@ -595,9 +903,10 @@ def phase_new_kernels_at_main_shape(params, plan, fs, n, norm, zre, zim, lo,
     exact = fir.fir_interp(soft.cpu().double(), params.taps, interp)
     err = float((x.cpu().double() - exact).abs().max())
     scale = max(1.0, float(exact.abs().max()))
-    emit("fir_interp_vs_float64", shape=list(x.shape), max_abs_err=err,
-         tolerance=1e-5 * scale, tf32_max_abs_err=tf32_fir_err(
-             soft, params.taps, interp, exact), card=card_line())
+    emit("fir_interp_vs_float64", mode=mode_name, shape=list(x.shape),
+         max_abs_err=err, tolerance=1e-5 * scale, tf32_max_abs_err=(
+             tf32_fir_err(soft, params.taps, interp, exact)),
+         card=card_line())
     if err > 1e-5 * scale:
         raise AssertionError(f"fir_interp on the card is {err} from the "
                              "float64 sum: not full float32")
@@ -605,7 +914,12 @@ def phase_new_kernels_at_main_shape(params, plan, fs, n, norm, zre, zim, lo,
     time_pair("agc_scan", case, lambda: sk.agc_scan(gain0, x, ap),
               lambda: sk.agc_scan_ref(gain0, x, ap), list(x.shape), stats)
     _, y_scan = sk.agc_scan(gain0, x, ap)
-    _, _, y_front, _ = pll_fir_agc(params, pst, gain0, z)
+    _, _, y_front, lock_front = pll_fir_agc(params, pst, gain0, z)
+    if params.squelch_position == "after_agc":
+        y_scan = agc.squelch(y_scan, torch.abs(lock),
+                             params.squelch_threshold)
+        y_front = agc.squelch(y_front, torch.abs(lock_front),
+                              params.squelch_threshold)
 
     t = fir.fir_out_times(pos, interp) if interp > 1 else pos
     cap = L * interp
@@ -644,13 +958,14 @@ def tf32_fir_err(x, taps, interp: int, exact) -> float:
                   - exact).abs().max())
 
 
-def phase_branch_stages(params, plan, fs, n, norm, zre, zim, lo, fest, br,
+def phase_branch_stages(mode_name: str, staged, br,
                         window: int = 4096) -> dict:
-    """The steps of demod_blocks(use_pallas=br) on the blocks the main path
+    """The steps of demod_blocks(use_pallas=br) on the blocks the pass
     stages, one by one, each timed by CUDA events, then the whole of
     demod_frames on the host clock.  Returns each kernel's ms and bound at
     this shape."""
-    from project_desert_tortoise_tpu_torch.ops import clock, fir
+    import torch
+    from project_desert_tortoise_tpu_torch.ops import agc, clock, fir
     from project_desert_tortoise_tpu_torch.ops import manchester as man
     from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
     from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
@@ -658,11 +973,12 @@ def phase_branch_stages(params, plan, fs, n, norm, zre, zim, lo, fest, br,
     from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
         pll_scan_kernel)
     from project_desert_tortoise_tpu_torch.parallel import blocked
-    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
 
+    mode, _ = modes()[mode_name]
+    params, plan, fs, n, norm, zre, zim, lo, fest = staged
     B, L = zre.shape
     interp = params.interp
-    pos = blocked.sample_positions(lo, n, plan.total, 1)
+    pos = blocked.sample_positions(lo, n, plan.total, 1 if interp > 1 else 0)
     pst, gain0 = blocked.warm_state(params, fest, fs, norm)
     ms = {}
 
@@ -670,16 +986,23 @@ def phase_branch_stages(params, plan, fs, n, norm, zre, zim, lo, fest, br,
         ms[name], out = cuda_ms(fn)
         return out
     if br == "front":
-        _, _, y, _ = step("pll_fir_agc", lambda: pll_fir_agc(
+        _, _, y, lock = step("pll_fir_agc", lambda: pll_fir_agc(
             params, pst, gain0, (zre, zim)))
     else:
-        _, soft, _ = step("pll_scan", lambda: pll_scan_kernel(
+        _, soft, lock = step("pll_scan", lambda: pll_scan_kernel(
             params.pll, pst, (zre, zim)))
+        if params.squelch_position == "after_pll":
+            soft = step("squelch", lambda: agc.squelch(
+                soft, torch.abs(lock), params.squelch_threshold))
         x = step("fir_interp", lambda: fir.fir_interp(soft, params.taps,
                                                       interp))
         _, y = step("agc_scan", lambda: sk.agc_scan(
             gain0, x, sk.AGCParams(params.agc_attack, params.agc_decay)))
-    t_out = step("fir_out_times", lambda: fir.fir_out_times(pos, interp))
+    if params.squelch_position == "after_agc":
+        y = step("squelch", lambda: agc.squelch(y, torch.abs(lock),
+                                                params.squelch_threshold))
+    t_out = (step("fir_out_times", lambda: fir.fir_out_times(pos, interp))
+             if interp > 1 else pos)
     _, _, bits, btimes, mask = step(
         "gardner_manchester", lambda: clock.gardner_manchester_windowed(
             clock.gardner_init((B,), device=zre.device),
@@ -690,16 +1013,15 @@ def phase_branch_stages(params, plan, fs, n, norm, zre, zim, lo, fest, br,
     step("compress_sorted", lambda: man.compress_sorted(
         bits, btimes, mask, bits.shape[-1] // 2 + 8))
     t0 = time.perf_counter()
-    blocked.demod_frames(params, plan, POES_TIP.framer, fs, zre, zim, lo, n,
+    blocked.demod_frames(params, plan, mode.framer, fs, zre, zim, lo, n,
                          fest, norm, window, br)
-    import torch
     torch.cuda.synchronize()
-    emit("stages", use_pallas=br, B=B, L=L, card=card_line(),
+    emit("stages", mode=mode_name, use_pallas=br, B=B, L=L, card=card_line(),
          demod_frames_s=time.perf_counter() - t0,
          **{k + "_ms": v for k, v in ms.items()})
     # bytes each input read once, each output written once; operations
     # counted from the sources (sinf/cosf one each): PLL ~40 a sample, FIR
-    # 2*78 and AGC 8 per output, Gardner+Manchester ~30 per symbol
+    # 2 a tap and AGC 8 per output, Gardner+Manchester ~30 per symbol
     n_sym = 2.0 * float(mask.sum())          # two symbols per emitted bit
     out = {"gardner_manchester": dict(
         ms=ms["gardner_manchester"], shape=list(y.shape), **bound(
@@ -707,7 +1029,7 @@ def phase_branch_stages(params, plan, fs, n, norm, zre, zim, lo, fest, br,
     if br == "front":
         out["pll_fir_agc"] = dict(ms=ms["pll_fir_agc"], shape=[B, L], **bound(
             B * L * (8.0 + 4 * interp + 4),
-            B * L * (40.0 + 8 * interp + 2 * 78)))
+            B * L * (40.0 + 8 * interp + 2 * len(params.taps))))
     else:
         out["pll_scan"] = dict(ms=ms["pll_scan"], shape=[B, L],
                                **bound(B * L * 16.0, B * L * 40.0))
@@ -717,43 +1039,179 @@ def phase_branch_stages(params, plan, fs, n, norm, zre, zim, lo, fest, br,
     return out
 
 
+# operations a step of each ablation variant, counted from
+# csrc/ablate_kernel.cu and csrc/ablate_fused.cu (sinf/cosf one each;
+# register shifts free): ablate_kernel per variant, ablate_fused per stage
+# when on and when stubbed
+ABLATE_KERNEL_OPS = {"empty_c1": 1, "empty_c8": 8, "empty_c73": 73,
+                     "mac26": 52, "mac78": 156, "pll": 40, "ring16": 33,
+                     "store3": 4}
+ABLATE_FUSED_OPS = {"pll": (40, 6), "fir": (2 * 78 + 8 * 3, 4),
+                    "ring": (0, 32), "gm": (3 * 32 + 30, 1), "store": (0, 0)}
+
+
+def ablation_bound(tool, name: str, steps: int, B: int) -> dict:
+    """Bytes and operations of one run of a variant: each input plane read
+    once, each stored plane written once, the carry read and written."""
+    if tool.__name__.endswith("ablate_kernel"):
+        v = tool.VARIANTS[name]
+        n_bytes = steps * B * 4.0 * (v.n_in + v.n_out) + 2 * v.n_carry * B * 4.0
+        ops = ABLATE_KERNEL_OPS[name]
+    else:
+        flags = tool.VARIANTS[name]
+        rows = 3 if "store" in flags else 3.0 / 1024
+        n_bytes = steps * B * 4.0 * (3 + rows) + 2 * 73 * B * 4.0
+        ops = sum(on if s in flags else off
+                  for s, (on, off) in ABLATE_FUSED_OPS.items())
+    return bound(n_bytes, steps * B * float(ops))
+
+
+def phase_ablation(stats: dict) -> dict:
+    """The two ablation tools: every variant's kernel against its plain
+    version bit for bit over 1,024 steps at each lane count of ABLATION_S,
+    then each tool's CLI (its ``main``) on the card at those lane counts,
+    as a main path whose launches are counted; one ``ablation`` line a
+    variant and lane count.  Returns {tool: launches}."""
+    import torch
+    from project_desert_tortoise_tpu_torch.tools import ablate_fused as AF
+    from project_desert_tortoise_tpu_torch.tools import ablate_kernel as AK
+
+    dev = torch.device("cuda")
+    steps, window = ABLATION_CHECK
+    checks = {}
+    for S in ABLATION_S:
+        xs, state = AF.inputs(steps, S, dev)
+        for name in AK.VARIANTS:
+            ins, st = AK.inputs(name, steps, S, dev)
+            checks["ablate_kernel", name, S] = time_pair(
+                "ablate_kernel", f"{name}, {S * 128} lanes",
+                lambda: AK.ablate_kernel(name, ins, st, window),
+                lambda: AK.ablate_kernel_ref(name, ins, st, window),
+                [S * AK.LANES, steps], {})
+        for name in AF.VARIANTS:
+            checks["ablate_fused", name, S] = time_pair(
+                "ablate_fused", f"{name}, {S * 128} lanes",
+                lambda: AF.ablate_fused(name, *xs, state, window),
+                lambda: AF.ablate_fused_ref(name, *xs, state, window),
+                [S * AF.LANES, steps], {})
+        del xs, state
+
+    launches = collections.Counter()
+    ns = {}
+    for s in ABLATION_S:
+        for tool in (AK, AF):
+            tname = tool.__name__.rsplit(".", 1)[1]
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc, counts = drive(tname, lambda: tool.main(["--s", str(s)]))
+            if rc != 0:
+                raise AssertionError(f"{tname} --s {s} exited {rc}")
+            launches.update(counts)
+            for line in buf.getvalue().splitlines():
+                m = re.match(r"(\S+)\s+S=(\d+)\s.*?([0-9.]+) ns/step$", line)
+                if not m:
+                    raise AssertionError(f"{tname}: unparsed line {line!r}")
+                ns[tname, m.group(1), s] = float(m.group(3))
+                emit("ablation", tool=tname, variant=m.group(1), S=s,
+                     lanes=s * 128, ns_per_step=float(m.group(3)),
+                     card=card_line())
+            if sorted(v for t, v, ss in ns if t == tname and ss == s) != \
+                    sorted(tool.VARIANTS):
+                raise AssertionError(f"{tname} --s {s}: variants missing")
+        torch.cuda.empty_cache()
+
+    # per tool: the time of one run of every variant at the widest lane
+    # count and the tool's default steps, beside the sum of their bounds;
+    # the plain versions at the check shape of that lane count
+    default_steps = {"ablate_kernel": 131072, "ablate_fused": 118784}
+    s_max = max(ABLATION_S)
+    for tool in (AK, AF):
+        tname = tool.__name__.rsplit(".", 1)[1]
+        L, B = default_steps[tname], s_max * 128
+        bounds = [ablation_bound(tool, v, L, B) for v in tool.VARIANTS]
+        by = collections.Counter()
+        for b in bounds:
+            by[b["bound_by"]] += b["bound_ms"]
+        stats[tname] = dict(
+            ms=sum(ns[tname, v, s_max] * L * 1e-6 for v in tool.VARIANTS),
+            shape=[B, L], variants=len(tool.VARIANTS),
+            ns_per_step={str(s): {v: ns[tname, v, s] for v in tool.VARIANTS}
+                         for s in ABLATION_S},
+            bound_ms=sum(b["bound_ms"] for b in bounds),
+            bound_by=by.most_common(1)[0][0],
+            plain_ms=sum(checks[tname, v, s_max][1] for v in tool.VARIANTS),
+            plain_shape=[B, steps],
+            check_ms=sum(checks[tname, v, s_max][0] for v in tool.VARIANTS),
+            max_abs_err=max(checks[k][2] for k in checks if k[0] == tname))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    t_start = time.time()
     phase_toolchain()
     phase_build()
+    stats = {"poes": {}, "argos": {}}
     phase_kernel()
-    stats = {}
-    phase_new_kernels(stats)
-    phase_slice()
-    launches = {k: 0 for k in KERNELS}
+    phase_tgen_small(stats)
+    phase_new_kernels(stats["poes"])
+    phase_argos_kernels(stats["argos"])
+    ablation_launches = phase_ablation(stats["poes"])
+    phase_slice("poes")
+    phase_slice("argos")
+    launches = {"poes": collections.Counter(), "argos": collections.Counter()}
+    staged = {}
+    walls = {}
     with tempfile.TemporaryDirectory() as workdir:
-        wav, wall, counts, frames, lines = phase_main_path(workdir)
-        paths = [counts]
+        for mode_name in ("poes", "argos"):
+            wav, want, lead_in = synth_pass(mode_name, workdir)
+            out, walls[mode_name], counts, lines = phase_cli_path(
+                mode_name, workdir, wav, want, lead_in)
+            launches[mode_name].update(counts)
+            for br in ("front", False):
+                launches[mode_name].update(phase_branch_path(
+                    mode_name, wav, br, want, lead_in, lines))
+            staged[mode_name], t_ext = phase_stages(mode_name, wav, workdir,
+                                                    walls[mode_name])
+            if mode_name == "poes":
+                phase_plane_lines(mode_name, staged[mode_name], t_ext, out,
+                                  workdir)
+            os.remove(wav)
+    for mode_name in ("poes", "argos"):
+        st = stats[mode_name]
+        phase_fused_at_main_shape(mode_name, staged[mode_name],
+                                  walls[mode_name], st)
+        phase_new_kernels_at_main_shape(mode_name, staged[mode_name], st)
         for br in ("front", False):
-            paths.append(phase_branch_path(wav, br, frames, lines))
-        staged = phase_stages(wav, workdir, wall)
-    for counts in paths:
-        for k, v in counts.items():
-            launches[k] += v
-    stats["fused_demod"] = phase_kernel_at_main_shape(*staged, cli_wall=wall)
-    phase_new_kernels_at_main_shape(*staged, stats)
-    for br in ("front", False):
-        for k, v in phase_branch_stages(*staged, br).items():
-            stats[k].update(v)
+            for k, v in phase_branch_stages(mode_name, staged[mode_name],
+                                            br).items():
+                st.setdefault(k, {}).update(v)
+
     jax_pkg = "project_desert_tortoise_tpu"
     if any(m in ("jax", jax_pkg) or m.startswith(("jax.", jax_pkg + "."))
            for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
-    emit("total", seconds=time.time() - t_start)
-    print(json.dumps({"kernels": [dict(
-        name=name, route="cuda", source=src, replaces=rep,
-        launches=launches[name], library_ms=None, **stats[name])
-        for name, (src, rep) in KERNELS.items()]}))
+    emit("total", seconds=time.time() - T0)
+    # POES's numbers (and the ablation tools') at the top of each entry,
+    # ARGOS's in "argos"; launches summed over every main path run
+    table = []
+    for name, (src, rep) in KERNELS.items():
+        st = stats["poes"][name]
+        argos = stats["argos"].get(name)
+        entry = dict(name=name, route="cuda", source=src, replaces=rep,
+                     launches=(launches["poes"][name]
+                               + launches["argos"][name]
+                               + ablation_launches[name]),
+                     library_ms=None, **st)
+        if argos:
+            entry["max_abs_err"] = max(st["max_abs_err"],
+                                       argos.get("max_abs_err", 0.0))
+            entry["argos"] = dict(launches=launches["argos"][name], **argos)
+        table.append(entry)
+    print(json.dumps({"kernels": table}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 Same flags as ``project_desert_tortoise_tpu/apps/demod_poes.py`` (the
 reference ``demodPOES``, ``POESTIPdemod/main.c:185-234``) plus ``--device``
 (default ``cuda``).  ``--fast`` runs the block-parallel path on the fused
-CUDA kernel (its plain PyTorch version with ``--device cpu``).  The exact
+CUDA kernel (its plain PyTorch version with ``--device cpu``);
+``apps/demod_argos.py`` runs the same with the ARGOS mode.  The exact
 chunked chain (no ``--fast``), its options (``-r``, ``-c``, ``--no-quirks``,
 ``--timebase``) and ``--products`` are not ported yet: they exit 2 with a
 message.
@@ -77,6 +78,13 @@ def run(argv=None, default_mode="poes_tip", prefix="minorFrames"):
         if args.sample_rate_khz < 1:
             print("Sample Rate (in Khz) must be specified when using RAW files")
             return 1
+        if mode.name.startswith("argos"):
+            # the reference ARGOS app rejects RAW input
+            # (ARGOSdemod/main.c:237-239); the shared RAW reader is
+            # mode-agnostic, so it is accepted, with notice
+            print("note: RAW input for ARGOS is a framework extension "
+                  "(the reference demodARGOS accepts wav only)",
+                  file=sys.stderr)
         iq, t, fs = W.load_iq_raw(args.infile, args.sample_rate_khz * 1000.0,
                                   mode.np_dtype())
     else:

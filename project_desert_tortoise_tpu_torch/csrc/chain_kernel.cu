@@ -11,16 +11,19 @@
 // its lane with the state in registers.
 //
 // What bounds it: per sample it reads 8 bytes and writes 4 * (INTERP + 1)
-// (16 for POES), so at the card's 3.35 TB/s the bytes would allow ~0.3 ms
-// for the 12-minute pass; but each lane is a serial chain of a sinf/cosf
-// pair, two divisions and ~220 further flops per sample, and the real size
-// has 352 lanes (11 warps for 132 SMs), so it is bound by the latency of
-// that chain.  The remedy is more, shorter blocks (later work).
+// (16 for POES, 8 for ARGOS), so at the card's 3.35 TB/s the bytes would
+// allow ~0.3 ms for a 12-minute pass; but each lane is a serial chain of a
+// sinf/cosf pair, two divisions and ~220 further flops per sample, and the
+// real size has 352 lanes (11 warps for 132 SMs), so it is bound by the
+// latency of that chain.  The remedy is more, shorter blocks (later work).
 //
 // Design: time-major (L, B) planes so a warp's 32 lanes of one sample are
 // one coalesced load or store; the FIR history is an unrolled register
-// shift; geometry and squelch position are template parameters; numerics
-// as in pdt_common.cuh (-fmad=false, IEEE ops).
+// shift (26 planes for POES, 50 for ARGOS, all in registers); geometry and
+// squelch position are template parameters; numerics as in pdt_common.cuh
+// (-fmad=false, IEEE ops).  Instantiated geometries (interp, hist): POES
+// at 50 kHz (3, 26) and ARGOS at 32 kHz (1, 50); ptxas (nvcc 12.9, sm_90a)
+// gives 58 and 78 registers and no spills.
 
 #include <string.h>
 
@@ -31,7 +34,7 @@ using namespace pdt;
 namespace {
 
 constexpr int kMaxInterp = 3;
-constexpr int kMaxHist = 26;
+constexpr int kMaxHist = 50;
 
 // Order must match _param_block in ops/kernels/chain_kernel.py.
 struct ChainParams {
@@ -84,13 +87,28 @@ pll_fir_agc_kernel(const float* __restrict__ zre,
   st_out[6 * B + b] = gain;
 }
 
+template <int INTERP, int HIST>
+void launch(const float* zre, const float* zim, const float* st_in, float* y,
+            float* lock, float* st_out, int B, int L, bool squelch_after_pll,
+            const ChainParams& p, cudaStream_t s) {
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  if (squelch_after_pll) {
+    pll_fir_agc_kernel<INTERP, HIST, true><<<grid, kThreads, 0, s>>>(
+        zre, zim, st_in, y, lock, st_out, B, L, p);
+  } else {
+    pll_fir_agc_kernel<INTERP, HIST, false><<<grid, kThreads, 0, s>>>(
+        zre, zim, st_in, y, lock, st_out, B, L, p);
+  }
+}
+
 }  // namespace
 
 // Launches the chain on time-major float32 planes zre/zim (L, B).  st_in,
 // st_out: (7, B) rows (PLL phase, freq, locksig, avg_phase, sweep, locked
 // as 0/1, AGC gain).  Outputs y (L * interp, B) and lock (L, B).  params:
 // the float block of ChainParams.  Returns the cudaError_t of the launch;
-// only the POES geometry (interp 3, hist 26) is instantiated.
+// only the POES (interp 3, hist 26) and ARGOS (interp 1, hist 50)
+// geometries are instantiated.
 extern "C" int pdt_pll_fir_agc(const float* zre, const float* zim,
                                const float* st_in, float* y, float* lock,
                                float* st_out, int B, int L, int interp,
@@ -98,19 +116,19 @@ extern "C" int pdt_pll_fir_agc(const float* zre, const float* zim,
                                const float* params, int n_params,
                                void* stream) {
   if (n_params != static_cast<int>(sizeof(ChainParams) / sizeof(float)) ||
-      B <= 0 || L <= 0 || !(interp == 3 && hist == 26)) {
+      B <= 0 || L <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ChainParams p;
   memcpy(&p, params, sizeof(p));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  if (squelch_after_pll) {
-    pll_fir_agc_kernel<3, 26, true><<<grid, kThreads, 0, s>>>(
-        zre, zim, st_in, y, lock, st_out, B, L, p);
+  const bool sq = squelch_after_pll != 0;
+  if (interp == 3 && hist == 26) {
+    launch<3, 26>(zre, zim, st_in, y, lock, st_out, B, L, sq, p, s);
+  } else if (interp == 1 && hist == 50) {
+    launch<1, 50>(zre, zim, st_in, y, lock, st_out, B, L, sq, p, s);
   } else {
-    pll_fir_agc_kernel<3, 26, false><<<grid, kThreads, 0, s>>>(
-        zre, zim, st_in, y, lock, st_out, B, L, p);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 SOURCES = tuple(CSRC / f for f in ("fused_demod.cu", "chain_kernel.cu",
-                                   "pll_kernel.cu", "scan_kernels.cu"))
+                                   "pll_kernel.cu", "scan_kernels.cu",
+                                   "ablate_kernel.cu", "ablate_fused.cu"))
 HEADERS = (CSRC / "pdt_common.cuh",)
 BUILD_DIR = PKG / "_build"
 # -fmad=false and no fast math: the kernels match their plain PyTorch
@@ -35,8 +36,8 @@ _I = ctypes.c_int
 # argument types of each entry point (see the extern "C" functions)
 _SIGNATURES = {
     # zre, zim, tn, st_in, be, btime, avg_out, B, L, in_int16, squelch,
-    # interp, hist, ring_t, n_tg, params, n_params, stream
-    "pdt_fused_demod": [_P] * 7 + [_I] * 8 + [_P, _I, _P],
+    # tgen, interp, hist, ring_t, n_tg, params, n_params, stream
+    "pdt_fused_demod": [_P] * 7 + [_I] * 9 + [_P, _I, _P],
     # zre, zim, st_in, y, lock, st_out, B, L, interp, hist,
     # squelch_after_pll, params, n_params, stream
     "pdt_pll_fir_agc": [_P] * 6 + [_I] * 5 + [_P, _I, _P],
@@ -47,6 +48,11 @@ _SIGNATURES = {
     # x, t, n_valid, st_f_in, st_i_in, bits, btimes, emit, st_f_out,
     # st_i_out, B, n_win, window, margin, spw, params, n_params, stream
     "pdt_gardner_manchester": [_P] * 10 + [_I] * 5 + [_P, _I, _P],
+    # variant, in, st_in, out, st_out, B, L, params, n_params, stream
+    "pdt_ablate_kernel": [_I] + [_P] * 4 + [_I] * 2 + [_P, _I, _P],
+    # flags, re, im, tn, st_in, bit, btime, emit, st_out, B, L, window,
+    # params, n_params, stream
+    "pdt_ablate_fused": [_I] + [_P] * 8 + [_I] * 3 + [_P, _I, _P],
 }
 
 

@@ -37,10 +37,11 @@ AGC_MAX_GAIN = 5000.0
 AGC_MIN_GAIN = 10e-5
 
 # (interp, hist) geometries csrc/chain_kernel.cu instantiates
-KERNEL_GEOMETRIES = {(3, 26)}            # POES at 50 kHz
+KERNEL_GEOMETRIES = {(3, 26),            # POES at 50 kHz
+                     (1, 50)}            # ARGOS at 32 kHz
 # size of the tap table in the kernels' parameter blocks (kMaxInterp,
 # kMaxHist in csrc/chain_kernel.cu and csrc/fused_demod.cu)
-MAX_INTERP, MAX_HIST = 3, 26
+MAX_INTERP, MAX_HIST = 3, 50
 
 
 def polyphase(taps, interp: int):

@@ -7,7 +7,10 @@ PLL, the 1:interp polyphase FIR, the AGC on each of the `interp` outputs,
 Gardner timing with a shallow on-time ring, a time ring grouped per interp
 and a one-plane mid-bit capture latch, and the Manchester decision.  At most
 one bit is emitted per input sample, so outputs are dense (B, L) planes with
-an emit mask.
+an emit mask.  The bit times come from a staged (B, L) time plane or, with
+``t_next=None``, from in-kernel time generation: per-block seeds, counts of
+zero-padded head samples and a step ``ts``, as the JAX kernel's
+(``fused_kernel.py:152-162``).
 
 - :func:`fused_demod` is the entry point.  A CUDA tensor launches the
   hand-written kernel ``csrc/fused_demod.cu`` (built at first use by
@@ -41,11 +44,19 @@ from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
     pll_param_block)
 
 # geometries csrc/fused_demod.cu instantiates: (interp, hist, ring_t, n_tg)
-KERNEL_GEOMETRIES = {(3, 26, 6, 2)}      # POES at 50 kHz
+KERNEL_GEOMETRIES = {(3, 26, 6, 2),      # POES at 50 kHz
+                     (1, 50, 4, 4)}      # ARGOS at 32 kHz
 _SQUELCH_CODE = {None: 0, "after_pll": 1, "after_agc": 2}
 
-_TGEN_MSG = ("t_next=None (in-kernel time generation) is not ported yet; "
-             "pass the staged (B, L) time plane")
+
+def check_time_source(t_next, t_seed, t_pad0, ts: float):
+    """Raise ``ValueError`` unless the bit times have a source: a staged
+    time plane, or (``t_next=None``) seeds, padded-head counts and a step
+    ``ts > 0`` for in-kernel time generation."""
+    if t_next is None and (t_seed is None or t_pad0 is None or not ts > 0.0):
+        raise ValueError(
+            "t_next=None (in-kernel time generation) needs t_seed (B,), "
+            f"t_pad0 (B,) and a step ts > 0 (got ts={ts})")
 
 
 def ring_size(step_size: float, err_limit: float, interp: int) -> int:
@@ -146,7 +157,7 @@ class _Carry(NamedTuple):
     mprev: torch.Tensor      # Manchester previous symbol
 
 
-def _ring_read(ring, age, zero):
+def ring_read(ring, age, zero):
     """Unrolled compare-select over the shift-register ring (age 0 =
     newest), JAX fused_kernel.py:82-88."""
     acc = zero
@@ -192,7 +203,7 @@ def _step(cp, g: Geometry, c: _Consts, s: _Carry, x, tval_in, i: int):
     emit_sym = target <= j_hi
     tgt_i = torch.clamp(target.to(torch.int32), min=0)
     age = torch.clamp(j_hi - tgt_i, 0, g.ring_t - 1)
-    cur = _ring_read(ring, age, c.zero)
+    cur = ring_read(ring, age, c.zero)
     # the time ring holds one entry per input sample: group age // interp
     sym_t = tgroups[-1]
     for k in reversed(range(g.n_tg - 1)):
@@ -232,12 +243,27 @@ def _step(cp, g: Geometry, c: _Consts, s: _Carry, x, tval_in, i: int):
     return carry, be, sym_t
 
 
-def fused_demod_ref(chain_params, pll_state, agc_gain, z, t_next):
+def _generated_times(t_seed, t_pad0, ts: float, L: int):
+    """The time values of in-kernel time generation, one (B,) row per step
+    (JAX fused_kernel.py:156-162): 0 while the padded-head countdown is
+    above 0, then the seed, then the sequential float32 fold t + ts."""
+    f32 = torch.float32
+    t_cur, pcnt = t_seed.to(f32), t_pad0.to(f32)
+    zero = torch.zeros_like(t_cur)
+    step = torch.full_like(t_cur, float(np.float32(ts)))
+    one = torch.ones_like(t_cur)
+    for _ in range(L):
+        yield torch.where(pcnt > zero, zero, t_cur)
+        t_cur = torch.where(pcnt <= zero, t_cur + step, t_cur)
+        pcnt = pcnt - one
+
+
+def fused_demod_ref(chain_params, pll_state, agc_gain, z, t_next,
+                    t_seed=None, t_pad0=None, ts: float = 0.0):
     """Plain PyTorch version of :func:`fused_demod`, on any device: a loop
     of :func:`_step` over the samples, all lanes at once."""
     g = geometry(chain_params)
-    if t_next is None:
-        raise NotImplementedError(_TGEN_MSG)
+    check_time_source(t_next, t_seed, t_pad0, ts)
     f32 = torch.float32
     # initial state (JAX fused_kernel.py:368-377): PLL planes, AGC gain,
     # every other plane 0
@@ -259,8 +285,10 @@ def fused_demod_ref(chain_params, pll_state, agc_gain, z, t_next):
     # op dispatches, which bound this loop
     cols = zip(*(x.unbind(0) for x in
                  (xre, xim, *pll_ops.input_terms(xre, xim))))
+    times = (_generated_times(t_seed, t_pad0, ts, xre.shape[0])
+             if t_next is None else t_next.to(f32).t().contiguous())
     be, btime = [], []
-    for i, (x, tn) in enumerate(zip(cols, t_next.to(f32).t().contiguous())):
+    for i, (x, tn) in enumerate(zip(cols, times)):
         s, be_i, t_i = _step(chain_params, g, c, s, x, tn, i)
         be.append(be_i)
         btime.append(t_i)
@@ -270,38 +298,42 @@ def fused_demod_ref(chain_params, pll_state, agc_gain, z, t_next):
     return bits, torch.stack(btime, 1), emit, s.pll.avg_phase
 
 
-def _param_block(cp, g: Geometry) -> np.ndarray:
+def _param_block(cp, g: Geometry, ts: float) -> np.ndarray:
     """The float block of FusedParams in csrc/fused_demod.cu, in its
-    order."""
+    order; `ts` is the time-generation step (unused with a time plane)."""
     poly = np.zeros((MAX_INTERP, MAX_HIST), np.float32)
     poly[:g.interp, :g.hist] = g.poly
     return np.concatenate([
         pll_param_block(cp.pll),
         np.array([cp.agc_attack, cp.agc_decay, cp.squelch_threshold or 0.0,
                   cp.step_size, cp.gardner_gain, cp.gardner_err_limit,
-                  cp.resync_threshold], np.float32),
+                  cp.resync_threshold, ts], np.float32),
         poly.ravel()])
 
 
-def fused_demod(chain_params, pll_state, agc_gain, z, t_next):
+def fused_demod(chain_params, pll_state, agc_gain, z, t_next, t_seed=None,
+                t_pad0=None, ts: float = 0.0):
     """Full chain on (B, L) block lanes.
 
     z: (zre, zim) float32 or int16 PCM planes (scaled by exactly 1/32768);
-    t_next: (B, L) float32 stage time axis; pll_state: (B,) lanes;
+    t_next: (B, L) float32 stage time axis, or None for in-kernel time
+    generation from ``t_seed`` (B,), the time of each block's first valid
+    sample, ``t_pad0`` (B,), its count of zero-padded head samples, and
+    the step ``ts`` (JAX ``fused_demod_pallas``); pll_state: (B,) lanes;
     agc_gain: (B,).  Returns (bits (B, L) float 0/1, bit_times (B, L),
     emit (B, L) bool, avg_phase (B,)).
 
     CPU tensors run :func:`fused_demod_ref`.  CUDA tensors launch the
     kernel; a geometry it does not instantiate raises
-    ``NotImplementedError``.
+    ``NotImplementedError``, ``t_next=None`` without seeds ``ValueError``.
     """
     g = geometry(chain_params)
-    if t_next is None:
-        raise NotImplementedError(_TGEN_MSG)
+    check_time_source(t_next, t_seed, t_pad0, ts)
     zre, zim = z
     dev = zre.device
     if dev.type == "cpu":
-        return fused_demod_ref(chain_params, pll_state, agc_gain, z, t_next)
+        return fused_demod_ref(chain_params, pll_state, agc_gain, z, t_next,
+                               t_seed, t_pad0, ts)
     if dev.type != "cuda":
         raise ValueError(f"fused_demod runs on cpu or cuda, not {dev}")
     key = (g.interp, g.hist, g.ring_t, g.n_tg)
@@ -313,7 +345,12 @@ def fused_demod(chain_params, pll_state, agc_gain, z, t_next):
     B, L = zre.shape
     check("zre", zre, (B, L), (torch.float32, torch.int16), dev)
     check("zim", zim, (B, L), (zre.dtype,), dev)
-    check("t_next", t_next, (B, L), (torch.float32,), dev)
+    tgen = t_next is None
+    if tgen:
+        check("t_seed", t_seed, (B,), (torch.float32,), dev)
+        check("t_pad0", t_pad0, (B,), (torch.float32,), dev)
+    else:
+        check("t_next", t_next, (B, L), (torch.float32,), dev)
     for name, s in zip(pll_ops.PLLState._fields, pll_state):
         check(name, s, (B,), (torch.bool if name == "locked"
                                else torch.float32,), dev)
@@ -322,16 +359,18 @@ def fused_demod(chain_params, pll_state, agc_gain, z, t_next):
     # time-major (L, B) planes: a warp reads 32 neighbouring lanes per step
     xre = zre.t().contiguous()
     xim = zim.t().contiguous()
-    tn = t_next.t().contiguous()
-    st_in = state_rows(pll_state, agc_gain)
+    tn = None if tgen else t_next.t().contiguous()
+    st_in = state_rows(pll_state, agc_gain,
+                       *((t_seed, t_pad0) if tgen else ()))
     be = torch.empty((L, B), dtype=torch.float32, device=dev)
     btime = torch.empty((L, B), dtype=torch.float32, device=dev)
     avg_phase = torch.empty((B,), dtype=torch.float32, device=dev)
-    params = _param_block(chain_params, g)
+    params = _param_block(chain_params, g, ts if tgen else 0.0)
     launch(dev, "pdt_fused_demod", xre.data_ptr(), xim.data_ptr(),
-           tn.data_ptr(), st_in.data_ptr(), be.data_ptr(), btime.data_ptr(),
-           avg_phase.data_ptr(), B, L, int(zre.dtype == torch.int16),
-           _SQUELCH_CODE[chain_params.squelch_position], *key,
+           None if tgen else tn.data_ptr(), st_in.data_ptr(),
+           be.data_ptr(), btime.data_ptr(), avg_phase.data_ptr(), B, L,
+           int(zre.dtype == torch.int16),
+           _SQUELCH_CODE[chain_params.squelch_position], int(tgen), *key,
            params.ctypes.data_as(ctypes.c_void_p), params.size)
     fused_demod.launches += 1
     be = be.t()

@@ -18,9 +18,11 @@ Lanes are the only parallel axis on the card, so by default all blocks of a
 recording go into one launch (capped by a memory budget); the JAX package's
 TPU rules (64 blocks per dispatch, ``B % 128``) do not apply.
 
-Stitching works on exact sample positions.  The kernel's time plane holds,
+Stitching works on exact sample positions.  The chain's bit times are,
 per lane, the block-local position of the sample whose time the chain
-reports (exact in float32); frames are kept when their global sync position
+reports (exact in float32): the fused kernel generates them itself (time
+generation with step 1 from per-block seeds), the unfused branches read a
+staged position plane.  Frames are kept when their global sync position
 lies in the block's core and are then labelled with the reference's
 float32 accumulated time axis at that position.  The JAX package stitches
 on that time axis itself, which gives the same frames while the axis
@@ -158,22 +160,31 @@ def warm_state(params: chain_lib.ChainParams, freq_est, fs: float,
 
 def demod_blocks(params: chain_lib.ChainParams, total: int, blocks_re,
                  blocks_im, fs: float, t_next, freq_est, norm_gain: float,
-                 window: int = 4096, use_pallas="fused"):
+                 window: int = 4096, use_pallas="fused", t_seed=None,
+                 t_pad0=None, ts: float = 0.0):
     """Demodulate (B, total) sample blocks -> compressed per-block bits
     (JAX ``demod_blocks``, ``blocked.py:175-323``).
 
     t_next: (B, total) float32 time plane, the values the chain reports as
-    bit times (here :func:`sample_positions`); freq_est: (B,) coarse
-    carrier in Hz.  use_pallas picks the branch (:func:`branch`); window:
-    input samples per Gardner window of the unfused branches (JAX's
+    bit times (here :func:`sample_positions`), or None for the fused
+    kernel's time generation from ``t_seed`` and ``t_pad0`` (B,) with step
+    ``ts`` (1 for sample positions, as :func:`demod_frames` uses); the
+    unfused branches need the plane and raise ``ValueError`` without it,
+    as in JAX.  freq_est: (B,)
+    coarse carrier in Hz.  use_pallas picks the branch (:func:`branch`);
+    window: input samples per Gardner window of the unfused branches (JAX's
     default), which fixes their slot layout (total % window == 0).
     Returns (bits (B, cap) uint8, bit_times, n_bits, avg_phase).
     """
     use_pallas = branch(use_pallas)
+    if t_next is None and use_pallas != "fused":
+        raise ValueError("t_next=None (in-kernel time generation) requires "
+                         "the fused branch: use_pallas='fused'")
     pll_state, gain0 = warm_state(params, freq_est, fs, norm_gain)
     if use_pallas == "fused":
         bits_f, btimes_f, emit_f, avg_phase = fused_demod(
-            params, pll_state, gain0, (blocks_re, blocks_im), t_next)
+            params, pll_state, gain0, (blocks_re, blocks_im), t_next,
+            t_seed, t_pad0, ts)
         # bit emissions are >= ~6 input samples apart (one per 2 Gardner
         # symbols), so a 4-sample chunk holds at most one
         max_bits = total // 4 + 8
@@ -235,20 +246,38 @@ def sample_positions(lo, n: int, total: int, shift: int):
     return torch.where((g >= 0) & (g < n), local, -1.0)
 
 
+def position_seeds(lo, shift: int):
+    """Time generation's inputs that reproduce :func:`sample_positions`
+    with step 1: each block's count of zero-padded head samples (only a
+    block that starts before the recording has any) and the position of
+    its first valid sample.  The generated values equal the plane wherever
+    the window lies inside the recording; past its end they go on
+    counting where the plane holds -1, at positions the stitcher drops
+    either way (the core bound is clamped at n).  Returns (t_seed, t_pad0)
+    float32 (B,)."""
+    pad0 = torch.clamp(-lo, min=0).to(torch.float32)
+    return pad0 + float(shift), pad0
+
+
 def demod_frames(params: chain_lib.ChainParams, plan: BlockPlan, framer_cfg,
                  fs: float, blocks_re, blocks_im, lo, n: int, freq_est,
                  norm_gain: float, window: int = 4096, use_pallas="fused"):
     """demod_blocks + frame extraction + stitching on sample positions.
 
     lo: (B,) int64 global index of each block's first sample; n: samples in
-    the recording.  Returns packed (positions float64, inverted, data,
-    count) on the blocks' device: the global sample position of each kept
-    frame's sync, in stream order (:func:`_fetch_frames` labels them)."""
+    the recording.  The fused branch generates the positions in its kernel
+    (:func:`position_seeds`); the others read the staged plane.  Returns
+    packed (positions float64, inverted, data, count) on the blocks'
+    device: the global sample position of each kept frame's sync, in
+    stream order (:func:`_fetch_frames` labels them)."""
     shift = 1 if params.interp > 1 else 0
-    pos = sample_positions(lo, n, plan.total, shift)
+    if branch(use_pallas) == "fused":
+        pos, (seed, pad0) = None, position_seeds(lo, shift)
+    else:
+        pos, seed, pad0 = sample_positions(lo, n, plan.total, shift), None, None
     bits_c, pos_c, n_bits, _ = demod_blocks(
         params, plan.total, blocks_re, blocks_im, fs, pos, freq_est,
-        norm_gain, window, use_pallas)
+        norm_gain, window, use_pallas, seed, pad0, ts=1.0)
     B = blocks_re.shape[0]
     fb = framer_ops.frame_extract(bits_c, pos_c, n_bits, framer_cfg,
                                   plan.max_frames)

@@ -1,10 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the fused chain, the front-half chain (PLL+FIR+AGC), the PLL scan, the AGC
-scan and the windowed Gardner/Manchester scan.
+the fused chain (POES and ARGOS geometries, staged times and in-kernel time
+generation), the front-half chain (PLL+FIR+AGC, both geometries), the PLL
+scan, the AGC scan, the windowed Gardner/Manchester scan and every variant
+of the two ablation kernels.
 
 Marked ``cuda``; skips without a card.  On a machine with one:
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 The kernels are built with -fmad=false and without fast math, so they
 agree with the plain versions bit for bit on every output.
@@ -23,9 +25,12 @@ from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
     fused_demod, fused_demod_ref)
 from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
     pll_scan_kernel)
-from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
+from project_desert_tortoise_tpu_torch.tools import ablate_fused as AF
+from project_desert_tortoise_tpu_torch.tools import ablate_kernel as AK
+from project_desert_tortoise_tpu_torch.utils.config import ARGOS, POES_TIP
 
 FS = 50000.0
+ARGOS_FS = 32000.0
 
 
 @pytest.fixture
@@ -78,14 +83,18 @@ def test_kernel_refuses_bad_input(card):
         fused_demod(params, st, gain, (z.double(), z.double()), z)
     with pytest.raises(ValueError):
         fused_demod(params, st, gain, (z, z), z.cpu())
-    argos_like = params._replace(interp=1, taps=params.taps[:50])
+    # interp 2 (hist 39): a geometry the kernel does not instantiate
     with pytest.raises(NotImplementedError):
-        fused_demod(argos_like, st, gain, (z, z), z)
+        fused_demod(params._replace(interp=2), st, gain, (z, z), z)
+    with pytest.raises(NotImplementedError):
+        pll_fir_agc(params._replace(interp=2), st, gain, (z, z))
+    with pytest.raises(ValueError, match="time generation"):
+        fused_demod(params, st, gain, (z, z), None)
 
 
 def _equal(got, want):
     for a, b in zip(got, want):
-        if isinstance(a, tuple):
+        if isinstance(a, (tuple, list)):
             _equal(a, b)
         else:
             assert torch.equal(a, b)
@@ -185,3 +194,112 @@ def test_gardner_manchester_matches_plain_on_card(card):
     assert sk.gardner_manchester.launches == before + 1
     assert int(got[4].sum()) > 10 * B
     _equal(got, sk.gardner_manchester_ref(*args))
+
+
+def _argos_input(B, L, seed, dev):
+    """40-sample BPSK symbols with noise (tests/test_pallas_fused.py:101)."""
+    rng = np.random.default_rng(seed)
+    sym = rng.choice([-1.0, 1.0], size=(B, L // 40 + 2))
+    base = np.repeat(sym, 40, axis=1)[:, :L]
+    re = (base * 0.01 + 0.001 * rng.standard_normal((B, L))).astype(np.float32)
+    im = (0.001 * rng.standard_normal((B, L))).astype(np.float32)
+    return torch.from_numpy(re).to(dev), torch.from_numpy(im).to(dev)
+
+
+def _int16(z):
+    return tuple(torch.round(x * 32768.0).to(torch.int16) for x in z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("squelch", [None, "after_pll", "after_agc"])
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+def test_argos_fused_matches_plain_on_card(card, squelch, dtype):
+    params = chain.make_params(ARGOS, ARGOS_FS)._replace(
+        squelch_threshold=0.15 if squelch else None, squelch_position=squelch)
+    B, L = 100, 2000
+    z = _argos_input(B, L, 7, card)
+    if dtype == "int16":
+        z = _int16(z)
+    tn = torch.arange(L, dtype=torch.float32, device=card).expand(B, L)
+    st = pll.init_state(params.pll, (B,), device=card)
+    gain = torch.full((B,), 50.0, device=card)
+    before = fused_demod.launches
+    got = fused_demod(params, st, gain, z, tn.contiguous())
+    torch.cuda.synchronize()
+    assert fused_demod.launches == before + 1
+    assert int(got[2].sum()) > B
+    _equal(got, fused_demod_ref(params, st, gain, z, tn.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["poes", "argos"])
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+def test_time_generation_matches_plain_on_card(card, mode, dtype):
+    """t_next=None: seeds, a zero-padded head on lane 0 and step ts."""
+    if mode == "poes":
+        params, fs = chain.make_params(POES_TIP, FS), FS
+        re, im, _ = _input(100, 1500, 8, card)
+        z = (torch.from_numpy(re).to(card), torch.from_numpy(im).to(card))
+    else:
+        params, fs = chain.make_params(ARGOS, ARGOS_FS), ARGOS_FS
+        z = _argos_input(100, 1500, 9, card)
+    B, L = z[0].shape
+    z = tuple(x.clone() for x in z)
+    for x in z:
+        x[0, :300] = 0.0
+    if dtype == "int16":
+        z = _int16(z)
+    ts = float(np.float32(1.0) / np.float32(fs))
+    seed = torch.arange(B, dtype=torch.float32, device=card) * 0.25 + ts
+    pad0 = torch.zeros(B, device=card)
+    pad0[0] = 300.0
+    st = pll.init_state(params.pll, (B,), device=card)
+    gain = torch.full((B,), 17.58, device=card)
+    before = fused_demod.launches
+    got = fused_demod(params, st, gain, z, None, seed, pad0, ts)
+    torch.cuda.synchronize()
+    assert fused_demod.launches == before + 1
+    _equal(got, fused_demod_ref(params, st, gain, z, None, seed, pad0, ts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("squelch", [None, "after_pll"])
+def test_argos_pll_fir_agc_matches_plain_on_card(card, squelch):
+    params = chain.make_params(ARGOS, ARGOS_FS)._replace(
+        squelch_threshold=0.15 if squelch else None, squelch_position=squelch)
+    B = 100
+    z = _argos_input(B, 1500, 10, card)
+    st = pll.init_state(params.pll, (B,), device=card)
+    gain = torch.full((B,), 50.0, device=card)
+    before = pll_fir_agc.launches
+    got = pll_fir_agc(params, st, gain, z)
+    torch.cuda.synchronize()
+    assert pll_fir_agc.launches == before + 1
+    _equal(got, pll_fir_agc_ref(params, st, gain, z))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(AK.VARIANTS))
+def test_ablate_kernel_matches_plain_on_card(card, name):
+    ins, state = AK.inputs(name, 512, 1, card)
+    before = AK.ablate_kernel.launches
+    got = AK.ablate_kernel(name, ins, state, 128)
+    torch.cuda.synchronize()
+    assert AK.ablate_kernel.launches == before + 1
+    _equal(got, AK.ablate_kernel_ref(name, ins, state, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(AF.VARIANTS))
+def test_ablate_fused_matches_plain_on_card(card, name):
+    xs, state = AF.inputs(512, 1, card)
+    before = AF.ablate_fused.launches
+    got = AF.ablate_fused(name, *xs, state, 128)
+    torch.cuda.synchronize()
+    assert AF.ablate_fused.launches == before + 1
+    want = AF.ablate_fused_ref(name, *xs, state, 128)
+    _equal(got, want)
+    # twice into the same buffers, as the tool's timed calls write
+    out = AF.output_buffers(512, AF.LANES, card)
+    for _ in range(2):
+        _equal(AF.ablate_fused(name, *xs, state, 128, out), want)

@@ -37,21 +37,32 @@ def _input(B, L, seed, sps, noise=0.002):
     return re, im, tn
 
 
-def _both(jparams, re, im, tn, gain=17.58):
+def _both(jparams, re, im, tn, gain=17.58, t_seed=None, t_pad0=None,
+          ts=0.0):
+    """The JAX kernel (interpret mode) and the port's plain version on the
+    same inputs; tn=None with t_seed, t_pad0 (B,) numpy and ts runs both in
+    time-generation mode."""
     B = re.shape[0]
     pst = JP.init_state(jparams.pll, jnp.float32, (B,))
     g0 = np.full((B,), gain, np.float32)
+    kw, tkw = {}, {}
+    if tn is None:
+        kw = dict(t_seed=jnp.asarray(t_seed), t_pad0=jnp.asarray(t_pad0),
+                  ts=ts)
+        tkw = dict(t_seed=torch.from_numpy(t_seed),
+                   t_pad0=torch.from_numpy(t_pad0), ts=ts)
     j = fused_demod_pallas(jparams, pst, jnp.asarray(g0),
                            (jnp.asarray(re), jnp.asarray(im)),
-                           jnp.asarray(tn), window=512, interpret=True)
+                           None if tn is None else jnp.asarray(tn),
+                           window=512, interpret=True, **kw)
     t = fused_demod(TC.from_jax(jparams), TC.from_jax(pst),
                     torch.from_numpy(g0),
                     (torch.from_numpy(re), torch.from_numpy(im)),
-                    torch.from_numpy(tn))
+                    None if tn is None else torch.from_numpy(tn), **tkw)
     return [np.asarray(x) for x in j], [x.numpy() for x in t]
 
 
-def _check_lanes(j, t, min_emitted=100):
+def _check_lanes(j, t, min_emitted=100, fs=FS):
     B = j[0].shape[0]
     exact = emitted = 0
     for k in range(B):
@@ -62,7 +73,7 @@ def _check_lanes(j, t, min_emitted=100):
         if np.array_equal(ta, tb):
             exact += 1
         else:
-            assert np.abs(ta - tb).max() <= 1.0001 / FS, k
+            assert np.abs(ta - tb).max() <= 1.0001 / fs, k
         emitted += len(b)
     print(f"bit times identical on {exact}/{B} lanes")
     assert exact >= 0.99 * B
@@ -100,6 +111,8 @@ def test_fused_ref_tight_latch_geometry():
 
 @pytest.mark.parametrize("fn", [fused_demod, fused_demod_ref])
 def test_latch_guard_and_time_generation_refused(fn):
+    """The latch guard, and t_next=None (time generation) without its
+    seeds, padded-head counts or a step > 0."""
     params = TC.make_params(POES_TIP, FS)
     bad = params._replace(step_size=4.0, baud=FS * 3 / 4.0)
     z = torch.zeros((4, 64))
@@ -107,8 +120,11 @@ def test_latch_guard_and_time_generation_refused(fn):
     g = torch.full((4,), 17.58)
     with pytest.raises(ValueError, match="capture-latch"):
         fn(bad, st, g, (z, z), z)
-    with pytest.raises(NotImplementedError):
-        fn(params, st, g, (z, z), None)
+    seeds = torch.zeros(4)
+    for kw in ({}, dict(t_seed=seeds, ts=1.0), dict(t_pad0=seeds, ts=1.0),
+               dict(t_seed=seeds, t_pad0=seeds)):
+        with pytest.raises(ValueError, match="time generation"):
+            fn(params, st, g, (z, z), None, **kw)
 
 
 def test_pll_scan_close_to_jax():
