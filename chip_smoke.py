@@ -19,8 +19,12 @@ and drives the port's three entry points:
 - the two ablation tools (``project_desert_tortoise_tpu_torch/tools``),
   every variant at 128 and at 4,224 lanes (``ablation`` lines).
 
-It times the steps of each pass one by one (``stages`` lines) and each
-kernel on the blocks of its pass.  Each phase prints one JSON line, with
+It holds the decoupled ``fused_demod`` and ``pll_fir_agc`` to their serial
+twins (``fused_demod_serial``, ``pll_fir_agc_serial``, on no path) on
+every entry of each pass's blocks, times old and new in the same run
+(``whole_pass_vs_serial`` lines) and prints their launch configuration
+(``design`` lines).  It times the steps of each pass one by one
+(``stages`` lines) and each kernel on the blocks of its pass.  Each phase prints one JSON line, with
 ``t`` the seconds since the start; any failure raises and the script exits
 non-zero.  The last lines are the kernel table, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -87,6 +91,12 @@ KERNELS = {
                     JAX + "ops/pallas/fused_kernel.py:291"),
     "pll_fir_agc": (CSRC + "chain_kernel.cu",
                     JAX + "ops/pallas/chain_kernel.py:100"),
+    # the serial designs of the two, kept as the whole-pass oracle and the
+    # timing baseline; no path launches them
+    "fused_demod_serial": (CSRC + "fused_demod.cu",
+                           JAX + "ops/pallas/fused_kernel.py:291"),
+    "pll_fir_agc_serial": (CSRC + "chain_kernel.cu",
+                           JAX + "ops/pallas/chain_kernel.py:100"),
     "pll_scan": (CSRC + "pll_kernel.cu", JAX + "ops/pallas/pll_kernel.py:60"),
     "agc_scan": (CSRC + "scan_kernels.cu", JAX + "ops/agc.py:65"),
     "gardner_manchester": (CSRC + "scan_kernels.cu", JAX + "ops/clock.py:151"),
@@ -120,14 +130,16 @@ def kernel_fns() -> dict:
     """Each kernel's wrapper (whose ``.launches`` counts its launches)."""
     from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels
     from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
-        pll_fir_agc)
+        pll_fir_agc, pll_fir_agc_serial)
     from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
-        fused_demod)
+        fused_demod, fused_demod_serial)
     from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
         pll_scan_kernel)
     from project_desert_tortoise_tpu_torch.tools import (
         ablate_fused, ablate_kernel)
     return {"fused_demod": fused_demod, "pll_fir_agc": pll_fir_agc,
+            "fused_demod_serial": fused_demod_serial,
+            "pll_fir_agc_serial": pll_fir_agc_serial,
             "pll_scan": pll_scan_kernel, "agc_scan": scan_kernels.agc_scan,
             "gardner_manchester": scan_kernels.gardner_manchester,
             "ablate_kernel": ablate_kernel.ablate_kernel,
@@ -136,8 +148,9 @@ def kernel_fns() -> dict:
 
 def drive(path, fn):
     """Run one main path: every kernel count set to 0 just before fn(),
-    read just after; fails unless each kernel of the path launched.
-    Returns (fn's result, {kernel: launches})."""
+    read just after; fails unless each kernel of the path launched and no
+    other did (the serial kernels among them).  Returns (fn's result,
+    {kernel: launches})."""
     import torch
     fns = kernel_fns()
     for f in fns.values():
@@ -149,6 +162,9 @@ def drive(path, fn):
     missing = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
     if missing:
         raise AssertionError(f"path {path!r} did not launch {missing}")
+    stray = [k for k, n in counts.items() if n and k not in PATH_KERNELS[path]]
+    if stray:
+        raise AssertionError(f"path {path!r} launched {stray}")
     return out, counts
 
 
@@ -159,6 +175,39 @@ def bound(n_bytes: float, flops: float) -> dict:
     t_ops = flops / FP32_FLOP_S * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+# dependent operations a sample on the front stages' loop-carried chains,
+# counted from csrc/pdt_common.cuh (all kernels of the chain compute the
+# same recurrences): the AGC gain, 10 an output (multiply, add, compare,
+# select, multiply, add, two compare-selects); the locked PLL phase, 12
+# (add, compare, two selects of the wrap, multiply, three adds, two
+# compare-selects of the second wrap); the EMAs 2.  Gardner and Manchester
+# (fused_demod's stage E) are not counted.  Each at CHAIN_CYCLES, the
+# dependent-issue latency of an FP32 add, multiply, compare or select.
+# The chain bound is computed from these counts, not measured: it goes on
+# the design and stages lines, not on the kernels line.
+CHAIN_CYCLES = 4
+AGC_CHAIN_OPS, PLL_CHAIN_OPS = 10, 12
+
+
+def max_sm_clock_hz() -> float:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, check=True)
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
+
+
+def chain_bound_ms(steps: int, ops_per_step: float) -> float:
+    """Least time of `steps` steps of a loop-carried chain of
+    `ops_per_step` dependent operations, at the card's maximum SM clock."""
+    return steps * ops_per_step * CHAIN_CYCLES / max_sm_clock_hz() * 1e3
+
+
+def front_chain_ops(interp: int) -> int:
+    """The PLL-FIR-AGC chain's longest recurrence a sample: the AGC over
+    interp outputs, or the PLL phase (stage E not counted)."""
+    return max(AGC_CHAIN_OPS * interp, PLL_CHAIN_OPS)
 
 
 def max_abs_err(a, b) -> float:
@@ -302,7 +351,24 @@ def phase_build():
              if "entry function" in ln or "registers" in ln or "spill" in ln]
     emit("build", library=os.path.relpath(so, REPO),
          sources=[s.name for s in build.SOURCES],
-         seconds=round(time.time() - t0, 3), ptxas=ptxas)
+         seconds=round(time.time() - t0, 3), ptxas=ptxas,
+         smem_per_cta=decoupled_smem())
+
+
+def decoupled_smem() -> dict:
+    """Dynamic shared memory bytes a CTA of the decoupled kernels'
+    main-path instantiations (ptxas reports static shared memory only)."""
+    from project_desert_tortoise_tpu_torch import chain
+    from project_desert_tortoise_tpu_torch.ops.kernels import chain_kernel
+    from project_desert_tortoise_tpu_torch.ops.kernels import fused_kernel
+    out = {}
+    for mode_name, (mode, fs) in modes().items():
+        params = chain.make_params(mode, fs)
+        for kern in (fused_kernel, chain_kernel):
+            name = kern.__name__.rsplit(".", 1)[1]
+            out[f"{name} {mode_name}"] = kern.launch_config(params)[
+                "smem_bytes"]
+    return out
 
 
 def phase_kernel():
@@ -859,6 +925,89 @@ def phase_fused_at_main_shape(mode_name: str, staged, cli_wall: float,
                                 **bound(B * L * 16.0, B * L * ops))
 
 
+def old_new_ms(new, old, reps: int = 2):
+    """CUDA-event ms of two kernels on the same inputs in one run, in
+    turns old, new, new, old (each a mean over reps launches); returns
+    (new ms, old ms, new's result, old's result)."""
+    old_a, want = cuda_ms(old)
+    new_a, got = cuda_ms(new, reps)
+    new_b, _ = cuda_ms(new, reps)
+    old_b, _ = cuda_ms(old)
+    return (new_a + new_b) / 2, (old_a + old_b) / 2, got, want
+
+
+def phase_decoupled_at_main_shape(mode_name: str, staged, stats: dict):
+    """The decoupled fused_demod and pll_fir_agc against their serial twins
+    (fused_demod_serial, pll_fir_agc_serial) on every entry of the pass's
+    main blocks, bit for bit: fused_demod on time generation and on the
+    staged position plane, pll_fir_agc with the mode's squelch and (POES)
+    with one after the PLL.  Times both at this shape in this run; one
+    `design` line: the launch configuration the card reports, the times,
+    the share of lane-steps that ran the unlocked PLL step and the front
+    stages' chain bound (computed from counted operations, not
+    measured)."""
+    import torch
+    from project_desert_tortoise_tpu_torch.ops.kernels import chain_kernel
+    from project_desert_tortoise_tpu_torch.ops.kernels import fused_kernel
+    from project_desert_tortoise_tpu_torch.parallel import blocked
+
+    params, plan, fs, n, norm, zre, zim, lo, fest = staged
+    B, L = zre.shape
+    z = (zre, zim)
+    pst, gain = blocked.warm_state(params, fest, fs, norm)
+    pos = blocked.sample_positions(lo, n, plan.total,
+                                   1 if params.interp > 1 else 0)
+    seed, pad0 = blocked.position_seeds(lo, 1 if params.interp > 1 else 0)
+    unlocked = torch.zeros((B,), dtype=torch.int32, device=zre.device)
+    FD, FS_ = fused_kernel.fused_demod, fused_kernel.fused_demod_serial
+    PF, PS = chain_kernel.pll_fir_agc, chain_kernel.pll_fir_agc_serial
+    times, share = {}, {}
+    for src, targs in (("time generation", (None, seed, pad0, 1.0)),
+                       ("staged plane", (pos,))):
+        ms, ms_old, got, want = old_new_ms(
+            lambda: FD(params, pst, gain, z, *targs),
+            lambda: FS_(params, pst, gain, z, *targs))
+        check_equal(got, want, f"fused_demod vs serial ({src})")
+        times["fused_demod", src] = (ms, ms_old)
+    FD(params, pst, gain, z, None, seed, pad0, 1.0, unlocked=unlocked)
+    share["fused_demod"] = float(unlocked.sum()) / (B * L)
+    sq_cases = [params]
+    if mode_name == "poes":
+        sq_cases.append(params._replace(squelch_threshold=0.05,
+                                        squelch_position="after_pll"))
+    for cp in sq_cases:
+        case = f"squelch {cp.squelch_position}"
+        ms, ms_old, got, want = old_new_ms(lambda: PF(cp, pst, gain, z),
+                                           lambda: PS(cp, pst, gain, z))
+        check_equal(got, want, f"pll_fir_agc vs serial ({case})")
+        times["pll_fir_agc", case] = (ms, ms_old)
+    PF(params, pst, gain, z, unlocked=unlocked)
+    share["pll_fir_agc"] = float(unlocked.sum()) / (B * L)
+    for (name, case), (ms, ms_old) in times.items():
+        emit("whole_pass_vs_serial", mode=mode_name, kernel=name, case=case,
+             B=B, L=L, bit_exact=True, ms=ms, serial_ms=ms_old,
+             speedup=ms_old / ms, card=card_line())
+    configs = {"fused_demod": fused_kernel.launch_config(params),
+               "pll_fir_agc": chain_kernel.launch_config(params)}
+    main = {"fused_demod": "time generation",
+            "pll_fir_agc": f"squelch {params.squelch_position}"}
+    # fused_demod's E (Gardner, Manchester) is not in the count
+    chain = chain_bound_ms(L, front_chain_ops(params.interp))
+    emit("design", mode=mode_name, B=B, L=L, card=card_line(),
+         **{k: dict(configs[k], ms=times[k, main[k]][0],
+                    serial_ms=times[k, main[k]][1],
+                    unlocked_step_share=share[k],
+                    front_chain_bound_ms=chain) for k in configs})
+    # the serial twins' rows of the kernels line: their time here, bound and
+    # plain version those of the decoupled kernel (the same function); the
+    # decoupled kernel equals them on every entry above
+    for k in configs:
+        ms, ms_old = times[k, main[k]]
+        stats[k + "_serial"] = dict(ms=ms_old, shape=[B, L],
+                                    decoupled_ms=ms, max_abs_err=0.0)
+        stats[k]["serial_ms"] = ms_old
+
+
 def phase_new_kernels_at_main_shape(mode_name: str, staged, stats: dict,
                                     window: int = 4096):
     """The kernels of the front and scan branches against their plain
@@ -1016,9 +1165,15 @@ def phase_branch_stages(mode_name: str, staged, br,
     blocked.demod_frames(params, plan, mode.framer, fs, zre, zim, lo, n,
                          fest, norm, window, br)
     torch.cuda.synchronize()
+    # the chains' bound, computed from counted operations (not measured)
+    chains = ({"pll_fir_agc": chain_bound_ms(L, front_chain_ops(interp))}
+              if br == "front" else
+              {"pll_scan": chain_bound_ms(L, PLL_CHAIN_OPS),
+               "agc_scan": chain_bound_ms(L * interp, AGC_CHAIN_OPS)})
     emit("stages", mode=mode_name, use_pallas=br, B=B, L=L, card=card_line(),
          demod_frames_s=time.perf_counter() - t0,
-         **{k + "_ms": v for k, v in ms.items()})
+         **{k + "_ms": v for k, v in ms.items()},
+         chain_bound_ms=chains)
     # bytes each input read once, each output written once; operations
     # counted from the sources (sinf/cosf one each): PLL ~40 a sample, FIR
     # 2 a tap and AGC 8 per output, Gardner+Manchester ~30 per symbol
@@ -1185,10 +1340,18 @@ def main() -> int:
         phase_fused_at_main_shape(mode_name, staged[mode_name],
                                   walls[mode_name], st)
         phase_new_kernels_at_main_shape(mode_name, staged[mode_name], st)
+        phase_decoupled_at_main_shape(mode_name, staged[mode_name], st)
         for br in ("front", False):
             for k, v in phase_branch_stages(mode_name, staged[mode_name],
                                             br).items():
                 st.setdefault(k, {}).update(v)
+
+    # the serial twins compute the same function as the decoupled kernels:
+    # the same bound and plain version
+    for st in stats.values():
+        for k in ("fused_demod", "pll_fir_agc"):
+            for f in ("bound_ms", "bound_by", "plain_ms", "plain_shape"):
+                st[k + "_serial"][f] = st[k][f]
 
     jax_pkg = "project_desert_tortoise_tpu"
     if any(m in ("jax", jax_pkg) or m.startswith(("jax.", jax_pkg + "."))

@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Wall seconds of the port's two fast CLIs, ``demod_poes --fast`` and
+``demod_argos --fast``, on the 12-minute passes of ``chip_smoke.py``, for
+two or more checkouts of the repository timed in turns on one card.
+
+    python3 cli_walls.py ROOT [ROOT ...] [--pairs N]
+
+Each ROOT is a checkout.  One worker process a root imports that root's
+``project_desert_tortoise_tpu_torch`` and runs the CLI on request; each
+worker runs each CLI once first (kernel build and warm-up).  Then, for
+each mode and each of ``--pairs`` rounds, the roots go in order and then
+in reverse (two roots: A, B, B, A), so a drift of the host's load falls on
+both alike.  A run is timed from WAV load to written file, as
+``chip_smoke.py``'s ``main_path`` lines are.  Beside each wall the worker
+reports what its process did in that time: CPU seconds (user and system),
+major page faults (reads that waited on the disk) and involuntary context
+switches (time the process was ready but another had the core).
+
+Prints one JSON line a run, then for each mode and root the median, the
+quartiles and the spread (max - min) of its walls; with two roots, for
+each mode the pairs (the i-th run of each) the second root won and
+whether its slowest run beat the first root's fastest; then the card's
+name and power limit.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+
+from chip_smoke import card_line, synth_pass
+
+# a worker: argv[1] is its root; each stdin line "mode wav out" runs that
+# CLI once and answers one JSON line on stdout (the CLI's own prints go to
+# a buffer)
+_WORKER = r"""
+import contextlib, io, json, resource, sys, time
+sys.path.insert(0, sys.argv[1])
+from project_desert_tortoise_tpu_torch.apps import demod_argos, demod_poes
+
+def cli(mode, wav, out):
+    argv = [wav, "--fast", "--out", out]
+    if mode == "poes":
+        return demod_poes.run(argv)
+    try:
+        demod_argos.main(argv)
+    except SystemExit as done:
+        return done.code
+    raise AssertionError("demod_argos.main returned without an exit code")
+
+reply = sys.stdout
+for line in sys.stdin:
+    mode, wav, out = line.split()
+    r0 = resource.getrusage(resource.RUSAGE_SELF)
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli(mode, wav, out)
+    wall = time.time() - t0
+    r1 = resource.getrusage(resource.RUSAGE_SELF)
+    print(json.dumps({
+        "rc": rc, "wall_s": wall,
+        "cpu_user_s": r1.ru_utime - r0.ru_utime,
+        "cpu_sys_s": r1.ru_stime - r0.ru_stime,
+        "major_faults": r1.ru_majflt - r0.ru_majflt,
+        "invol_switches": r1.ru_nivcsw - r0.ru_nivcsw}), file=reply,
+        flush=True)
+"""
+
+
+class Worker:
+    """A process that runs the CLIs of one checkout on request."""
+
+    def __init__(self, root: str):
+        self.root = os.path.abspath(root)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _WORKER, self.root], text=True,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+
+    def run(self, mode: str, wav: str, out: str) -> dict:
+        self.proc.stdin.write(f"{mode} {wav} {out}\n")
+        self.proc.stdin.flush()
+        line = self.proc.stdout.readline()
+        if not line:
+            raise RuntimeError(f"the worker of {self.root} ended")
+        result = json.loads(line)
+        if result["rc"] != 0:
+            raise RuntimeError(f"{mode} CLI of {self.root} exited "
+                               f"{result['rc']}")
+        return result
+
+    def close(self):
+        self.proc.stdin.close()
+        try:
+            self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+
+
+def summary(walls) -> dict:
+    q1, _, q3 = statistics.quantiles(walls, n=4)
+    return dict(runs=len(walls), median_s=statistics.median(walls),
+                q1_s=q1, q3_s=q3, spread_s=max(walls) - min(walls),
+                walls_s=walls)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="+", help="checkouts of the repository")
+    ap.add_argument("--pairs", type=int, default=10,
+                    help="rounds, each the roots in order then reversed")
+    args = ap.parse_args(argv)
+    order = (args.roots + args.roots[::-1]) * args.pairs
+    walls = {}
+    workers = {root: Worker(root) for root in args.roots}
+    try:
+        with tempfile.TemporaryDirectory() as workdir:
+            for mode in ("poes", "argos"):
+                wav = synth_pass(mode, workdir)[0]
+                out = os.path.join(workdir, "out.txt")
+                for w in workers.values():
+                    w.run(mode, wav, out)             # warm-up
+                for turn, root in enumerate(order):
+                    r = workers[root].run(mode, wav, out)
+                    walls.setdefault((mode, root), []).append(r["wall_s"])
+                    print(json.dumps({"mode": mode, "root": root,
+                                      "turn": turn, **r}), flush=True)
+                os.remove(wav)
+    finally:
+        for w in workers.values():
+            w.close()
+    for (mode, root), w in walls.items():
+        print(json.dumps({"mode": mode, "root": root, **summary(w)}))
+    if len(args.roots) == 2:
+        for mode in ("poes", "argos"):
+            a, b = (walls[mode, root] for root in args.roots)
+            print(json.dumps({"mode": mode, "pairs": len(a),
+                              "second_won": sum(y < x for x, y in zip(a, b)),
+                              "second_all_faster": max(b) < min(a)}))
+    print(card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

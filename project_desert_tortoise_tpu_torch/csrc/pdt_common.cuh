@@ -89,32 +89,59 @@ __device__ __forceinline__ float sgn(float x) {
   return (x > 0.0f ? 1.0f : 0.0f) - (x < 0.0f ? 1.0f : 0.0f);
 }
 
+// The feed-forward terms of a PLL step: everything that reads the phase
+// before the update and the input sample, but no other carried value.
+struct PllTerms {
+  float out;         // data-arm output
+  float avg_term;    // avg_phase_alpha * |out_phase|, the avg_phase EMA's input
+  float lock_term;   // lock_alpha * carrier projection, the locksig EMA's input
+};
+
+__device__ __forceinline__ PllTerms pll_terms(float phase, const PllParams& p,
+                                              float xre, float xim) {
+  const float t_im = sinf(phase);
+  const float t_re = cosf(phase);
+  PllTerms r;
+  r.out = xim * t_re - xre * t_im;
+  const float pll_re = xre * t_re + xim * t_im;
+  const float out_phase = arctan2_approx(r.out, pll_re);
+  r.avg_term = p.avg_phase_alpha * fabsf(out_phase);
+  const float inv = q_rsqrt(xre * xre + xim * xim);
+  r.lock_term = p.lock_alpha * ((xre * inv) * t_re + (xim * inv) * t_im);
+  return r;
+}
+
+// The loop-carried phase/freq update with loop gains alpha, beta: reads only
+// the old phase, the old freq and the sample's own phase
+// arctan2_approx(xim, xre).  freq leaves clamped to +/- max_freq.  A locked
+// step is this alone with the tracking gains: `locked` is sticky and a
+// locked lane never sweeps, and pll_terms and the two EMAs follow from
+// the phases it leaves.
+__device__ __forceinline__ void pll_advance(float& phase, float& freq,
+                                            float sample_phase, float alpha,
+                                            float beta, float max_freq) {
+  float err = sample_phase - phase;
+  err = err > kPi ? err - kTwoPi : (err < -kPi ? err + kTwoPi : err);
+  const float n_freq = freq + beta * err;
+  float n_phase = phase + n_freq + alpha * err;
+  n_phase = n_phase > kTwoPi ? n_phase - kTwoPi : n_phase;
+  phase = n_phase < -kTwoPi ? n_phase + kTwoPi : n_phase;
+  freq = fminf(fmaxf(n_freq, -max_freq), max_freq);
+}
+
 // One Costas PLL step (ops/pll.py::step_with_terms, JAX ops/pll.py::_step):
 // advances s and returns the data-arm output; *lock gets the new locksig.
+// pll_terms, the EMAs and pll_advance in the reference's operation order.
 __device__ __forceinline__ float pll_step(PllState& s, const PllParams& p,
                                           float xre, float xim,
                                           float* lock) {
-  const float t_im = sinf(s.phase);
-  const float t_re = cosf(s.phase);
-  const float out = xim * t_re - xre * t_im;
-  const float pll_re = xre * t_re + xim * t_im;
-  const float out_phase = arctan2_approx(out, pll_re);
-  const float n_avg = s.avg_phase * (1.0f - p.avg_phase_alpha)
-                      + p.avg_phase_alpha * fabsf(out_phase);
-  const float sample_phase = arctan2_approx(xim, xre);
-  float err = sample_phase - s.phase;
-  err = err > kPi ? err - kTwoPi : (err < -kPi ? err + kTwoPi : err);
-  const float alpha = s.locked ? p.alpha_track : p.alpha_acq;
-  const float beta = s.locked ? p.beta_track : p.beta_acq;
-  float n_freq = s.freq + beta * err;
-  float n_phase = s.phase + n_freq + alpha * err;
-  n_phase = n_phase > kTwoPi ? n_phase - kTwoPi : n_phase;
-  n_phase = n_phase < -kTwoPi ? n_phase + kTwoPi : n_phase;
-  n_freq = fminf(fmaxf(n_freq, -p.max_freq), p.max_freq);
-  const float inv = q_rsqrt(xre * xre + xim * xim);
-  const float n_lock = s.locksig * (1.0f - p.lock_alpha)
-                       + p.lock_alpha * ((xre * inv) * t_re
-                                         + (xim * inv) * t_im);
+  const PllTerms f = pll_terms(s.phase, p, xre, xim);
+  const float n_avg = s.avg_phase * (1.0f - p.avg_phase_alpha) + f.avg_term;
+  float n_phase = s.phase, n_freq = s.freq;
+  pll_advance(n_phase, n_freq, arctan2_approx(xim, xre),
+              s.locked ? p.alpha_track : p.alpha_acq,
+              s.locked ? p.beta_track : p.beta_acq, p.max_freq);
+  const float n_lock = s.locksig * (1.0f - p.lock_alpha) + f.lock_term;
   const bool sweeping = fabsf(kHalfPi - n_avg) < p.sweep_threshold
                         && !s.locked;
   const float freq_swept = n_freq + s.sweep;
@@ -130,7 +157,7 @@ __device__ __forceinline__ float pll_step(PllState& s, const PllParams& p,
   s.locksig = n_lock;
   s.avg_phase = n_avg;
   *lock = n_lock;
-  return out;
+  return f.out;
 }
 
 // One AGC step (AGC.c:98-130, JAX ops/agc.py:76-83): returns x * gain and

@@ -24,7 +24,7 @@ CSRC = PKG / "csrc"
 SOURCES = tuple(CSRC / f for f in ("fused_demod.cu", "chain_kernel.cu",
                                    "pll_kernel.cu", "scan_kernels.cu",
                                    "ablate_kernel.cu", "ablate_fused.cu"))
-HEADERS = (CSRC / "pdt_common.cuh",)
+HEADERS = (CSRC / "pdt_common.cuh", CSRC / "front_stages.cuh")
 BUILD_DIR = PKG / "_build"
 # -fmad=false and no fast math: the kernels match their plain PyTorch
 # versions operation for operation (see csrc/pdt_common.cuh)
@@ -35,12 +35,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of each entry point (see the extern "C" functions)
 _SIGNATURES = {
+    # zre, zim, tn, st_in, be, btime, avg_out, unlocked, B, L, in_int16,
+    # squelch, tgen, interp, hist, ring_t, n_tg, params, n_params, stream
+    "pdt_fused_demod": [_P] * 8 + [_I] * 9 + [_P, _I, _P],
+    # interp, hist, ring_t, n_tg, in_int16, squelch, tgen, out
+    "pdt_fused_demod_config": [_I] * 7 + [_P],
     # zre, zim, tn, st_in, be, btime, avg_out, B, L, in_int16, squelch,
     # tgen, interp, hist, ring_t, n_tg, params, n_params, stream
-    "pdt_fused_demod": [_P] * 7 + [_I] * 9 + [_P, _I, _P],
+    "pdt_fused_demod_serial": [_P] * 7 + [_I] * 9 + [_P, _I, _P],
+    # zre, zim, st_in, y, lock, st_out, unlocked, B, L, interp, hist,
+    # squelch_after_pll, params, n_params, stream
+    "pdt_pll_fir_agc": [_P] * 7 + [_I] * 5 + [_P, _I, _P],
+    # interp, hist, squelch_after_pll, out
+    "pdt_pll_fir_agc_config": [_I] * 3 + [_P],
     # zre, zim, st_in, y, lock, st_out, B, L, interp, hist,
     # squelch_after_pll, params, n_params, stream
-    "pdt_pll_fir_agc": [_P] * 6 + [_I] * 5 + [_P, _I, _P],
+    "pdt_pll_fir_agc_serial": [_P] * 6 + [_I] * 5 + [_P, _I, _P],
     # zre, zim, st_in, out, lock, st_out, B, L, params, n_params, stream
     "pdt_pll_scan": [_P] * 6 + [_I] * 2 + [_P, _I, _P],
     # x, g_in, y, g_out, B, n, params, n_params, stream

@@ -9,9 +9,12 @@ polyphase FIR (history N/interp samples) and the AGC on each of the
 is the caller's (``parallel/blocked.py::demod_blocks``), as in JAX.
 
 - :func:`pll_fir_agc` is the entry point.  A CUDA tensor launches the
-  hand-written kernel ``csrc/chain_kernel.cu`` or raises; a CPU tensor runs
-  :func:`pll_fir_agc_ref`.  ``pll_fir_agc.launches`` counts kernel
-  launches.
+  hand-written decoupled kernel of ``csrc/chain_kernel.cu`` or raises; a
+  CPU tensor runs :func:`pll_fir_agc_ref`.  ``pll_fir_agc.launches``
+  counts kernel launches.
+- :func:`pll_fir_agc_serial` launches the serial kernel of the same file,
+  PLL, FIR and AGC of a sample in turn: the card-side oracle and timing
+  baseline of the decoupled kernel, on no path.
 - :func:`pll_fir_agc_ref` is the plain PyTorch version, on any device: a
   loop over the samples, all lanes at once, in the JAX kernel body's order
   of float32 operations (``chain_kernel.py:52-87``), so on the card it
@@ -27,7 +30,7 @@ import torch
 
 from project_desert_tortoise_tpu_torch.ops import pll as pll_ops
 from project_desert_tortoise_tpu_torch.ops.kernels.common import (
-    check, launch, state_rows)
+    check, kernel_config, launch, on_card, state_rows)
 from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
     check_pll_state, pll_param_block, pll_state_from_rows)
 
@@ -143,48 +146,99 @@ def _param_block(cp, poly) -> np.ndarray:
         block.ravel()])
 
 
-def pll_fir_agc(chain_params, pll_state, agc_gain, z):
-    """PLL + polyphase FIR + AGC on (B, L) float32 planes z = (zre, zim).
-
-    pll_state: (B,) lanes; agc_gain: (B,).  Returns (pll_state, agc_gain,
-    y (B, L*interp), locksig (B, L)), as the JAX ``pll_fir_agc_pallas``.
-    CPU tensors run :func:`pll_fir_agc_ref`.  CUDA tensors launch the
-    kernel; a geometry it does not instantiate raises
-    ``NotImplementedError``.
-    """
-    cp = chain_params
-    zre, zim = z
-    dev = zre.device
-    if dev.type == "cpu":
-        return pll_fir_agc_ref(cp, pll_state, agc_gain, z)
-    if dev.type != "cuda":
-        raise ValueError(f"pll_fir_agc runs on cpu or cuda, not {dev}")
+def _kernel_args(cp, pll_state, agc_gain, z, name: str):
+    """Check a kernel launch's arguments; returns (geometry key, the
+    (B, L) planes, state rows, param block)."""
     poly = polyphase(cp.taps, cp.interp)
     key = (cp.interp, len(poly[0]))
     if key not in KERNEL_GEOMETRIES:
         raise NotImplementedError(
-            f"CUDA pll_fir_agc has no instantiation for geometry "
+            f"CUDA {name} has no instantiation for geometry "
             f"(interp, hist) = {key}; available: {sorted(KERNEL_GEOMETRIES)}")
+    zre, zim = z
+    dev = zre.device
     B, L = zre.shape
     check("zre", zre, (B, L), (torch.float32,), dev)
     check("zim", zim, (B, L), (torch.float32,), dev)
     check_pll_state(pll_state, B, dev)
     check("agc_gain", agc_gain, (B,), (torch.float32,), dev)
+    return key, (zre, zim), state_rows(pll_state, agc_gain), \
+        _param_block(cp, poly)
 
-    # time-major planes: a warp reads and writes 32 neighbouring lanes
-    xre = zre.t().contiguous()
-    xim = zim.t().contiguous()
-    st_in = state_rows(pll_state, agc_gain)
-    y = torch.empty((L * cp.interp, B), dtype=torch.float32, device=dev)
-    lock = torch.empty((L, B), dtype=torch.float32, device=dev)
+
+def pll_fir_agc(chain_params, pll_state, agc_gain, z, *, unlocked=None):
+    """PLL + polyphase FIR + AGC on (B, L) float32 planes z = (zre, zim).
+
+    pll_state: (B,) lanes; agc_gain: (B,).  Returns (pll_state, agc_gain,
+    y (B, L*interp), locksig (B, L)), as the JAX ``pll_fir_agc_pallas``.
+    CPU tensors run :func:`pll_fir_agc_ref`.  CUDA tensors launch the
+    decoupled kernel of ``csrc/chain_kernel.cu``; a geometry it does not
+    instantiate raises ``NotImplementedError``.
+    ``unlocked``, a (B,) int32 tensor on the card, receives the steps each
+    lane ran before its PLL locked.
+    """
+    cp = chain_params
+    if not on_card("pll_fir_agc", z[0].device):
+        return pll_fir_agc_ref(cp, pll_state, agc_gain, z)
+    key, (zre, zim), st_in, params = _kernel_args(cp, pll_state, agc_gain, z,
+                                                  "pll_fir_agc")
+    dev = zre.device
+    B, L = zre.shape
+    if unlocked is not None:
+        check("unlocked", unlocked, (B,), (torch.int32,), dev)
+    # lane-major (B, L) planes: a CTA's chunk of a lane is contiguous
+    zre, zim = zre.contiguous(), zim.contiguous()
+    y = torch.empty((B, L * cp.interp), dtype=torch.float32, device=dev)
+    lock = torch.empty((B, L), dtype=torch.float32, device=dev)
     st_out = torch.empty_like(st_in)
-    params = _param_block(cp, poly)
-    launch(dev, "pdt_pll_fir_agc", xre.data_ptr(), xim.data_ptr(),
+    launch(dev, "pdt_pll_fir_agc", zre.data_ptr(), zim.data_ptr(),
            st_in.data_ptr(), y.data_ptr(), lock.data_ptr(), st_out.data_ptr(),
-           B, L, *key, int(cp.squelch_position == "after_pll"),
+           None if unlocked is None else unlocked.data_ptr(), B, L, *key,
+           int(cp.squelch_position == "after_pll"),
            params.ctypes.data_as(ctypes.c_void_p), params.size)
     pll_fir_agc.launches += 1
-    return pll_state_from_rows(st_out), st_out[6], y.t(), lock.t()
+    return pll_state_from_rows(st_out), st_out[6], y, lock
 
 
 pll_fir_agc.launches = 0
+
+
+def pll_fir_agc_serial(chain_params, pll_state, agc_gain, z):
+    """:func:`pll_fir_agc` on the serial kernel, which runs the PLL, FIR and
+    AGC of a sample in turn, one thread a lane, on time-major planes.  No
+    path calls it: the card checks and ``chip_smoke.py`` hold the
+    decoupled kernel to it over whole passes and time the two in one run.
+    CUDA tensors only."""
+    cp = chain_params
+    if not on_card("pll_fir_agc_serial", z[0].device):
+        raise ValueError("pll_fir_agc_serial runs on a CUDA device only")
+    key, (zre, zim), st_in, params = _kernel_args(cp, pll_state, agc_gain, z,
+                                                  "pll_fir_agc_serial")
+    dev = zre.device
+    B, L = zre.shape
+    # time-major planes: a warp reads and writes 32 neighbouring lanes
+    xre = zre.t().contiguous()
+    xim = zim.t().contiguous()
+    y = torch.empty((L * cp.interp, B), dtype=torch.float32, device=dev)
+    lock = torch.empty((L, B), dtype=torch.float32, device=dev)
+    st_out = torch.empty_like(st_in)
+    launch(dev, "pdt_pll_fir_agc_serial", xre.data_ptr(), xim.data_ptr(),
+           st_in.data_ptr(), y.data_ptr(), lock.data_ptr(), st_out.data_ptr(),
+           B, L, *key, int(cp.squelch_position == "after_pll"),
+           params.ctypes.data_as(ctypes.c_void_p), params.size)
+    pll_fir_agc_serial.launches += 1
+    return pll_state_from_rows(st_out), st_out[6], y.t(), lock.t()
+
+
+pll_fir_agc_serial.launches = 0
+
+
+def launch_config(chain_params, device="cuda") -> dict:
+    """The decoupled kernel's launch configuration for this chain: lanes
+    per CTA, chunk samples, threads and dynamic shared memory bytes a CTA,
+    registers and local (spill) bytes a thread, as the card reports
+    them."""
+    cp = chain_params
+    return kernel_config(device, "pdt_pll_fir_agc_config", cp.interp,
+                         len(polyphase(cp.taps, cp.interp)[0]),
+                         int(cp.squelch_position == "after_pll"))

@@ -2,7 +2,14 @@
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
+
+# what the decoupled kernels' *_config entry points report, in order
+CONFIG_FIELDS = ("lanes_per_cta", "chunk", "threads", "smem_bytes",
+                 "registers", "local_bytes")
 
 
 def check(name, t, shape, dtypes, device):
@@ -15,6 +22,14 @@ def check(name, t, shape, dtypes, device):
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {shape}")
+
+
+def on_card(name: str, device) -> bool:
+    """True where `name` launches its kernel (a CUDA device), False where it
+    runs its plain version (the CPU); raises for any other device."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {device}")
+    return device.type == "cuda"
 
 
 def state_rows(pll_state, *extra):
@@ -34,3 +49,17 @@ def launch(device, name: str, *args) -> None:
             *args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def kernel_config(device, name: str, *args) -> dict:
+    """Call the library's config entry point `name` with `args` and an
+    int32 output array; returns its CONFIG_FIELDS, as the card reports
+    them for that kernel instantiation."""
+    from project_desert_tortoise_tpu_torch.ops.kernels import build
+    out = np.zeros(len(CONFIG_FIELDS), np.int32)
+    with torch.cuda.device(device):
+        rc = getattr(build.load(), name)(
+            *args, out.ctypes.data_as(ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+    return dict(zip(CONFIG_FIELDS, map(int, out)))

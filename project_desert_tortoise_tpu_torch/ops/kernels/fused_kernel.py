@@ -13,9 +13,12 @@ zero-padded head samples and a step ``ts``, as the JAX kernel's
 (``fused_kernel.py:152-162``).
 
 - :func:`fused_demod` is the entry point.  A CUDA tensor launches the
-  hand-written kernel ``csrc/fused_demod.cu`` (built at first use by
-  ``ops/kernels/build.py``) or raises; a CPU tensor runs
+  hand-written decoupled kernel of ``csrc/fused_demod.cu`` (built at first
+  use by ``ops/kernels/build.py``) or raises; a CPU tensor runs
   :func:`fused_demod_ref`.  ``fused_demod.launches`` counts kernel launches.
+- :func:`fused_demod_serial` launches the serial kernel of the same file,
+  every stage of a sample in turn: the card-side oracle and timing
+  baseline of the decoupled kernel, on no path.
 - :func:`fused_demod_ref` is the plain PyTorch version, on any device: a
   loop over the samples of :func:`_step`, the twin of the JAX kernel's body,
   on all lanes at once.  Every value is the same sequence of float32
@@ -39,7 +42,7 @@ from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
     AGC_MAX_GAIN, AGC_MIN_GAIN, AGC_REFERENCE, MAX_HIST, MAX_INTERP,
     fir_agc, lane_const, poly_columns, polyphase)
 from project_desert_tortoise_tpu_torch.ops.kernels.common import (
-    check, launch, state_rows)
+    check, kernel_config, launch, on_card, state_rows)
 from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
     pll_param_block)
 
@@ -311,8 +314,48 @@ def _param_block(cp, g: Geometry, ts: float) -> np.ndarray:
         poly.ravel()])
 
 
+def _kernel_args(chain_params, pll_state, agc_gain, z, t_next, t_seed,
+                 t_pad0, ts: float, name: str):
+    """Check a kernel launch's arguments; returns (geometry key, the
+    checked (B, L) planes, time generation on?, state rows, param
+    block)."""
+    g = geometry(chain_params)
+    key = (g.interp, g.hist, g.ring_t, g.n_tg)
+    if key not in KERNEL_GEOMETRIES:
+        raise NotImplementedError(
+            f"CUDA {name} has no instantiation for geometry "
+            f"(interp, hist, ring_t, n_tg) = {key}; "
+            f"available: {sorted(KERNEL_GEOMETRIES)}")
+    zre, zim = z
+    dev = zre.device
+    B, L = zre.shape
+    check("zre", zre, (B, L), (torch.float32, torch.int16), dev)
+    check("zim", zim, (B, L), (zre.dtype,), dev)
+    tgen = t_next is None
+    if tgen:
+        check("t_seed", t_seed, (B,), (torch.float32,), dev)
+        check("t_pad0", t_pad0, (B,), (torch.float32,), dev)
+    else:
+        check("t_next", t_next, (B, L), (torch.float32,), dev)
+    for name_, s in zip(pll_ops.PLLState._fields, pll_state):
+        check(name_, s, (B,), (torch.bool if name_ == "locked"
+                                else torch.float32,), dev)
+    check("agc_gain", agc_gain, (B,), (torch.float32,), dev)
+    st_in = state_rows(pll_state, agc_gain,
+                       *((t_seed, t_pad0) if tgen else ()))
+    params = _param_block(chain_params, g, ts if tgen else 0.0)
+    return key, (zre, zim, t_next), tgen, st_in, params
+
+
+def _outputs(be, btime, avg_phase):
+    """(bits, bit_times, emit, avg_phase) from the merged plane."""
+    emit = be > 1.5                   # merged plane: 2 + bit on emission
+    bits = be - 2.0 * emit.to(torch.float32)
+    return bits, btime, emit, avg_phase
+
+
 def fused_demod(chain_params, pll_state, agc_gain, z, t_next, t_seed=None,
-                t_pad0=None, ts: float = 0.0):
+                t_pad0=None, ts: float = 0.0, *, unlocked=None):
     """Full chain on (B, L) block lanes.
 
     z: (zre, zim) float32 or int16 PCM planes (scaled by exactly 1/32768);
@@ -324,59 +367,87 @@ def fused_demod(chain_params, pll_state, agc_gain, z, t_next, t_seed=None,
     emit (B, L) bool, avg_phase (B,)).
 
     CPU tensors run :func:`fused_demod_ref`.  CUDA tensors launch the
-    kernel; a geometry it does not instantiate raises
-    ``NotImplementedError``, ``t_next=None`` without seeds ``ValueError``.
+    decoupled kernel of ``csrc/fused_demod.cu``; a geometry it does not
+    instantiate raises ``NotImplementedError``,
+    ``t_next=None`` without seeds ``ValueError``.  ``unlocked``, a (B,)
+    int32 tensor on the card, receives the steps each lane ran before its
+    PLL locked.
     """
-    g = geometry(chain_params)
+    geometry(chain_params)
     check_time_source(t_next, t_seed, t_pad0, ts)
-    zre, zim = z
-    dev = zre.device
-    if dev.type == "cpu":
+    if not on_card("fused_demod", z[0].device):
         return fused_demod_ref(chain_params, pll_state, agc_gain, z, t_next,
                                t_seed, t_pad0, ts)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_demod runs on cpu or cuda, not {dev}")
-    key = (g.interp, g.hist, g.ring_t, g.n_tg)
-    if key not in KERNEL_GEOMETRIES:
-        raise NotImplementedError(
-            f"CUDA fused_demod has no instantiation for geometry "
-            f"(interp, hist, ring_t, n_tg) = {key}; "
-            f"available: {sorted(KERNEL_GEOMETRIES)}")
+    key, (zre, zim, tn), tgen, st_in, params = _kernel_args(
+        chain_params, pll_state, agc_gain, z, t_next, t_seed, t_pad0, ts,
+        "fused_demod")
+    dev = zre.device
     B, L = zre.shape
-    check("zre", zre, (B, L), (torch.float32, torch.int16), dev)
-    check("zim", zim, (B, L), (zre.dtype,), dev)
-    tgen = t_next is None
-    if tgen:
-        check("t_seed", t_seed, (B,), (torch.float32,), dev)
-        check("t_pad0", t_pad0, (B,), (torch.float32,), dev)
-    else:
-        check("t_next", t_next, (B, L), (torch.float32,), dev)
-    for name, s in zip(pll_ops.PLLState._fields, pll_state):
-        check(name, s, (B,), (torch.bool if name == "locked"
-                               else torch.float32,), dev)
-    check("agc_gain", agc_gain, (B,), (torch.float32,), dev)
+    if unlocked is not None:
+        check("unlocked", unlocked, (B,), (torch.int32,), dev)
+    # lane-major (B, L) planes: a CTA's chunk of a lane is contiguous
+    zre, zim = zre.contiguous(), zim.contiguous()
+    tn = None if tgen else tn.contiguous()
+    be = torch.empty((B, L), dtype=torch.float32, device=dev)
+    btime = torch.empty((B, L), dtype=torch.float32, device=dev)
+    avg_phase = torch.empty((B,), dtype=torch.float32, device=dev)
+    launch(dev, "pdt_fused_demod", zre.data_ptr(), zim.data_ptr(),
+           None if tgen else tn.data_ptr(), st_in.data_ptr(),
+           be.data_ptr(), btime.data_ptr(), avg_phase.data_ptr(),
+           None if unlocked is None else unlocked.data_ptr(), B, L,
+           int(zre.dtype == torch.int16),
+           _SQUELCH_CODE[chain_params.squelch_position], int(tgen), *key,
+           params.ctypes.data_as(ctypes.c_void_p), params.size)
+    fused_demod.launches += 1
+    return _outputs(be, btime, avg_phase)
 
+
+fused_demod.launches = 0
+
+
+def fused_demod_serial(chain_params, pll_state, agc_gain, z, t_next,
+                       t_seed=None, t_pad0=None, ts: float = 0.0):
+    """:func:`fused_demod` on the serial kernel, which runs every stage of a
+    sample in turn, one thread a lane, on time-major planes.  No path
+    calls it: the card checks and ``chip_smoke.py`` hold the decoupled
+    kernel to it over whole passes and time the two in one run.  CUDA
+    tensors only."""
+    check_time_source(t_next, t_seed, t_pad0, ts)
+    if not on_card("fused_demod_serial", z[0].device):
+        raise ValueError("fused_demod_serial runs on a CUDA device only")
+    key, (zre, zim, tn), tgen, st_in, params = _kernel_args(
+        chain_params, pll_state, agc_gain, z, t_next, t_seed, t_pad0, ts,
+        "fused_demod_serial")
+    dev = zre.device
+    B, L = zre.shape
     # time-major (L, B) planes: a warp reads 32 neighbouring lanes per step
     xre = zre.t().contiguous()
     xim = zim.t().contiguous()
-    tn = None if tgen else t_next.t().contiguous()
-    st_in = state_rows(pll_state, agc_gain,
-                       *((t_seed, t_pad0) if tgen else ()))
+    tn = None if tgen else tn.t().contiguous()
     be = torch.empty((L, B), dtype=torch.float32, device=dev)
     btime = torch.empty((L, B), dtype=torch.float32, device=dev)
     avg_phase = torch.empty((B,), dtype=torch.float32, device=dev)
-    params = _param_block(chain_params, g, ts if tgen else 0.0)
-    launch(dev, "pdt_fused_demod", xre.data_ptr(), xim.data_ptr(),
+    launch(dev, "pdt_fused_demod_serial", xre.data_ptr(), xim.data_ptr(),
            None if tgen else tn.data_ptr(), st_in.data_ptr(),
            be.data_ptr(), btime.data_ptr(), avg_phase.data_ptr(), B, L,
            int(zre.dtype == torch.int16),
            _SQUELCH_CODE[chain_params.squelch_position], int(tgen), *key,
            params.ctypes.data_as(ctypes.c_void_p), params.size)
-    fused_demod.launches += 1
-    be = be.t()
-    emit = be > 1.5                   # merged plane: 2 + bit on emission
-    bits = be - 2.0 * emit.to(torch.float32)
-    return bits, btime.t(), emit, avg_phase
+    fused_demod_serial.launches += 1
+    return _outputs(be.t(), btime.t(), avg_phase)
 
 
-fused_demod.launches = 0
+fused_demod_serial.launches = 0
+
+
+def launch_config(chain_params, dtype=torch.float32, tgen: bool = True,
+                  device="cuda") -> dict:
+    """The decoupled kernel's launch configuration for this chain: lanes
+    per CTA, chunk samples, threads and dynamic shared memory bytes a CTA,
+    registers and local (spill) bytes a thread, as the card reports
+    them."""
+    g = geometry(chain_params)
+    return kernel_config(device, "pdt_fused_demod_config", g.interp, g.hist,
+                         g.ring_t, g.n_tg, int(dtype == torch.int16),
+                         _SQUELCH_CODE[chain_params.squelch_position],
+                         int(tgen))

@@ -2,7 +2,10 @@
 the fused chain (POES and ARGOS geometries, staged times and in-kernel time
 generation), the front-half chain (PLL+FIR+AGC, both geometries), the PLL
 scan, the AGC scan, the windowed Gardner/Manchester scan and every variant
-of the two ablation kernels.
+of the two ablation kernels.  The decoupled fused and front-half kernels
+also on warm, cold and mixed lanes, ragged batches and lanes shorter than
+a chunk, and against the serial kernels they replace
+(``fused_demod_serial``, ``pll_fir_agc_serial``) over 120,000 samples.
 
 Marked ``cuda``; skips without a card.  On a machine with one:
 
@@ -19,10 +22,12 @@ import torch
 from project_desert_tortoise_tpu_torch import chain
 from project_desert_tortoise_tpu_torch.ops import fir, pll
 from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+from project_desert_tortoise_tpu_torch.ops.kernels import chain_kernel as CK
+from project_desert_tortoise_tpu_torch.ops.kernels import fused_kernel as FK
 from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
-    pll_fir_agc, pll_fir_agc_ref)
+    pll_fir_agc, pll_fir_agc_ref, pll_fir_agc_serial)
 from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
-    fused_demod, fused_demod_ref)
+    fused_demod, fused_demod_ref, fused_demod_serial)
 from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
     pll_scan_kernel)
 from project_desert_tortoise_tpu_torch.tools import ablate_fused as AF
@@ -303,3 +308,177 @@ def test_ablate_fused_matches_plain_on_card(card, name):
     out = AF.output_buffers(512, AF.LANES, card)
     for _ in range(2):
         _equal(AF.ablate_fused(name, *xs, state, 128, out), want)
+
+
+# --- the decoupled kernels: lane states, variants, shapes, the serial twins
+
+def _mode(mode, squelch="mode"):
+    """(params, fs, input maker) of a mode; squelch overrides its position
+    (threshold 0.05, as the realtime modes')."""
+    if mode == "poes":
+        params, fs = chain.make_params(POES_TIP, FS), FS
+
+        def make(B, L, seed, dev):
+            re, im, _ = _input(B, L, seed, dev)
+            return torch.from_numpy(re).to(dev), torch.from_numpy(im).to(dev)
+    else:
+        params, fs, make = chain.make_params(ARGOS, ARGOS_FS), ARGOS_FS, \
+            _argos_input
+    if squelch != "mode":
+        params = params._replace(squelch_threshold=0.05 if squelch else None,
+                                 squelch_position=squelch)
+    return params, fs, make
+
+
+def _lanes(params, B, kind, dev):
+    """PLL lanes: "warm" (locked, the main path's warm start), "cold"
+    (pll.init_state) or "mixed": warm, cold, and cold with the lock signal
+    just under its threshold (it locks within the first chunk), in turn."""
+    cold = pll.init_state(params.pll, (B,), device=dev)
+    if kind == "cold":
+        return cold
+    warm = cold._replace(freq=torch.full((B,), 0.01, device=dev),
+                         locked=torch.ones((B,), dtype=torch.bool,
+                                           device=dev))
+    if kind == "warm":
+        return warm
+    near = cold._replace(locksig=torch.full(
+        (B,), float(np.float32(params.pll.lock_threshold) - 1e-4),
+        device=dev))
+    which = torch.arange(B, device=dev) % 3
+    return pll.PLLState(*(torch.where(which == 0, w, torch.where(
+        which == 1, c, n)) for w, c, n in zip(warm, cold, near)))
+
+
+def _times(fs, B, L, tgen, dev):
+    ts = float(np.float32(1.0) / np.float32(fs))
+    if not tgen:
+        return (torch.arange(1, L + 1, dtype=torch.float32, device=dev)
+                .div(fs).expand(B, L).contiguous(),)
+    pad0 = torch.zeros(B, device=dev)
+    pad0[0] = min(300.0, L)
+    return (None, torch.arange(B, dtype=torch.float32, device=dev) * 0.25
+            + ts, pad0, ts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tgen", [False, True])
+@pytest.mark.parametrize("squelch", [None, "after_pll", "after_agc"])
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+@pytest.mark.parametrize("mode", ["poes", "argos"])
+def test_decoupled_fused_every_variant_on_card(card, mode, dtype, squelch,
+                                               tgen):
+    """Every instantiated variant on mixed lanes, B = 37 (not a multiple
+    of a warp), L = 700 (not a multiple of the chunk);
+    the unlocked counts: 0 on warm lanes, at most L on the others, and
+    strictly between on some lanes that lock during the launch."""
+    params, fs, make = _mode(mode, squelch)
+    B, L = 37, 700
+    z = make(B, L, 11, card)
+    if dtype == "int16":
+        z = _int16(z)
+    st = _lanes(params, B, "mixed", card)
+    gain = torch.full((B,), 17.58, device=card)
+    targs = _times(fs, B, L, tgen, card)
+    unlocked = torch.full((B,), -1, dtype=torch.int32, device=card)
+    got = fused_demod(params, st, gain, z, *targs, unlocked=unlocked)
+    _equal(got, fused_demod_ref(params, st, gain, z, *targs))
+    n = unlocked.cpu()
+    assert (n[0::3] == 0).all() and ((n >= 0) & (n <= L)).all()
+    assert ((n > 0) & (n < L)).any()   # some lanes lock inside the launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("squelch", [None, "after_pll"])
+@pytest.mark.parametrize("lanes", ["warm", "cold", "mixed"])
+@pytest.mark.parametrize("mode", ["poes", "argos"])
+def test_decoupled_pll_fir_agc_lanes_on_card(card, mode, lanes, squelch):
+    params, fs, make = _mode(mode, squelch)
+    B, L = 37, 700
+    z = make(B, L, 12, card)
+    st = _lanes(params, B, lanes, card)
+    gain = torch.full((B,), 17.58, device=card)
+    _equal(pll_fir_agc(params, st, gain, z),
+           pll_fir_agc_ref(params, st, gain, z))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", ["warm", "cold"])
+@pytest.mark.parametrize("mode", ["poes", "argos"])
+def test_decoupled_fused_lanes_on_card(card, mode, lanes):
+    params, fs, make = _mode(mode)
+    B, L = 37, 700
+    z = make(B, L, 13, card)
+    st = _lanes(params, B, lanes, card)
+    gain = torch.full((B,), 17.58, device=card)
+    targs = _times(fs, B, L, True, card)
+    _equal(fused_demod(params, st, gain, z, *targs),
+           fused_demod_ref(params, st, gain, z, *targs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 100, 256, 257])
+@pytest.mark.parametrize("mode", ["poes", "argos"])
+def test_decoupled_short_lanes_on_card(card, mode, L):
+    """Lanes shorter than a chunk, one chunk, a chunk and one sample; a
+    batch of 3 mixed lanes."""
+    params, fs, make = _mode(mode)
+    B = 3
+    z = make(B, L, 14, card)
+    st = _lanes(params, B, "mixed", card)
+    gain = torch.full((B,), 17.58, device=card)
+    targs = _times(fs, B, L, True, card)
+    _equal(fused_demod(params, st, gain, z, *targs),
+           fused_demod_ref(params, st, gain, z, *targs))
+    _equal(pll_fir_agc(params, st, gain, z),
+           pll_fir_agc_ref(params, st, gain, z))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["poes", "argos"])
+def test_decoupled_matches_serial_over_long_lanes_on_card(card, mode):
+    """120,000 samples a lane (469 chunks) on 64 mixed lanes against the
+    serial kernels, bit for bit; and the launch counters: each wrapper
+    counts its own kernel only."""
+    params, fs, make = _mode(mode)
+    B, L = 64, 120000
+    z = make(B, L, 15, card)
+    st = _lanes(params, B, "mixed", card)
+    gain = torch.full((B,), 17.58, device=card)
+    targs = _times(fs, B, L, True, card)
+    counts = lambda: (fused_demod.launches, fused_demod_serial.launches,
+                      pll_fir_agc.launches, pll_fir_agc_serial.launches)
+    before = counts()
+    want = fused_demod_serial(params, st, gain, z, *targs)
+    assert int(want[2].sum()) > B * L // 100
+    _equal(fused_demod(params, st, gain, z, *targs), want)
+    want = pll_fir_agc_serial(params, st, gain, z)
+    _equal(pll_fir_agc(params, st, gain, z), want)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_serial_kernels_refuse_the_cpu(card):
+    params = chain.make_params(POES_TIP, FS)
+    st = pll.init_state(params.pll, (4,), device="cpu")
+    gain = torch.full((4,), 17.58)
+    z = torch.zeros((4, 64))
+    with pytest.raises(ValueError):
+        fused_demod_serial(params, st, gain, (z, z), z)
+    with pytest.raises(ValueError):
+        pll_fir_agc_serial(params, st, gain, (z, z))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["poes", "argos"])
+def test_launch_config_on_card(card, mode):
+    """What the card reports for the main path's instantiations: the
+    design's one lane a CTA, 256-sample chunks and 128 threads, shared
+    memory within the card's 227 KB a CTA, and no local memory beyond
+    the 48-byte frame of sinf/cosf's slow path (no spills)."""
+    params, _, _ = _mode(mode)
+    for cfg in (FK.launch_config(params), CK.launch_config(params)):
+        assert cfg["lanes_per_cta"] == 1 and cfg["chunk"] == 256
+        assert cfg["threads"] == 128 and 0 < cfg["registers"] <= 255
+        assert cfg["smem_bytes"] <= 232448 and cfg["local_bytes"] <= 48
