@@ -19,11 +19,12 @@ and drives the port's three entry points:
 - the two ablation tools (``project_desert_tortoise_tpu_torch/tools``),
   every variant at 128 and at 4,224 lanes (``ablation`` lines).
 
-It holds the decoupled ``fused_demod`` and ``pll_fir_agc`` to their serial
-twins (``fused_demod_serial``, ``pll_fir_agc_serial``, on no path) on
-every entry of each pass's blocks, times old and new in the same run
-(``whole_pass_vs_serial`` lines) and prints their launch configuration
-(``design`` lines).  It times the steps of each pass one by one
+It holds the decoupled ``fused_demod``, ``pll_fir_agc``, ``pll_scan`` and
+``agc_scan`` to their serial twins (``fused_demod_serial``,
+``pll_fir_agc_serial``, ``pll_scan_serial``, ``agc_scan_serial``, on no
+path) on every entry of each pass's blocks, times old and new in the
+same run (``whole_pass_vs_serial`` lines) and prints their launch
+configuration (``design`` lines).  It times the steps of each pass one by one
 (``stages`` lines) and each kernel on the blocks of its pass.  Each phase prints one JSON line, with
 ``t`` the seconds since the start; any failure raises and the script exits
 non-zero.  The last lines are the kernel table, the card's name and power
@@ -99,6 +100,10 @@ KERNELS = {
                            JAX + "ops/pallas/chain_kernel.py:100"),
     "pll_scan": (CSRC + "pll_kernel.cu", JAX + "ops/pallas/pll_kernel.py:60"),
     "agc_scan": (CSRC + "scan_kernels.cu", JAX + "ops/agc.py:65"),
+    # the serial designs of the scan branch's two, kept in the same way
+    "pll_scan_serial": (CSRC + "pll_kernel.cu",
+                        JAX + "ops/pallas/pll_kernel.py:60"),
+    "agc_scan_serial": (CSRC + "scan_kernels.cu", JAX + "ops/agc.py:65"),
     "gardner_manchester": (CSRC + "scan_kernels.cu", JAX + "ops/clock.py:151"),
     "ablate_kernel": (CSRC + "ablate_kernel.cu", "tools/ablate_kernel.py:32"),
     "ablate_fused": (CSRC + "ablate_fused.cu", "tools/ablate_fused.py:42"),
@@ -134,13 +139,15 @@ def kernel_fns() -> dict:
     from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
         fused_demod, fused_demod_serial)
     from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
-        pll_scan_kernel)
+        pll_scan_kernel, pll_scan_serial)
     from project_desert_tortoise_tpu_torch.tools import (
         ablate_fused, ablate_kernel)
     return {"fused_demod": fused_demod, "pll_fir_agc": pll_fir_agc,
             "fused_demod_serial": fused_demod_serial,
             "pll_fir_agc_serial": pll_fir_agc_serial,
             "pll_scan": pll_scan_kernel, "agc_scan": scan_kernels.agc_scan,
+            "pll_scan_serial": pll_scan_serial,
+            "agc_scan_serial": scan_kernels.agc_scan_serial,
             "gardner_manchester": scan_kernels.gardner_manchester,
             "ablate_kernel": ablate_kernel.ablate_kernel,
             "ablate_fused": ablate_fused.ablate_fused}
@@ -182,13 +189,22 @@ def bound(n_bytes: float, flops: float) -> dict:
 # same recurrences): the AGC gain, 10 an output (multiply, add, compare,
 # select, multiply, add, two compare-selects); the locked PLL phase, 12
 # (add, compare, two selects of the wrap, multiply, three adds, two
-# compare-selects of the second wrap); the EMAs 2.  Gardner and Manchester
-# (fused_demod's stage E) are not counted.  Each at CHAIN_CYCLES, the
-# dependent-issue latency of an FP32 add, multiply, compare or select.
+# compare-selects of the second wrap); the EMAs 2.  Gardner's next-sample
+# chain, from the same sources: gardner_manchester's (csrc/scan_kernels.cu)
+# a symbol slot, active or not, 17 (rintf, float->int, subtract, two
+# clamps, add, the gather's index, address and load, subtract, two
+# multiplies, two clamps, subtract, add, select); fused_demod's stage E
+# (csrc/fused_demod.cu, GardnerLane::run) a due symbol, 16 (the age:
+# subtract, two clamps; the read's index and load; subtract, two
+# multiplies, two clamps, subtract, add; rintf, float->int, clamp; the
+# next due test).  The Manchester state is off that chain.  Each at
+# CHAIN_CYCLES, the latency of a dependent FP32 add, multiply, compare or
+# select (a load counted as one operation: its cache latency is more).
 # The chain bound is computed from these counts, not measured: it goes on
 # the design and stages lines, not on the kernels line.
 CHAIN_CYCLES = 4
 AGC_CHAIN_OPS, PLL_CHAIN_OPS = 10, 12
+GM_SLOT_CHAIN_OPS, E_SYMBOL_CHAIN_OPS = 17, 16
 
 
 def max_sm_clock_hz() -> float:
@@ -206,7 +222,7 @@ def chain_bound_ms(steps: int, ops_per_step: float) -> float:
 
 def front_chain_ops(interp: int) -> int:
     """The PLL-FIR-AGC chain's longest recurrence a sample: the AGC over
-    interp outputs, or the PLL phase (stage E not counted)."""
+    interp outputs, or the PLL phase (stage E apart)."""
     return max(AGC_CHAIN_OPS * interp, PLL_CHAIN_OPS)
 
 
@@ -969,6 +985,8 @@ def phase_decoupled_at_main_shape(mode_name: str, staged, stats: dict):
             lambda: FS_(params, pst, gain, z, *targs))
         check_equal(got, want, f"fused_demod vs serial ({src})")
         times["fused_demod", src] = (ms, ms_old)
+        # the most symbols a lane: two a bit (Manchester emits every other)
+        symbols = 2 * int(got[2].sum(1).max())
     FD(params, pst, gain, z, None, seed, pad0, 1.0, unlocked=unlocked)
     share["fused_demod"] = float(unlocked.sum()) / (B * L)
     sq_cases = [params]
@@ -991,13 +1009,15 @@ def phase_decoupled_at_main_shape(mode_name: str, staged, stats: dict):
                "pll_fir_agc": chain_kernel.launch_config(params)}
     main = {"fused_demod": "time generation",
             "pll_fir_agc": f"squelch {params.squelch_position}"}
-    # fused_demod's E (Gardner, Manchester) is not in the count
+    # fused_demod's E (Gardner, Manchester) apart: its own chain, a symbol
     chain = chain_bound_ms(L, front_chain_ops(params.interp))
     emit("design", mode=mode_name, B=B, L=L, card=card_line(),
          **{k: dict(configs[k], ms=times[k, main[k]][0],
                     serial_ms=times[k, main[k]][1],
                     unlocked_step_share=share[k],
-                    front_chain_bound_ms=chain) for k in configs})
+                    front_chain_bound_ms=chain) for k in configs},
+         e_chain_bound_ms=chain_bound_ms(symbols, E_SYMBOL_CHAIN_OPS),
+         e_symbols_a_lane=symbols)
     # the serial twins' rows of the kernels line: their time here, bound and
     # plain version those of the decoupled kernel (the same function); the
     # decoupled kernel equals them on every entry above
@@ -1006,6 +1026,64 @@ def phase_decoupled_at_main_shape(mode_name: str, staged, stats: dict):
         stats[k + "_serial"] = dict(ms=ms_old, shape=[B, L],
                                     decoupled_ms=ms, max_abs_err=0.0)
         stats[k]["serial_ms"] = ms_old
+
+
+def phase_scan_at_main_shape(mode_name: str, staged, stats: dict):
+    """The decoupled pll_scan and agc_scan against their serial twins
+    (pll_scan_serial, agc_scan_serial) on every entry of the pass's main
+    blocks, bit for bit, with the inputs demod_blocks gives them on the
+    scan branch: warm state, the mode's squelch after the PLL (if any),
+    the fir_interp output for the AGC.  Times both in this run; one
+    `design` line: the launch configuration the card reports, the times,
+    the share of lane-steps that ran the unlocked PLL step and each
+    chain's bound (computed from counted operations, not measured)."""
+    import torch
+    from project_desert_tortoise_tpu_torch.ops import agc, fir
+    from project_desert_tortoise_tpu_torch.ops.kernels import pll_kernel
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels
+    from project_desert_tortoise_tpu_torch.parallel import blocked
+
+    params, plan, fs, n, norm, zre, zim, lo, fest = staged
+    B, L = zre.shape
+    z = (zre, zim)
+    pst, gain0 = blocked.warm_state(params, fest, fs, norm)
+    PS, PSS = pll_kernel.pll_scan_kernel, pll_kernel.pll_scan_serial
+    AS, ASS = scan_kernels.agc_scan, scan_kernels.agc_scan_serial
+    ms, ms_old, got, want = old_new_ms(lambda: PS(params.pll, pst, z),
+                                       lambda: PSS(params.pll, pst, z))
+    check_equal(got, want, "pll_scan vs serial")
+    times = {"pll_scan": (ms, ms_old, [B, L])}
+    unlocked = torch.zeros((B,), dtype=torch.int32, device=zre.device)
+    PS(params.pll, pst, z, unlocked=unlocked)
+    share = float(unlocked.sum()) / (B * L)
+    _, soft, lock = got
+    if params.squelch_position == "after_pll":
+        soft = agc.squelch(soft, torch.abs(lock), params.squelch_threshold)
+    x = fir.fir_interp(soft, params.taps, params.interp)
+    del got, want, soft, lock
+    ap = scan_kernels.AGCParams(params.agc_attack, params.agc_decay)
+    ms, ms_old, got, want = old_new_ms(lambda: AS(gain0, x, ap),
+                                       lambda: ASS(gain0, x, ap))
+    check_equal(got, want, "agc_scan vs serial")
+    times["agc_scan"] = (ms, ms_old, list(x.shape))
+    case = f"scan branch, squelch {params.squelch_position}"
+    for k, (ms, ms_old, shape) in times.items():
+        emit("whole_pass_vs_serial", mode=mode_name, kernel=k, case=case,
+             B=shape[0], L=shape[1], bit_exact=True, ms=ms,
+             serial_ms=ms_old, speedup=ms_old / ms, card=card_line())
+        # the serial twin's row of the kernels line, as for the others
+        stats[k + "_serial"] = dict(ms=ms_old, shape=shape, decoupled_ms=ms,
+                                    max_abs_err=0.0)
+        stats[k]["serial_ms"] = ms_old
+    configs = {"pll_scan": pll_kernel.launch_config(),
+               "agc_scan": scan_kernels.agc_launch_config()}
+    chains = {"pll_scan": chain_bound_ms(L, PLL_CHAIN_OPS),
+              "agc_scan": chain_bound_ms(x.shape[1], AGC_CHAIN_OPS)}
+    emit("design", mode=mode_name, card=card_line(),
+         **{k: dict(configs[k], shape=times[k][2], ms=times[k][0],
+                    serial_ms=times[k][1],
+                    unlocked_step_share=share if k == "pll_scan" else None,
+                    chain_bound_ms=chains[k]) for k in configs})
 
 
 def phase_new_kernels_at_main_shape(mode_name: str, staged, stats: dict,
@@ -1111,7 +1189,8 @@ def phase_branch_stages(mode_name: str, staged, br,
                         window: int = 4096) -> dict:
     """The steps of demod_blocks(use_pallas=br) on the blocks the pass
     stages, one by one, each timed by CUDA events, then the whole of
-    demod_frames on the host clock.  Returns each kernel's ms and bound at
+    demod_frames on the host clock, three times (the median and each run
+    reported).  Returns each kernel's ms and bound at
     this shape."""
     import torch
     from project_desert_tortoise_tpu_torch.ops import agc, clock, fir
@@ -1161,17 +1240,22 @@ def phase_branch_stages(mode_name: str, staged, br,
             window=window * interp))
     step("compress_sorted", lambda: man.compress_sorted(
         bits, btimes, mask, bits.shape[-1] // 2 + 8))
-    t0 = time.perf_counter()
-    blocked.demod_frames(params, plan, mode.framer, fs, zre, zim, lo, n,
-                         fest, norm, window, br)
-    torch.cuda.synchronize()
+    runs = []                 # the whole stage thrice: its host time varies
+    for _ in range(3):
+        t0 = time.perf_counter()
+        blocked.demod_frames(params, plan, mode.framer, fs, zre, zim, lo, n,
+                             fest, norm, window, br)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
     # the chains' bound, computed from counted operations (not measured)
     chains = ({"pll_fir_agc": chain_bound_ms(L, front_chain_ops(interp))}
               if br == "front" else
               {"pll_scan": chain_bound_ms(L, PLL_CHAIN_OPS),
                "agc_scan": chain_bound_ms(L * interp, AGC_CHAIN_OPS)})
+    chains["gardner_manchester"] = chain_bound_ms(bits.shape[-1],
+                                                  GM_SLOT_CHAIN_OPS)
     emit("stages", mode=mode_name, use_pallas=br, B=B, L=L, card=card_line(),
-         demod_frames_s=time.perf_counter() - t0,
+         demod_frames_s=sorted(runs)[1], demod_frames_runs_s=runs,
          **{k + "_ms": v for k, v in ms.items()},
          chain_bound_ms=chains)
     # bytes each input read once, each output written once; operations
@@ -1341,6 +1425,7 @@ def main() -> int:
                                   walls[mode_name], st)
         phase_new_kernels_at_main_shape(mode_name, staged[mode_name], st)
         phase_decoupled_at_main_shape(mode_name, staged[mode_name], st)
+        phase_scan_at_main_shape(mode_name, staged[mode_name], st)
         for br in ("front", False):
             for k, v in phase_branch_stages(mode_name, staged[mode_name],
                                             br).items():
@@ -1349,7 +1434,7 @@ def main() -> int:
     # the serial twins compute the same function as the decoupled kernels:
     # the same bound and plain version
     for st in stats.values():
-        for k in ("fused_demod", "pll_fir_agc"):
+        for k in ("fused_demod", "pll_fir_agc", "pll_scan", "agc_scan"):
             for f in ("bound_ms", "bound_by", "plain_ms", "plain_shape"):
                 st[k + "_serial"][f] = st[k][f]
 

@@ -3,7 +3,7 @@
 ``demod_argos --fast``, on the 12-minute passes of ``chip_smoke.py``, for
 two or more checkouts of the repository timed in turns on one card.
 
-    python3 cli_walls.py ROOT [ROOT ...] [--pairs N]
+    python3 cli_walls.py ROOT [ROOT ...] [--pairs N] [--scan-branch]
 
 Each ROOT is a checkout.  One worker process a root imports that root's
 ``project_desert_tortoise_tpu_torch`` and runs the CLI on request; each
@@ -11,10 +11,14 @@ worker runs each CLI once first (kernel build and warm-up).  Then, for
 each mode and each of ``--pairs`` rounds, the roots go in order and then
 in reverse (two roots: A, B, B, A), so a drift of the host's load falls on
 both alike.  A run is timed from WAV load to written file, as
-``chip_smoke.py``'s ``main_path`` lines are.  Beside each wall the worker
-reports what its process did in that time: CPU seconds (user and system),
-major page faults (reads that waited on the disk) and involuntary context
-switches (time the process was ready but another had the core).
+``chip_smoke.py``'s ``main_path`` lines are.  ``--scan-branch`` times
+``demodulate_blocked(use_pallas=False)`` instead (the scan branch of
+``demod_blocks``, what the JAX package's ``--fast`` runs), from WAV load
+to the frame list, as that branch's ``main_path`` lines are.  Beside each
+wall the worker reports what its process did in that time: CPU seconds
+(user and system), major page faults (reads that waited on the disk) and
+involuntary context switches (time the process was ready but another had
+the core).
 
 Prints one JSON line a run, then for each mode and root the median, the
 quartiles and the spread (max - min) of its walls; with two roots, for
@@ -35,13 +39,17 @@ import tempfile
 
 from chip_smoke import card_line, synth_pass
 
-# a worker: argv[1] is its root; each stdin line "mode wav out" runs that
-# CLI once and answers one JSON line on stdout (the CLI's own prints go to
-# a buffer)
+# a worker: argv[1] is its root; each stdin line "mode wav out scan" runs
+# that CLI (scan 0) or demodulate_blocked on the scan branch (scan 1) once
+# and answers one JSON line on stdout (the CLI's own prints go to a buffer)
 _WORKER = r"""
 import contextlib, io, json, resource, sys, time
 sys.path.insert(0, sys.argv[1])
 from project_desert_tortoise_tpu_torch.apps import demod_argos, demod_poes
+from project_desert_tortoise_tpu_torch.parallel.blocked import (
+    demodulate_blocked)
+from project_desert_tortoise_tpu_torch.utils import wav as W
+from project_desert_tortoise_tpu_torch.utils.config import ARGOS, POES_TIP
 
 def cli(mode, wav, out):
     argv = [wav, "--fast", "--out", out]
@@ -53,13 +61,20 @@ def cli(mode, wav, out):
         return done.code
     raise AssertionError("demod_argos.main returned without an exit code")
 
+def scan_branch(mode, wav):
+    cfg = POES_TIP if mode == "poes" else ARGOS
+    iq, t, fs, _ = W.load_iq_wav(wav, cfg.np_dtype())
+    frames = demodulate_blocked(iq, t, fs, cfg, use_pallas=False,
+                                device="cuda")
+    return 0 if frames else 1
+
 reply = sys.stdout
 for line in sys.stdin:
-    mode, wav, out = line.split()
+    mode, wav, out, scan = line.split()
     r0 = resource.getrusage(resource.RUSAGE_SELF)
     t0 = time.time()
     with contextlib.redirect_stdout(io.StringIO()):
-        rc = cli(mode, wav, out)
+        rc = scan_branch(mode, wav) if scan == "1" else cli(mode, wav, out)
     wall = time.time() - t0
     r1 = resource.getrusage(resource.RUSAGE_SELF)
     print(json.dumps({
@@ -81,15 +96,15 @@ class Worker:
             [sys.executable, "-c", _WORKER, self.root], text=True,
             stdin=subprocess.PIPE, stdout=subprocess.PIPE)
 
-    def run(self, mode: str, wav: str, out: str) -> dict:
-        self.proc.stdin.write(f"{mode} {wav} {out}\n")
+    def run(self, mode: str, wav: str, out: str, scan: bool) -> dict:
+        self.proc.stdin.write(f"{mode} {wav} {out} {int(scan)}\n")
         self.proc.stdin.flush()
         line = self.proc.stdout.readline()
         if not line:
             raise RuntimeError(f"the worker of {self.root} ended")
         result = json.loads(line)
         if result["rc"] != 0:
-            raise RuntimeError(f"{mode} CLI of {self.root} exited "
+            raise RuntimeError(f"{mode} run of {self.root} exited "
                                f"{result['rc']}")
         return result
 
@@ -113,6 +128,9 @@ def main(argv=None) -> int:
     ap.add_argument("roots", nargs="+", help="checkouts of the repository")
     ap.add_argument("--pairs", type=int, default=10,
                     help="rounds, each the roots in order then reversed")
+    ap.add_argument("--scan-branch", action="store_true",
+                    help="demodulate_blocked(use_pallas=False) in place of "
+                    "the CLIs")
     args = ap.parse_args(argv)
     order = (args.roots + args.roots[::-1]) * args.pairs
     walls = {}
@@ -123,11 +141,12 @@ def main(argv=None) -> int:
                 wav = synth_pass(mode, workdir)[0]
                 out = os.path.join(workdir, "out.txt")
                 for w in workers.values():
-                    w.run(mode, wav, out)             # warm-up
+                    w.run(mode, wav, out, args.scan_branch)   # warm-up
                 for turn, root in enumerate(order):
-                    r = workers[root].run(mode, wav, out)
+                    r = workers[root].run(mode, wav, out, args.scan_branch)
                     walls.setdefault((mode, root), []).append(r["wall_s"])
                     print(json.dumps({"mode": mode, "root": root,
+                                      "scan_branch": args.scan_branch,
                                       "turn": turn, **r}), flush=True)
                 os.remove(wav)
     finally:

@@ -1,6 +1,7 @@
 // The front half of the chain (PLL -> squelch -> polyphase FIR -> AGC) as
 // decoupled stages over chunks of a lane's samples, shared by the
-// decoupled kernels of fused_demod.cu and chain_kernel.cu.
+// decoupled kernels of fused_demod.cu and chain_kernel.cu; pll_kernel.cu
+// runs stages A, B and M alone (the PLL without FIR or AGC).
 //
 // One CTA owns one block lane and walks its samples in chunks of kChunk,
 // staged through shared memory.  The lane's loop-carried work is split
@@ -72,6 +73,13 @@ struct FrontSmem {
   static_assert(kChunk >= HIST - 1, "a chunk carries the FIR history");
 };
 
+// Shared memory of the PLL alone (stages A, B and M, HIST 1: M's soft rows
+// are the chunk's data-arm output): FrontSmem up to its AGC output
+// buffers, which it has no use for.
+struct PllSmem : FrontSmem<1, 1, 0> {
+  static constexpr int kEnd = kY;
+};
+
 template <typename T>
 __device__ __forceinline__ float to_sample(T v);
 template <>
@@ -125,9 +133,10 @@ struct FrontLane {
   float gain;            // D
 };
 
-template <int INTERP, int HIST, int YPAD, int SQ, typename P>
+// S: the shared-memory layout, FrontSmem or (stages A, B, M alone) PllSmem
+template <int INTERP, int HIST, int YPAD, int SQ, typename P,
+          typename S = FrontSmem<INTERP, HIST, YPAD>>
 struct Front {
-  using S = FrontSmem<INTERP, HIST, YPAD>;
   float* sm;
   const P& p;
 
@@ -210,7 +219,7 @@ struct Front {
       locksig = locksig * keep_lock + sm[S::kLockT + k];
       lk[k] = locksig;
       float v = sm[S::kOut + k];
-      if (SQ == kSquelchAfterPll) {
+      if constexpr (SQ == kSquelchAfterPll) {
         // |lock|: block relock may settle at the inverted BPSK point
         v = fabsf(locksig) < p.squelch_thr ? 0.0f : v;
       }
@@ -253,7 +262,7 @@ struct Front {
         float v = agc_step(out[k * INTERP + ph], gain, p.agc_attack,
                            p.agc_decay, kAgcReference, kAgcMaxGain,
                            kAgcMinGain);
-        if (SQ == kSquelchAfterAgc) {
+        if constexpr (SQ == kSquelchAfterAgc) {
           v = fabsf(lk[k]) < p.squelch_thr ? 0.0f : v;
         }
         out[k * INTERP + ph] = v;

@@ -1,5 +1,5 @@
 // The two per-lane recurrences of the scan branch of the block-parallel
-// path on Hopper (sm_90a), one thread per block lane, state in registers:
+// path on Hopper (sm_90a):
 //
 //  - agc_scan: the attack/decay AGC, replacing the XLA scan
 //    project_desert_tortoise_tpu/ops/agc.py::agc_scan (step :76-83);
@@ -8,20 +8,30 @@
 //    scan project_desert_tortoise_tpu/ops/clock.py::
 //    gardner_manchester_windowed (:151-263), slot for slot.
 //
-// What bounds them: the AGC reads and writes 4 bytes per sample and does 7
-// dependent operations on them, so at the real size (352 lanes, 11 warps)
-// it is bound by that serial chain, not by the 3.35 TB/s of the card.  The
-// Gardner loop gathers 2 samples and 1 time per symbol (one symbol per ~18
+// What bounds them: the AGC reads and writes 4 bytes per sample and does
+// ~10 dependent operations on them, so at the real size (352 lanes) it is
+// bound by that serial chain, not by the 3.35 TB/s of the card.  The
+// Gardner loop gathers 2 samples and 1 time per symbol (one symbol per ~9
 // interpolated samples for POES) and writes 6 bytes per slot; its serial
-// chain is a dependent gather per symbol, so it is latency-bound too.
+// chain runs through a dependent gather per symbol, so it is latency-bound
+// too.
 //
-// Design: time-major (n, B) planes, so the AGC's warp loads and stores are
-// coalesced; the Gardner gathers read x[g * B + b] at each lane's own
-// position g (neighbouring lanes sit at nearby positions, so the reads
-// share cache lines).  Integer Manchester state stays int, as in JAX.
+// pdt_agc_scan, the AGC as stage D of front_stages.cuh alone: one lane a
+// CTA on lane-major (B, n) rows.  The CTA loads each chunk of x into
+// shared memory a chunk ahead; one thread runs the gain chain over it,
+// reading only shared memory (the reads do not depend on the gain, so they
+// pipeline), and the CTA stores the chunk's y coalesced.
+// pdt_agc_scan_serial, one thread a lane over time-major (n, B) planes, is
+// its card-side oracle and timing baseline; no path calls it.
+//
+// gardner_manchester: one thread a lane, time-major (n, B) planes; the
+// gathers read x[g * B + b] at each lane's own position g (neighbouring
+// lanes sit at nearby positions, so the reads share cache lines).  Integer
+// Manchester state stays int, as in JAX.
+//
 // Numerics as in pdt_common.cuh.
 
-#include "pdt_common.cuh"
+#include "front_stages.cuh"
 
 using namespace pdt;
 
@@ -31,17 +41,53 @@ struct AgcParams {
   float attack, decay, reference, max_gain, min_gain;
 };
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float agc(float x, float& gain,
+                                     const AgcParams& p) {
+  return agc_step(x, gain, p.attack, p.decay, p.reference, p.max_gain,
+                  p.min_gain);
+}
+
+__global__ void __launch_bounds__(kStageThreads)
 agc_scan_kernel(const float* __restrict__ x, const float* __restrict__ g_in,
                 float* __restrict__ y, float* __restrict__ g_out, int B,
                 int n, const AgcParams p) {
+  __shared__ float buf[2][kChunk];   // chunk c in buf[c & 1], y in place
+  const int b = blockIdx.x;          // the CTA's lane
+  const int n_chunks = (n + kChunk - 1) / kChunk;
+  auto len = [n](int c) { return min(kChunk, n - c * kChunk); };
+  ChunkRegs<float> rx;
+  rx.load(x, b, n, 0);
+  rx.store(buf[0]);
+  __syncthreads();
+  float gain = g_in[b];
+  for (int c = 0; c < n_chunks; ++c) {
+    const bool ahead = c + 1 < n_chunks;
+    if (ahead) rx.load(x, b, n, (c + 1) * kChunk);
+    float* v = buf[c & 1];
+    if (threadIdx.x == 0) {
+      const int m = len(c);
+#pragma unroll 4
+      for (int k = 0; k < m; ++k) v[k] = agc(v[k], gain, p);
+    }
+    if (ahead) rx.store(buf[(c + 1) & 1]);
+    __syncthreads();
+    store_rows(y, n, static_cast<size_t>(c) * kChunk, v, len(c), b);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) g_out[b] = gain;
+}
+
+__global__ void __launch_bounds__(kThreads)
+agc_scan_serial_kernel(const float* __restrict__ x,
+                       const float* __restrict__ g_in, float* __restrict__ y,
+                       float* __restrict__ g_out, int B, int n,
+                       const AgcParams p) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   float gain = g_in[b];
   for (int i = 0; i < n; ++i) {
     const size_t o = static_cast<size_t>(i) * B + b;
-    y[o] = agc_step(x[o], gain, p.attack, p.decay, p.reference, p.max_gain,
-                    p.min_gain);
+    y[o] = agc(x[o], gain, p);
   }
   g_out[b] = gain;
 }
@@ -149,27 +195,67 @@ gardner_manchester_kernel(const float* __restrict__ x,
   st_i_out[B + b] = evenodd;
 }
 
-}  // namespace
+bool bad_agc_args(int n_params, int B, int n) {
+  return n_params != static_cast<int>(sizeof(AgcParams) / sizeof(float)) ||
+         B <= 0 || n <= 0;
+}
 
-// AGC over time-major float32 x (n, B) from gains g_in (B,).  Writes
-// y (n, B) and g_out (B,).  params: attack, decay, reference, max_gain,
-// min_gain.  Returns the cudaError_t of the launch.
-extern "C" int pdt_agc_scan(const float* x, const float* g_in, float* y,
-                            float* g_out, int B, int n, const float* params,
-                            int n_params, void* stream) {
-  if (n_params != static_cast<int>(sizeof(AgcParams) / sizeof(float)) ||
-      B <= 0 || n <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+AgcParams agc_params(const float* params) {
   AgcParams p;
   p.attack = params[0];
   p.decay = params[1];
   p.reference = params[2];
   p.max_gain = params[3];
   p.min_gain = params[4];
+  return p;
+}
+
+}  // namespace
+
+// AGC over lane-major float32 x (B, n) from gains g_in (B,).  Writes
+// y (B, n) and g_out (B,).  params: attack, decay, reference, max_gain,
+// min_gain.  Returns the cudaError_t of the launch.
+extern "C" int pdt_agc_scan(const float* x, const float* g_in, float* y,
+                            float* g_out, int B, int n, const float* params,
+                            int n_params, void* stream) {
+  if (bad_agc_args(n_params, B, n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  agc_scan_kernel<<<B, kStageThreads, 0,              // one CTA a lane
+                    static_cast<cudaStream_t>(stream)>>>(
+      x, g_in, y, g_out, B, n, agc_params(params));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The AGC kernel's launch configuration, into out[6]: lanes per CTA, chunk
+// samples, threads a CTA, shared memory bytes a CTA (static), registers a
+// thread, local bytes a thread.  Returns a cudaError_t.
+extern "C" int pdt_agc_scan_config(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, agc_scan_kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = 1;
+  out[1] = kChunk;
+  out[2] = kStageThreads;
+  out[3] = static_cast<int>(a.sharedSizeBytes);
+  out[4] = a.numRegs;
+  out[5] = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
+
+// The serial AGC kernel, as pdt_agc_scan but on time-major planes: x and
+// y (n, B).
+extern "C" int pdt_agc_scan_serial(const float* x, const float* g_in,
+                                   float* y, float* g_out, int B, int n,
+                                   const float* params, int n_params,
+                                   void* stream) {
+  if (bad_agc_args(n_params, B, n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid((B + kThreads - 1) / kThreads);
-  agc_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, g_in, y, g_out, B, n, p);
+  agc_scan_serial_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      x, g_in, y, g_out, B, n, agc_params(params));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -51,10 +51,19 @@ _SIGNATURES = {
     # zre, zim, st_in, y, lock, st_out, B, L, interp, hist,
     # squelch_after_pll, params, n_params, stream
     "pdt_pll_fir_agc_serial": [_P] * 6 + [_I] * 5 + [_P, _I, _P],
+    # zre, zim, st_in, out, lock, st_out, unlocked, B, L, params,
+    # n_params, stream
+    "pdt_pll_scan": [_P] * 7 + [_I] * 2 + [_P, _I, _P],
+    # out
+    "pdt_pll_scan_config": [_P],
     # zre, zim, st_in, out, lock, st_out, B, L, params, n_params, stream
-    "pdt_pll_scan": [_P] * 6 + [_I] * 2 + [_P, _I, _P],
+    "pdt_pll_scan_serial": [_P] * 6 + [_I] * 2 + [_P, _I, _P],
     # x, g_in, y, g_out, B, n, params, n_params, stream
     "pdt_agc_scan": [_P] * 4 + [_I] * 2 + [_P, _I, _P],
+    # out
+    "pdt_agc_scan_config": [_P],
+    # x, g_in, y, g_out, B, n, params, n_params, stream
+    "pdt_agc_scan_serial": [_P] * 4 + [_I] * 2 + [_P, _I, _P],
     # x, t, n_valid, st_f_in, st_i_in, bits, btimes, emit, st_f_out,
     # st_i_out, B, n_win, window, margin, spw, params, n_params, stream
     "pdt_gardner_manchester": [_P] * 10 + [_I] * 5 + [_P, _I, _P],

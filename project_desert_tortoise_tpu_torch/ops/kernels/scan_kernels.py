@@ -9,7 +9,11 @@ per launch at the main path's size, so each is a hand-written kernel in
 
 - :func:`agc_scan` and :func:`gardner_manchester` are the entry points.  A
   CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-  version.  ``.launches`` on each counts kernel launches.
+  version.  ``.launches`` on each counts kernel launches.  The AGC kernel
+  is stage D of ``csrc/front_stages.cuh`` alone, one lane a CTA.
+- :func:`agc_scan_serial` launches the serial AGC kernel, one thread a
+  lane: the card-side oracle and timing baseline of :func:`agc_scan`, on
+  no path.
 - :func:`agc_scan_ref` and :func:`gardner_manchester_ref` are the plain
   PyTorch versions, on any device: loops over the steps, all lanes at once,
   in the JAX scans' order of float32 operations, so on the card they agree
@@ -28,7 +32,7 @@ from project_desert_tortoise_tpu_torch.ops import fastmath
 from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
     AGC_MAX_GAIN, AGC_MIN_GAIN, AGC_REFERENCE, agc_step, lane_const)
 from project_desert_tortoise_tpu_torch.ops.kernels.common import (
-    check, launch)
+    check, kernel_config, launch, on_card)
 
 
 class AGCParams(NamedTuple):
@@ -53,31 +57,68 @@ def agc_scan_ref(gain, x, p: AGCParams):
     return gain, torch.stack(ys, 1)
 
 
+def _agc_args(gain, x):
+    """Check a launch's arguments."""
+    dev = x.device
+    B, n = x.shape
+    check("x", x, (B, n), (torch.float32,), dev)
+    check("gain", gain, (B,), (torch.float32,), dev)
+
+
 def agc_scan(gain, x, p: AGCParams):
     """Attack/decay AGC over the last axis of (B, n) float32 `x` from
     (B,) gains.  Returns (gain (B,), y (B, n)).  CPU tensors run
     :func:`agc_scan_ref`."""
     dev = x.device
-    if dev.type == "cpu":
+    if not on_card("agc_scan", dev):
         return agc_scan_ref(gain, x, p)
-    if dev.type != "cuda":
-        raise ValueError(f"agc_scan runs on cpu or cuda, not {dev}")
+    _agc_args(gain, x)
     B, n = x.shape
-    check("x", x, (B, n), (torch.float32,), dev)
-    check("gain", gain, (B,), (torch.float32,), dev)
+    x = x.contiguous()                # lane-major: a chunk is contiguous
+    y = torch.empty_like(x)
+    g_in = gain.contiguous()
+    g_out = torch.empty_like(g_in)
+    params = np.array(p, np.float32)
+    launch(dev, "pdt_agc_scan", x.data_ptr(), g_in.data_ptr(), y.data_ptr(),
+           g_out.data_ptr(), B, n, params.ctypes.data_as(ctypes.c_void_p),
+           params.size)
+    agc_scan.launches += 1
+    return g_out, y
+
+
+agc_scan.launches = 0
+
+
+def agc_scan_serial(gain, x, p: AGCParams):
+    """:func:`agc_scan` on the serial kernel, one thread a lane over
+    time-major planes.  No path calls it: the card checks and
+    ``chip_smoke.py`` hold :func:`agc_scan` to it over whole passes and
+    time the two in one run.  CUDA tensors only."""
+    dev = x.device
+    if not on_card("agc_scan_serial", dev):
+        raise ValueError("agc_scan_serial runs on a CUDA device only")
+    _agc_args(gain, x)
+    B, n = x.shape
     xt = x.t().contiguous()           # time-major: coalesced warp access
     y = torch.empty_like(xt)
     g_in = gain.contiguous()
     g_out = torch.empty_like(g_in)
     params = np.array(p, np.float32)
-    launch(dev, "pdt_agc_scan", xt.data_ptr(), g_in.data_ptr(), y.data_ptr(),
-           g_out.data_ptr(), B, n, params.ctypes.data_as(ctypes.c_void_p),
-           params.size)
-    agc_scan.launches += 1
+    launch(dev, "pdt_agc_scan_serial", xt.data_ptr(), g_in.data_ptr(),
+           y.data_ptr(), g_out.data_ptr(), B, n,
+           params.ctypes.data_as(ctypes.c_void_p), params.size)
+    agc_scan_serial.launches += 1
     return g_out, y.t()
 
 
-agc_scan.launches = 0
+agc_scan_serial.launches = 0
+
+
+def agc_launch_config(device="cuda") -> dict:
+    """The AGC kernel's launch configuration: lanes per CTA, chunk
+    samples, threads and (static) shared memory bytes a CTA, registers and
+    local (spill) bytes a thread, as the card reports them."""
+    return kernel_config(device, "pdt_agc_scan_config")
 
 
 class GardnerParams(NamedTuple):

@@ -5,7 +5,10 @@ scan, the AGC scan, the windowed Gardner/Manchester scan and every variant
 of the two ablation kernels.  The decoupled fused and front-half kernels
 also on warm, cold and mixed lanes, ragged batches and lanes shorter than
 a chunk, and against the serial kernels they replace
-(``fused_demod_serial``, ``pll_fir_agc_serial``) over 120,000 samples.
+(``fused_demod_serial``, ``pll_fir_agc_serial``) over 120,000 samples;
+the decoupled PLL and AGC scans against their plain versions and their
+serial twins (``pll_scan_serial``, ``agc_scan_serial``) on warm, cold and
+mixed lanes, 1 to 100 lanes, lanes shorter than a chunk and longer.
 
 Marked ``cuda``; skips without a card.  On a machine with one:
 
@@ -28,8 +31,9 @@ from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
     pll_fir_agc, pll_fir_agc_ref, pll_fir_agc_serial)
 from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
     fused_demod, fused_demod_ref, fused_demod_serial)
+from project_desert_tortoise_tpu_torch.ops.kernels import pll_kernel as PK
 from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
-    pll_scan_kernel)
+    pll_scan_kernel, pll_scan_serial)
 from project_desert_tortoise_tpu_torch.tools import ablate_fused as AF
 from project_desert_tortoise_tpu_torch.tools import ablate_kernel as AK
 from project_desert_tortoise_tpu_torch.utils.config import ARGOS, POES_TIP
@@ -482,3 +486,117 @@ def test_launch_config_on_card(card, mode):
         assert cfg["lanes_per_cta"] == 1 and cfg["chunk"] == 256
         assert cfg["threads"] == 128 and 0 < cfg["registers"] <= 255
         assert cfg["smem_bytes"] <= 232448 and cfg["local_bytes"] <= 48
+
+
+# --- the scan branch's decoupled kernels: pll_scan and agc_scan
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 100])
+@pytest.mark.parametrize("L", [1, 255, 257, 1500])
+@pytest.mark.parametrize("lanes", ["warm", "cold", "mixed"])
+@pytest.mark.parametrize("mode", ["poes", "argos"])
+def test_decoupled_pll_scan_on_card(card, mode, lanes, L, B):
+    """pll_scan against its plain version and its serial twin, bit for
+    bit; each wrapper's launch counter moves by exactly one; the unlocked
+    counts: 0 on warm lanes, at most L on any."""
+    params, _, make = _mode(mode)
+    z = make(B, L, 16, card)
+    st = _lanes(params, B, lanes, card)
+    unlocked = torch.full((B,), -1, dtype=torch.int32, device=card)
+    counts = lambda: (pll_scan_kernel.launches, pll_scan_serial.launches)
+    before = counts()
+    got = pll_scan_kernel(params.pll, st, z, unlocked=unlocked)
+    serial = pll_scan_serial(params.pll, st, z)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1]
+    _equal(got, pll.pll_scan_ref(params.pll, st, *z))
+    _equal(got, serial)
+    n = unlocked.cpu()
+    assert ((n >= 0) & (n <= L)).all()
+    if lanes == "warm":
+        assert (n == 0).all()
+
+
+def _agc_input(kind, B, n, dev):
+    """Noise whose level rises from 0.01 to 2 ("ramp": attack and decay
+    both act) or from 1e-4 to 100 with a gain ceiling of 20 and a fast
+    attack ("clamps": both clamps of the gain act)."""
+    params = chain.make_params(POES_TIP, FS)
+    rng = np.random.default_rng(n + B)
+    if kind == "ramp":
+        level = np.linspace(0.01, 2.0, n)
+        p = sk.AGCParams(params.agc_attack, params.agc_decay)
+    else:
+        level = np.logspace(-4, 2, n)
+        p = sk.AGCParams(0.5, 0.05, max_gain=20.0)
+    x = (rng.standard_normal((B, n)) * level).astype(np.float32)
+    return torch.from_numpy(x).to(dev), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 100])
+@pytest.mark.parametrize("n", [1, 255, 257, 4500])
+@pytest.mark.parametrize("kind", ["ramp", "clamps"])
+def test_decoupled_agc_scan_on_card(card, kind, n, B):
+    """agc_scan against its plain version and its serial twin, bit for
+    bit; each wrapper's launch counter moves by exactly one."""
+    x, p = _agc_input(kind, B, n, card)
+    gain = torch.full((B,), 17.58, device=card)
+    counts = lambda: (sk.agc_scan.launches, sk.agc_scan_serial.launches)
+    before = counts()
+    got = sk.agc_scan(gain, x, p)
+    serial = sk.agc_scan_serial(gain, x, p)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1]
+    _equal(got, sk.agc_scan_ref(gain, x, p))
+    _equal(got, serial)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_refuse_bad_input(card):
+    """Each of the four wrappers raises on a wrong dtype or shape; the
+    serial twins refuse CPU tensors."""
+    params = chain.make_params(POES_TIP, FS)
+    st = pll.init_state(params.pll, (4,), device=card)
+    z = torch.zeros((4, 64), device=card)
+    for f in (pll_scan_kernel, pll_scan_serial):
+        with pytest.raises(TypeError):
+            f(params.pll, st, (z.double(), z.double()))
+        with pytest.raises(ValueError):
+            f(params.pll, st, (z, z[:, :32]))
+        with pytest.raises(ValueError):
+            f(params.pll, st._replace(freq=st.freq[:3]), (z, z))
+        with pytest.raises(TypeError):
+            f(params.pll, st._replace(locked=st.phase), (z, z))
+    with pytest.raises(ValueError):
+        pll_scan_kernel(params.pll, st, (z, z), unlocked=torch.zeros(
+            (3,), dtype=torch.int32, device=card))
+    with pytest.raises(TypeError):
+        pll_scan_kernel(params.pll, st, (z, z),
+                        unlocked=torch.zeros((4,), device=card))
+    gain = torch.full((4,), 17.58, device=card)
+    p = sk.AGCParams(params.agc_attack, params.agc_decay)
+    for f in (sk.agc_scan, sk.agc_scan_serial):
+        with pytest.raises(TypeError):
+            f(gain, z.double(), p)
+        with pytest.raises(TypeError):
+            f(gain.double(), z, p)
+        with pytest.raises(ValueError):
+            f(gain[:3], z, p)
+    cpu = pll.init_state(params.pll, (4,), device="cpu")
+    with pytest.raises(ValueError):
+        pll_scan_serial(params.pll, cpu, (z.cpu(), z.cpu()))
+    with pytest.raises(ValueError):
+        sk.agc_scan_serial(gain.cpu(), z.cpu(), p)
+
+
+@pytest.mark.cuda
+def test_scan_launch_config_on_card(card):
+    """What the card reports for pll_scan and agc_scan: one lane a CTA,
+    256-sample chunks, 128 threads, static shared memory within 48 KB,
+    and no local memory beyond the 48-byte frame of sinf/cosf's slow path
+    (no spills)."""
+    for cfg in (PK.launch_config(), sk.agc_launch_config()):
+        assert cfg["lanes_per_cta"] == 1 and cfg["chunk"] == 256
+        assert cfg["threads"] == 128 and 0 < cfg["registers"] <= 255
+        assert 0 < cfg["smem_bytes"] <= 49152 and cfg["local_bytes"] <= 48

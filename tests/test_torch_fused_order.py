@@ -98,15 +98,14 @@ def _advance_locked(k, phase, freq, sample_phase):
     return phase, freq
 
 
-def _front_chunk(cp, k, s: _Front, xre, xim, squelch_after_agc: bool):
-    """Stages A, B, M, C and D over one chunk (n, B) of input rows; returns
-    the new carry, the AGC output (n * interp, B) and the lock rows."""
+def pll_chunk(k, pll, avg, locksig, xre, xim):
+    """Stages A, B and M over one chunk (n, B) of input rows: returns A's
+    new PLL state, M's two EMAs, the data arm and the lock rows (n, B)."""
     n = xre.shape[0]
     sp, zre_n, zim_n = pll_ops.input_terms(xre, xim)
-    zero = torch.zeros_like(s.gain)
     # A: the phase before each sample's update; the whole step while a
     # lane is unlocked (it stays locked once it locks)
-    pll, phases = s.pll, []
+    phases = []
     for i in range(n):
         phases.append(pll.phase)
         whole, _ = pll_ops.step_with_terms(k, pll, xre[i], xim[i], sp[i],
@@ -122,14 +121,37 @@ def _front_chunk(cp, k, s: _Front, xre, xim, squelch_after_agc: bool):
     pll_re = xre * t_re + xim * t_im
     avg_term = k.avg_alpha * torch.abs(fastmath.arctan2_approx(out, pll_re))
     lock_term = k.lock_alpha * (zre_n * t_re + zim_n * t_im)
-    # M: the EMAs in sample order, the squelch after the PLL
-    squelch = lane_const(cp.squelch_threshold or 0.0, zero)
-    avg, locksig, locks = s.avg, s.locksig, []
+    # M: the EMAs in sample order
+    locks = []
     for i in range(n):
         avg = avg * k.one_minus_avg + avg_term[i]
         locksig = locksig * k.one_minus_lock + lock_term[i]
         locks.append(locksig)
-    locks = torch.stack(locks)
+    return pll, avg, locksig, out, torch.stack(locks)
+
+
+def agc_chunk(agc, gain, rows, mute=None):
+    """Stage D over a chunk's AGC inputs (m, B) in order (`agc`: the
+    constants of agc_step after the gain, zero last), each output zero
+    where `mute` (m, B) is set; returns the new gain and the outputs."""
+    ys = []
+    for j in range(rows.shape[0]):
+        y, gain = agc_step(rows[j], gain, *agc)
+        if mute is not None:
+            y = torch.where(mute[j], agc[-1], y)
+        ys.append(y)
+    return gain, torch.stack(ys)
+
+
+def _front_chunk(cp, k, s: _Front, xre, xim, squelch_after_agc: bool):
+    """Stages A, B, M, C and D over one chunk (n, B) of input rows; returns
+    the new carry, the AGC output (n * interp, B) and the lock rows."""
+    n = xre.shape[0]
+    zero = torch.zeros_like(s.gain)
+    pll, avg, locksig, out, locks = pll_chunk(k, s.pll, s.avg, s.locksig,
+                                              xre, xim)
+    # M's squelch after the PLL
+    squelch = lane_const(cp.squelch_threshold or 0.0, zero)
     soft = out
     if cp.squelch_position == "after_pll":
         soft = torch.where(torch.abs(locks) < squelch, zero, out)
@@ -140,20 +162,17 @@ def _front_chunk(cp, k, s: _Front, xre, xim, squelch_after_agc: bool):
     acc = torch.zeros((n, cp.interp) + zero.shape)
     for m, col in enumerate(poly_columns(poly, zero)):
         acc = acc + col * h[hist_len - m:hist_len - m + n, None]
-    # D: the AGC over the chunk's outputs in order
+    # D: the AGC over the chunk's outputs in order, the squelch after it
     c = lambda v: lane_const(v, zero)
     agc = (c(cp.agc_attack), c(cp.agc_decay), c(AGC_REFERENCE),
            c(AGC_MIN_GAIN), c(AGC_MAX_GAIN), zero)
-    gain, ys = s.gain, []
-    for i in range(n):
-        for ph in range(cp.interp):
-            y, gain = agc_step(acc[i, ph], gain, *agc)
-            if squelch_after_agc:
-                y = torch.where(torch.abs(locks[i]) < squelch, zero, y)
-            ys.append(y)
+    mute = None
+    if squelch_after_agc:
+        mute = (torch.abs(locks) < squelch).repeat_interleave(cp.interp, 0)
+    gain, ys = agc_chunk(agc, s.gain, acc.reshape(n * cp.interp, -1), mute)
     carry = _Front(pll=pll, avg=avg, locksig=locksig,
                    hist=h[h.shape[0] - hist_len:], gain=gain)
-    return carry, torch.stack(ys), locks
+    return carry, ys, locks
 
 
 def _front_init(cp, pll_state, agc_gain):
