@@ -20,11 +20,12 @@ and drives the port's three entry points:
   every variant at 128 and at 4,224 lanes (``ablation`` lines).
 
 It holds the decoupled ``fused_demod``, ``pll_fir_agc``, ``pll_scan`` and
-``agc_scan`` to their serial twins (``fused_demod_serial``,
-``pll_fir_agc_serial``, ``pll_scan_serial``, ``agc_scan_serial``, on no
-path) on every entry of each pass's blocks, times old and new in the
-same run (``whole_pass_vs_serial`` lines) and prints their launch
-configuration (``design`` lines).  It times the steps of each pass one by one
+``agc_scan`` and the windowed ``gardner_manchester`` to their serial twins
+(``fused_demod_serial``, ``pll_fir_agc_serial``, ``pll_scan_serial``,
+``agc_scan_serial``, ``gardner_manchester_serial``, on no path) on every
+entry of each pass's blocks, times old and new in the same run
+(``whole_pass_vs_serial`` lines) and prints their launch configuration
+(``design`` lines).  It times the steps of each pass one by one
 (``stages`` lines) and each kernel on the blocks of its pass.  Each phase prints one JSON line, with
 ``t`` the seconds since the start; any failure raises and the script exits
 non-zero.  The last lines are the kernel table, the card's name and power
@@ -105,6 +106,9 @@ KERNELS = {
                         JAX + "ops/pallas/pll_kernel.py:60"),
     "agc_scan_serial": (CSRC + "scan_kernels.cu", JAX + "ops/agc.py:65"),
     "gardner_manchester": (CSRC + "scan_kernels.cu", JAX + "ops/clock.py:151"),
+    # its serial design, kept in the same way
+    "gardner_manchester_serial": (CSRC + "scan_kernels.cu",
+                                  JAX + "ops/clock.py:151"),
     "ablate_kernel": (CSRC + "ablate_kernel.cu", "tools/ablate_kernel.py:32"),
     "ablate_fused": (CSRC + "ablate_fused.cu", "tools/ablate_fused.py:42"),
 }
@@ -149,6 +153,8 @@ def kernel_fns() -> dict:
             "pll_scan_serial": pll_scan_serial,
             "agc_scan_serial": scan_kernels.agc_scan_serial,
             "gardner_manchester": scan_kernels.gardner_manchester,
+            "gardner_manchester_serial":
+                scan_kernels.gardner_manchester_serial,
             "ablate_kernel": ablate_kernel.ablate_kernel,
             "ablate_fused": ablate_fused.ablate_fused}
 
@@ -156,7 +162,8 @@ def kernel_fns() -> dict:
 def drive(path, fn):
     """Run one main path: every kernel count set to 0 just before fn(),
     read just after; fails unless each kernel of the path launched and no
-    other did (the serial kernels among them).  Returns (fn's result,
+    other did (the serial kernels among them, gardner_manchester_serial
+    too).  Returns (fn's result,
     {kernel: launches})."""
     import torch
     fns = kernel_fns()
@@ -190,10 +197,12 @@ def bound(n_bytes: float, flops: float) -> dict:
 # select, multiply, add, two compare-selects); the locked PLL phase, 12
 # (add, compare, two selects of the wrap, multiply, three adds, two
 # compare-selects of the second wrap); the EMAs 2.  Gardner's next-sample
-# chain, from the same sources: gardner_manchester's (csrc/scan_kernels.cu)
-# a symbol slot, active or not, 17 (rintf, float->int, subtract, two
-# clamps, add, the gather's index, address and load, subtract, two
-# multiplies, two clamps, subtract, add, select); fused_demod's stage E
+# chain, from the same sources: gardner_manchester_serial's
+# (csrc/scan_kernels.cu) a symbol slot, active or not, 17 (rintf,
+# float->int, subtract, two clamps, add, the gather's index, address and
+# load, subtract, two multiplies, two clamps, subtract, add, select), the
+# count kept for gardner_manchester too, over the slots its chain computes
+# (up to each window's first inactive one); fused_demod's stage E
 # (csrc/fused_demod.cu, GardnerLane::run) a due symbol, 16 (the age:
 # subtract, two clamps; the read's index and load; subtract, two
 # multiplies, two clamps, subtract, add; rintf, float->int, clamp; the
@@ -252,12 +261,19 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+# device clock cycles a timed run waits behind (~10 ms at 1.98 GHz): its
+# launches are queued before the first one starts, so host time between
+# them (argument checks, allocation) is not counted in short kernels' ms
+QUEUE_CYCLES = 20_000_000
+
+
 def cuda_ms(fn, reps: int = 1):
-    """Mean device milliseconds of fn() over reps runs (CUDA events), and
-    the last result."""
+    """Mean device milliseconds of fn() over reps runs (CUDA events, the
+    runs queued behind a device sleep), and the last result."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         out = fn()
@@ -723,28 +739,36 @@ def phase_branch_path(mode_name: str, wav: str, br, want, lead_in,
                       fused_lines):
     """The pass through ``demodulate_blocked(use_pallas=br)`` on the card
     with the default plan, from the WAV: the payloads, the branch's
-    kernels launched, wall seconds, peak device memory, and how many
-    frames match the fused path's in payload and timestamp."""
+    kernels launched, wall seconds, peak device memory (and above what was
+    held before, per lane-sample of the blocks), and how many frames match
+    the fused path's in payload and timestamp."""
     import torch
     from project_desert_tortoise_tpu_torch.parallel.blocked import (
-        demodulate_blocked)
+        default_plan, demodulate_blocked)
     from project_desert_tortoise_tpu_torch.utils import wav as W
 
     mode, _ = modes()[mode_name]
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    lane_samples = []
     t0 = time.time()
 
     def run():
         iq, t, fs, _ = W.load_iq_wav(wav, mode.np_dtype())
+        plan = default_plan(mode, fs)
+        lane_samples.append(-(-len(iq) // plan.core) * plan.total)
         return demodulate_blocked(iq, t, fs, mode, use_pallas=br,
                                   device="cuda")
     got, counts = drive(br, run)
     wall = time.time() - t0
     fused = set(fused_lines)
     same = sum((f"{f.time:.5f}", bytes(f.data)) in fused for f in got)
+    peak = torch.cuda.max_memory_allocated()
+    # what the branch allocated at its peak, per (lane, sample) of the
+    # plan's blocks: what parallel/blocked.py's _LANE_SAMPLE_BYTES budgets
     emit("main_path", mode=mode_name, use_pallas=br, launches=counts,
-         wall_s=wall,
-         peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+         wall_s=wall, peak_device_gib=peak / 2**30,
+         peak_bytes_a_lane_sample=(peak - held) / lane_samples[0],
          frames_as_fused=same, fused_frames=len(fused_lines),
          card=card_line(),
          **payload_check(mode_name, [bytes(f.data) for f in got], want,
@@ -1086,6 +1110,105 @@ def phase_scan_at_main_shape(mode_name: str, staged, stats: dict):
                     chain_bound_ms=chains[k]) for k in configs})
 
 
+def branch_ys(params, z, pst, gain0):
+    """The AGC output each unfused branch hands to gardner_manchester on
+    the blocks z, as demod_blocks makes it: {"front": pll_fir_agc's y,
+    False: agc_scan's y after pll_scan and fir_interp}, each squelched as
+    the mode says."""
+    import torch
+    from project_desert_tortoise_tpu_torch.ops import agc, fir
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+    from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
+        pll_fir_agc)
+    from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
+        pll_scan_kernel)
+
+    _, _, y_front, lock_front = pll_fir_agc(params, pst, gain0, z)
+    _, soft, lock = pll_scan_kernel(params.pll, pst, z)
+    if params.squelch_position == "after_pll":
+        soft = agc.squelch(soft, torch.abs(lock), params.squelch_threshold)
+    x = fir.fir_interp(soft, params.taps, params.interp)
+    del soft
+    _, y_scan = sk.agc_scan(gain0, x, sk.AGCParams(params.agc_attack,
+                                                   params.agc_decay))
+    del x
+    if params.squelch_position == "after_agc":
+        y_front = agc.squelch(y_front, torch.abs(lock_front),
+                              params.squelch_threshold)
+        y_scan = agc.squelch(y_scan, torch.abs(lock),
+                             params.squelch_threshold)
+    return {"front": y_front, False: y_scan}
+
+
+def phase_gardner_at_main_shape(mode_name: str, staged, stats: dict,
+                                window: int = 4096):
+    """gardner_manchester against its serial twin (gardner_manchester_serial)
+    on every entry of the pass's main blocks, bit for bit, with the inputs
+    demod_blocks gives it on each unfused branch: that branch's y, the
+    interpolated time plane, the whole blocks valid, windows of
+    window * interp.  Times both in this run; one `design` line: the
+    launch configuration the card reports, the times, the share of slots
+    filled as inactive and the chain bound (17 counted dependent
+    operations a slot, computed, not measured) over all slots and over
+    the slots the chain computes."""
+    import torch
+    from project_desert_tortoise_tpu_torch.ops import clock, fir
+    from project_desert_tortoise_tpu_torch.ops import manchester as man
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+    from project_desert_tortoise_tpu_torch.parallel import blocked
+
+    params, plan, fs, n, norm, zre, zim, lo, fest = staged
+    B, L = zre.shape
+    interp, dev = params.interp, zre.device
+    pst, gain0 = blocked.warm_state(params, fest, fs, norm)
+    pos = blocked.sample_positions(lo, n, plan.total, 1 if interp > 1 else 0)
+    t = fir.fir_out_times(pos, interp) if interp > 1 else pos
+    del pos
+    cap = L * interp
+    gp = sk.GardnerParams(params.step_size, params.gardner_err_limit,
+                          params.gardner_gain, params.resync_threshold)
+    lay = sk.layout(cap, window * interp, params.step_size,
+                    params.gardner_err_limit)
+    g0 = clock.gardner_init((B,), device=dev)
+    m0 = man.manchester_init((B,), device=dev)
+    fstate = (*g0, m0.cur, m0.prev, m0.prevprev)
+    istate = (m0.clockmod, m0.evenodd)
+    n_valid = torch.full((B,), cap, dtype=torch.int32, device=dev)
+    GM, GS = sk.gardner_manchester, sk.gardner_manchester_serial
+    times, filled = {}, {}
+    for br, y in branch_ys(params, (zre, zim), pst, gain0).items():
+        args = (fstate, istate, y, t, n_valid, gp, lay)
+        ms, ms_old, got, want = old_new_ms(lambda: GM(*args),
+                                           lambda: GS(*args), reps=10)
+        check_equal(got, want, f"gardner_manchester vs serial ({br} "
+                    "branch's y)")
+        times[br] = (ms, ms_old)
+        del got, want
+        filled[br] = torch.zeros((B,), dtype=torch.int32, device=dev)
+        GM(*args, filled=filled[br])
+        emit("whole_pass_vs_serial", mode=mode_name,
+             kernel="gardner_manchester", case=f"{br} branch's y", B=B,
+             L=cap, windows=lay.n_win, bit_exact=True, ms=ms,
+             serial_ms=ms_old, speedup=ms_old / ms, card=card_line())
+    slots = lay.n_win * lay.spw
+    # the scan branch (the JAX CLI's --fast) as the row's main case
+    ms, ms_old = times[False]
+    computed = slots - int(filled[False].min())     # the longest lane's
+    emit("design", mode=mode_name, card=card_line(), gardner_manchester=dict(
+        sk.gardner_launch_config(lay), shape=[B, cap], layout=lay._asdict(),
+        ms=ms, serial_ms=ms_old,
+        filled_slot_share={str(k): float(f.sum()) / (B * slots)
+                           for k, f in filled.items()},
+        chain_bound_ms=chain_bound_ms(slots, GM_SLOT_CHAIN_OPS),
+        computed_slots_a_lane=computed,
+        computed_chain_bound_ms=chain_bound_ms(computed, GM_SLOT_CHAIN_OPS)))
+    stats["gardner_manchester_serial"] = dict(ms=ms_old, shape=[B, cap],
+                                              redesigned_ms=ms,
+                                              max_abs_err=0.0)
+    stats["gardner_manchester"].update(ms=ms, shape=[B, cap],
+                                       serial_ms=ms_old)
+
+
 def phase_new_kernels_at_main_shape(mode_name: str, staged, stats: dict,
                                     window: int = 4096):
     """The kernels of the front and scan branches against their plain
@@ -1140,13 +1263,7 @@ def phase_new_kernels_at_main_shape(mode_name: str, staged, stats: dict,
     ap = sk.AGCParams(params.agc_attack, params.agc_decay)
     time_pair("agc_scan", case, lambda: sk.agc_scan(gain0, x, ap),
               lambda: sk.agc_scan_ref(gain0, x, ap), list(x.shape), stats)
-    _, y_scan = sk.agc_scan(gain0, x, ap)
-    _, _, y_front, lock_front = pll_fir_agc(params, pst, gain0, z)
-    if params.squelch_position == "after_agc":
-        y_scan = agc.squelch(y_scan, torch.abs(lock),
-                             params.squelch_threshold)
-        y_front = agc.squelch(y_front, torch.abs(lock_front),
-                              params.squelch_threshold)
+    ys = branch_ys(params, z, pst, gain0)
 
     t = fir.fir_out_times(pos, interp) if interp > 1 else pos
     cap = L * interp
@@ -1159,7 +1276,7 @@ def phase_new_kernels_at_main_shape(mode_name: str, staged, stats: dict,
     fstate = (*g0, m0.cur, m0.prev, m0.prevprev)
     istate = (m0.clockmod, m0.evenodd)
     n_valid = torch.full((B,), cap, dtype=torch.int32, device=zre.device)
-    for br, y in (("front", y_front), ("scan", y_scan)):
+    for br, y in (("front", ys["front"]), ("scan", ys[False])):
         args = (fstate, istate, y, t, n_valid, gp, lay)
         time_pair("gardner_manchester", f"{case}, {br} branch's y, "
                   f"{lay.n_win} windows of {lay.window}",
@@ -1261,9 +1378,11 @@ def phase_branch_stages(mode_name: str, staged, br,
     # bytes each input read once, each output written once; operations
     # counted from the sources (sinf/cosf one each): PLL ~40 a sample, FIR
     # 2 a tap and AGC 8 per output, Gardner+Manchester ~30 per symbol
+    # (gardner_manchester's kernel ms is phase_gardner_at_main_shape's,
+    # over ten launches; this step's adds its wrapper's state ops)
     n_sym = 2.0 * float(mask.sum())          # two symbols per emitted bit
     out = {"gardner_manchester": dict(
-        ms=ms["gardner_manchester"], shape=list(y.shape), **bound(
+        step_ms=ms["gardner_manchester"], **bound(
             n_sym * 12.0 + bits.numel() * 6.0, n_sym * 30.0))}
     if br == "front":
         out["pll_fir_agc"] = dict(ms=ms["pll_fir_agc"], shape=[B, L], **bound(
@@ -1426,15 +1545,17 @@ def main() -> int:
         phase_new_kernels_at_main_shape(mode_name, staged[mode_name], st)
         phase_decoupled_at_main_shape(mode_name, staged[mode_name], st)
         phase_scan_at_main_shape(mode_name, staged[mode_name], st)
+        phase_gardner_at_main_shape(mode_name, staged[mode_name], st)
         for br in ("front", False):
             for k, v in phase_branch_stages(mode_name, staged[mode_name],
                                             br).items():
                 st.setdefault(k, {}).update(v)
 
-    # the serial twins compute the same function as the decoupled kernels:
+    # the serial twins compute the same function as the redesigned kernels:
     # the same bound and plain version
     for st in stats.values():
-        for k in ("fused_demod", "pll_fir_agc", "pll_scan", "agc_scan"):
+        for k in ("fused_demod", "pll_fir_agc", "pll_scan", "agc_scan",
+                  "gardner_manchester"):
             for f in ("bound_ms", "bound_by", "plain_ms", "plain_shape"):
                 st[k + "_serial"][f] = st[k][f]
 

@@ -11,10 +11,10 @@
 // What bounds them: the AGC reads and writes 4 bytes per sample and does
 // ~10 dependent operations on them, so at the real size (352 lanes) it is
 // bound by that serial chain, not by the 3.35 TB/s of the card.  The
-// Gardner loop gathers 2 samples and 1 time per symbol (one symbol per ~9
-// interpolated samples for POES) and writes 6 bytes per slot; its serial
-// chain runs through a dependent gather per symbol, so it is latency-bound
-// too.
+// Gardner loop reads 2 samples and gathers 1 time per symbol slot (one
+// slot per ~9 interpolated samples for POES) and writes 6 bytes per slot;
+// its next-sample chain runs through a read at an index it computed the
+// slot before, so it is latency-bound too.
 //
 // pdt_agc_scan, the AGC as stage D of front_stages.cuh alone: one lane a
 // CTA on lane-major (B, n) rows.  The CTA loads each chunk of x into
@@ -24,10 +24,26 @@
 // pdt_agc_scan_serial, one thread a lane over time-major (n, B) planes, is
 // its card-side oracle and timing baseline; no path calls it.
 //
-// gardner_manchester: one thread a lane, time-major (n, B) planes; the
-// gathers read x[g * B + b] at each lane's own position g (neighbouring
-// lanes sit at nearby positions, so the reads share cache lines).  Integer
-// Manchester state stays int, as in JAX.
+// pdt_gardner_manchester: one lane a CTA on lane-major (B, cap) rows of x
+// and t, read in place.  For each window the CTA copies the window's
+// buffer (the window and its left margin, zero before the stream) into
+// shared memory; one thread runs the slot recurrence over it, so the read
+// on its chain costs a shared-memory latency, not a device-memory one.
+// It records each slot's buffer index and its bit and emit flag, and stops
+// at the window's first inactive slot: from there the state is frozen and
+// every later slot repeats that one's bit and time, with emit 0.  The
+// other warps then gather t at the recorded indices, fill the inactive
+// slots and store the window's bits, times and emit flags coalesced while
+// the chain thread runs the next window.  Where two window buffers fit in
+// kGmSmemCap (ARGOS), the next window is copied during the chain; where
+// only one does (POES, 49 KB), the copy waits for the chain, and the CTAs
+// that share the SM (three fit) overlap it.  The Manchester decision stays
+// on the chain thread, beside the chain: it reads the slot's on-time value
+// but feeds nothing back into the next-sample chain.
+// pdt_gardner_manchester_serial, one thread a lane over time-major planes
+// reading device memory at each slot, is its card-side oracle and timing
+// baseline; no path calls it.  Integer Manchester state stays int, as in
+// JAX.
 //
 // Numerics as in pdt_common.cuh.
 
@@ -96,9 +112,194 @@ struct GardnerParams {
   float step_size, err_limit, kp, resync_threshold;
 };
 
-// st_f rows: next_sample, half_raw, prev_bit, Manchester cur, prev,
-// prevprev; st_i rows: clockmod, evenodd.
-__global__ void __launch_bounds__(kThreads)
+struct GardnerConsts {
+  float step, half_step, kp, err_limit, neg_limit, thr;
+  __device__ explicit GardnerConsts(const GardnerParams& p)
+      : step(p.step_size), half_step(p.step_size / 2.0f), kp(p.kp),
+        err_limit(p.err_limit), neg_limit(-p.err_limit),
+        thr(p.resync_threshold) {}
+};
+
+// A lane's carried state.  st_f rows: next_sample, half_raw, prev_bit,
+// Manchester cur, prev, prevprev; st_i rows: clockmod, evenodd.
+struct SlotState {
+  float ns, half_raw, prev_bit, m_cur, m_prev, m_prevprev;
+  int clockmod, evenodd;
+
+  __device__ void load(const float* f, const int* i, int B, int b) {
+    ns = f[b];
+    half_raw = f[B + b];
+    prev_bit = f[2 * B + b];
+    m_cur = f[3 * B + b];
+    m_prev = f[4 * B + b];
+    m_prevprev = f[5 * B + b];
+    clockmod = i[b];
+    evenodd = i[B + b];
+  }
+
+  // with the chunk rollover of next_sample (clock.py:262); half_raw is
+  // kept
+  __device__ void store(float* f, int* i, int B, int b, int n) const {
+    f[b] = ns - static_cast<float>(n);
+    f[B + b] = half_raw;
+    f[2 * B + b] = prev_bit;
+    f[3 * B + b] = m_cur;
+    f[4 * B + b] = m_prev;
+    f[5 * B + b] = m_prevprev;
+    i[b] = clockmod;
+    i[B + b] = evenodd;
+  }
+};
+
+// One symbol slot from its on-time value cur and mid-bit value hval
+// (clock.py:220-253): the timing error and update, and the Manchester
+// decision (ManchesterDecode.c:27-97) on this symbol.  Returns the slot's
+// bit, plus 2 where it is emitted; an active slot advances the state.
+__device__ __forceinline__ int gardner_slot(SlotState& g, float cur,
+                                            float hval, bool active,
+                                            const GardnerConsts& c) {
+  float err = c.kp * (cur - g.prev_bit) * hval;
+  err = fminf(fmaxf(err, c.neg_limit), c.err_limit);
+  const float ns_adj = g.ns - err;
+  const float half_new = ns_adj + c.half_step;
+  const float ns_new = ns_adj + c.step;
+
+  const float prevprev = g.m_prev;
+  const float prev = g.m_cur;
+  const bool strong = fabsf(prevprev) > c.thr && fabsf(prev) > c.thr;
+  const bool resync = g.evenodd != g.clockmod
+                      && sgn(prevprev) == sgn(prev) && strong;
+  const int cm = resync ? g.evenodd : g.clockmod;
+  const bool boundary = g.evenodd == cm;
+  const bool use_prev = fabsf(prev) > fabsf(cur);
+  const int bit = use_prev ? (prev > 0.0f ? 1 : 0) : (cur > 0.0f ? 0 : 1);
+  if (active) {
+    g.ns = ns_new;
+    g.half_raw = half_new;
+    g.prev_bit = cur;
+    g.clockmod = cm;
+    g.evenodd = (g.evenodd + 1) & 1;
+    g.m_cur = cur;
+    g.m_prev = prev;
+    g.m_prevprev = prevprev;
+  }
+  return bit | (active && boundary ? 2 : 0);
+}
+
+constexpr int kGmThreads = 128;    // warp 0: the chain; warps 1-3: copies
+constexpr int kGmMovers = kGmThreads - 32;
+// dynamic shared memory a CTA at most, so that three CTAs share an SM
+// (352 lanes on 132 SMs in one wave); a second window buffer only below it
+constexpr int kGmSmemCap = 72 * 1024;
+
+// two sets of slot records (the chain writes one while the other is
+// stored): the buffer index, and the bit plus 2 where emitted
+__host__ __device__ inline int gm_record_bytes(int spw) {
+  return 2 * spw * static_cast<int>(sizeof(int) + sizeof(uint8_t));
+}
+
+__host__ __device__ inline int gm_buffers(int span, int spw) {
+  return 2 * span * static_cast<int>(sizeof(float)) + gm_record_bytes(spw)
+                 <= kGmSmemCap ? 2 : 1;
+}
+
+inline size_t gm_smem_bytes(int span, int spw) {
+  return static_cast<size_t>(gm_buffers(span, spw)) * span * sizeof(float) +
+         gm_record_bytes(spw);
+}
+
+// 4-byte asynchronous copy from device to shared memory, no registers
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The window buffer that starts at sample `base` of the lane's row xr:
+// entry k is sample base + k, zero before the stream (clock.py:187-195).
+// Thread i0 of `stride` copies entries i0, i0 + stride, ...
+__device__ __forceinline__ void load_window(float* buf, const float* xr,
+                                            int base, int span, int i0,
+                                            int stride) {
+  for (int k = i0; k < span; k += stride) {
+    const int gi = base + k;
+    if (gi >= 0) {
+      cp_async4(buf + k, xr + gi);
+    } else {
+      buf[k] = 0.0f;
+    }
+  }
+}
+
+// Below kRintAddLimit, rintf(v) as an int is one add: v + 1.5 * 2^23
+// lands where the float ulp is 1, so the add rounds half to even, and its
+// bits less 0x4B400000 are the integer.  An FADD on the chain in place of
+// a conversion (F2I), whose latency is longer.
+constexpr float kRintAdd = 12582912.0f;
+constexpr int kRintAddBits = 0x4B400000;
+constexpr float kRintAddLimit = 4194304.0f;   // 2^22
+
+template <bool ADD>
+__device__ __forceinline__ int rint_int(float v) {
+  return ADD ? __float_as_int(v + kRintAdd) - kRintAddBits
+             : __float2int_rn(v);   // (int)rintf(v), one conversion
+}
+
+// The chain thread over one window's slots, reading the window buffer xs
+// only: each slot's clamped on-time index and its bit (plus 2 if emitted)
+// into ridx and rbe, up to and including the first inactive slot.
+// Returns that slot, or spw - 1 if every slot was active.  ADD: next_sample
+// and half_raw stay below kRintAddLimit in magnitude over the window.
+template <bool ADD>
+__device__ __forceinline__ int chain_window(SlotState& g, const float* xs,
+                                            int* ridx, uint8_t* rbe,
+                                            float w_end, int base, int span,
+                                            int spw,
+                                            const GardnerConsts& c) {
+  for (int s = 0; s < spw; ++s) {
+    const bool active = rintf(g.ns) < w_end;   // clock.py:205
+    // the on-time read clamped into the buffer (clock.py:211)
+    const int ii = min(max(rint_int<ADD>(g.ns) - base, 0), span - 1);
+    // the mid-bit read, 0 outside the buffer or before the stream
+    // (clock.py:214-218)
+    const int hl = rint_int<ADD>(g.half_raw) - base;
+    const bool h_ok = hl >= 0 && hl < span && rintf(g.half_raw) >= 0.0f;
+    const float cur = xs[ii];
+    const float h = xs[min(max(hl, 0), span - 1)];
+    ridx[s] = ii;
+    const int be = gardner_slot(g, cur, h_ok ? h : 0.0f, active, c);
+    rbe[s] = static_cast<uint8_t>(be);
+    if (!active) return s;
+  }
+  return spw - 1;
+}
+
+// A window's outputs from its slot records: slots after `last` repeat
+// that slot's bit and time with emit 0; times gathered at the recorded
+// buffer indices (0 before the stream).  Thread i0 of `stride` stores
+// slots i0, i0 + stride, ...
+__device__ __forceinline__ void store_window(const int* ridx,
+                                             const uint8_t* rbe, int last,
+                                             const float* tr, int base,
+                                             uint8_t* bits, float* btimes,
+                                             uint8_t* emit, int spw, int i0,
+                                             int stride) {
+#pragma unroll 4
+  for (int s = i0; s < spw; s += stride) {
+    const int r = min(s, last);
+    const int gi = base + ridx[r];
+    const int be = rbe[r];
+    bits[s] = static_cast<uint8_t>(be & 1);
+    btimes[s] = gi >= 0 ? tr[gi] : 0.0f;
+    emit[s] = static_cast<uint8_t>(s == r ? be >> 1 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(kGmThreads, 3)
 gardner_manchester_kernel(const float* __restrict__ x,
                           const float* __restrict__ t,
                           const int* __restrict__ n_valid,
@@ -108,23 +309,104 @@ gardner_manchester_kernel(const float* __restrict__ x,
                           float* __restrict__ btimes,
                           uint8_t* __restrict__ emit,
                           float* __restrict__ st_f_out,
-                          int* __restrict__ st_i_out, int B, int n_win,
+                          int* __restrict__ st_i_out,
+                          int* __restrict__ filled, int B, int n_win,
                           int window, int margin, int spw,
                           const GardnerParams p) {
+  // [buffers][span] window samples, then [2][spw] indices, [2][spw] bits
+  extern __shared__ __align__(16) float gm_sm[];
+  __shared__ int last[2];            // each record set's last slot
+  const int span = window + margin;
+  const int nbuf = gm_buffers(span, spw);
+  int* ridx = reinterpret_cast<int*>(gm_sm + nbuf * span);
+  uint8_t* rbe = reinterpret_cast<uint8_t*>(ridx + 2 * spw);
+  const int b = blockIdx.x;          // the CTA's lane
+  const int tid = threadIdx.x;
+  const size_t cap = static_cast<size_t>(n_win) * window;
+  const float* xr = x + b * cap;
+  const float* tr = t + b * cap;
+  const size_t orow = static_cast<size_t>(b) * n_win * spw;
+  auto store = [&](int w, int i0, int stride) {
+    const int k = w & 1;
+    const size_t o = orow + static_cast<size_t>(w) * spw;
+    store_window(ridx + k * spw, rbe + k * spw, last[k], tr,
+                 w * window - margin, bits + o, btimes + o, emit + o, spw,
+                 i0, stride);
+  };
+
+  SlotState g;
+  const GardnerConsts c(p);
+  int n = 0, n_filled = 0;
+  if (tid == 0) {
+    g.load(st_f_in, st_i_in, B, b);
+    n = n_valid[b];
+  }
+  load_window(gm_sm, xr, -margin, span, tid, kGmThreads);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int w = 0; w < n_win; ++w) {
+    const int base = w * window - margin;
+    const bool ahead = w + 1 < n_win;
+    if (tid == 0) {
+      const int k = w & 1;
+      const float w_end = static_cast<float>(min((w + 1) * window, n));
+      const float* xs = gm_sm + (nbuf == 2 ? k * span : 0);
+      // how far next_sample and half_raw can move in the window's slots,
+      // with half an ulp (< 0.25 below the limit) for each of a slot's
+      // two adds
+      const float reach =
+          spw * (fabsf(c.step) + fabsf(c.err_limit) + 1.0f) + 2.0f;
+      const int s =
+          fabsf(g.ns) + reach < kRintAddLimit &&
+                  fabsf(g.half_raw) + reach < kRintAddLimit
+              ? chain_window<true>(g, xs, ridx + k * spw, rbe + k * spw,
+                                   w_end, base, span, spw, c)
+              : chain_window<false>(g, xs, ridx + k * spw, rbe + k * spw,
+                                    w_end, base, span, spw, c);
+      last[k] = s;
+      n_filled += spw - 1 - s;
+    } else if (tid >= 32) {
+      if (nbuf == 2 && ahead) {
+        load_window(gm_sm + ((w + 1) & 1) * span, xr, base + window, span,
+                    tid - 32, kGmMovers);
+      }
+      if (w > 0) store(w - 1, tid - 32, kGmMovers);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (nbuf == 1 && ahead) {        // the buffer is free once the chain is
+      load_window(gm_sm, xr, base + window, span, tid, kGmThreads);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+  }
+  store(n_win - 1, tid, kGmThreads);
+  if (tid == 0) {
+    g.store(st_f_out, st_i_out, B, b, n);
+    if (filled != nullptr) filled[b] = n_filled;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+gardner_manchester_serial_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ t,
+                                 const int* __restrict__ n_valid,
+                                 const float* __restrict__ st_f_in,
+                                 const int* __restrict__ st_i_in,
+                                 uint8_t* __restrict__ bits,
+                                 float* __restrict__ btimes,
+                                 uint8_t* __restrict__ emit,
+                                 float* __restrict__ st_f_out,
+                                 int* __restrict__ st_i_out, int B,
+                                 int n_win, int window, int margin, int spw,
+                                 const GardnerParams p) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  float ns = st_f_in[b];
-  float half_raw = st_f_in[B + b];
-  float prev_bit = st_f_in[2 * B + b];
-  float m_cur = st_f_in[3 * B + b];
-  float m_prev = st_f_in[4 * B + b];
-  float m_prevprev = st_f_in[5 * B + b];
-  int clockmod = st_i_in[b];
-  int evenodd = st_i_in[B + b];
+  SlotState g;
+  g.load(st_f_in, st_i_in, B, b);
+  const GardnerConsts c(p);
   const int n = n_valid[b];
   const int span = window + margin;
-  const float neg_limit = -p.err_limit;
-  const float half_step = p.step_size / 2.0f;
 
   for (int w = 0; w < n_win; ++w) {
     // activity bound of this window (clock.py:204)
@@ -133,7 +415,7 @@ gardner_manchester_kernel(const float* __restrict__ x,
     // of left context, zeros before the stream start
     const int base = w * window - margin;
     for (int s = 0; s < spw; ++s) {
-      const float idxf = rintf(ns);
+      const float idxf = rintf(g.ns);
       const bool active = idxf < w_end;
       // on-time read, clamped into the window buffer (clock.py:211)
       const int ii = min(max(static_cast<int>(idxf) - base, 0), span - 1);
@@ -143,56 +425,51 @@ gardner_manchester_kernel(const float* __restrict__ x,
           gi >= 0 ? t[static_cast<size_t>(gi) * B + b] : 0.0f;
       // mid-bit read: 0 outside the buffer or before the stream
       // (clock.py:214-218)
-      const float hidxf = rintf(half_raw);
+      const float hidxf = rintf(g.half_raw);
       const int hl = static_cast<int>(hidxf) - base;
       const bool h_ok = hl >= 0 && hl < span && hidxf >= 0.0f;
       const float hval =
           h_ok ? x[static_cast<size_t>(base + hl) * B + b] : 0.0f;
-
-      float err = p.kp * (cur - prev_bit) * hval;
-      err = fminf(fmaxf(err, neg_limit), p.err_limit);
-      const float ns_adj = ns - err;
-      const float half_new = ns_adj + half_step;
-      const float ns_new = ns_adj + p.step_size;
-
-      // Manchester on this symbol (ManchesterDecode.c:27-97)
-      const float prevprev = m_prev;
-      const float prev = m_cur;
-      const float thr = p.resync_threshold;
-      const bool strong = fabsf(prevprev) > thr && fabsf(prev) > thr;
-      const bool resync = evenodd != clockmod
-                          && sgn(prevprev) == sgn(prev) && strong;
-      const int cm = resync ? evenodd : clockmod;
-      const bool boundary = evenodd == cm;
-      const bool use_prev = fabsf(prev) > fabsf(cur);
-      const uint8_t bit = use_prev ? (prev > 0.0f ? 1 : 0)
-                                   : (cur > 0.0f ? 0 : 1);
+      const int be = gardner_slot(g, cur, hval, active, c);
       const size_t o = static_cast<size_t>(w * spw + s) * B + b;
-      bits[o] = bit;
+      bits[o] = static_cast<uint8_t>(be & 1);
       btimes[o] = tval;
-      emit[o] = (active && boundary) ? 1 : 0;
-
-      if (active) {
-        ns = ns_new;
-        half_raw = half_new;
-        prev_bit = cur;
-        clockmod = cm;
-        evenodd = (evenodd + 1) & 1;
-        m_cur = cur;
-        m_prev = prev;
-        m_prevprev = prevprev;
-      }
+      emit[o] = static_cast<uint8_t>(be >> 1);
     }
   }
-  // chunk rollover (clock.py:262); half_raw is kept
-  st_f_out[b] = ns - static_cast<float>(n);
-  st_f_out[B + b] = half_raw;
-  st_f_out[2 * B + b] = prev_bit;
-  st_f_out[3 * B + b] = m_cur;
-  st_f_out[4 * B + b] = m_prev;
-  st_f_out[5 * B + b] = m_prevprev;
-  st_i_out[b] = clockmod;
-  st_i_out[B + b] = evenodd;
+  g.store(st_f_out, st_i_out, B, b, n);
+}
+
+bool bad_layout(int window, int margin, int spw) {
+  return window <= 0 || margin < 0 || spw <= 0;
+}
+
+bool bad_gardner_args(int n_params, int B, int n_win, int window,
+                      int margin, int spw) {
+  return n_params != static_cast<int>(sizeof(GardnerParams) / sizeof(float))
+         || B <= 0 || n_win <= 0 || bad_layout(window, margin, spw);
+}
+
+GardnerParams gardner_params(const float* params) {
+  GardnerParams p;
+  p.step_size = params[0];
+  p.err_limit = params[1];
+  p.kp = params[2];
+  p.resync_threshold = params[3];
+  return p;
+}
+
+// Dynamic shared memory of a launch, with the kernel's limit raised to it
+// above the default 48 KB; the error if the card refuses that size (then
+// cleared, so that the next launch's cudaGetLastError does not see it).
+cudaError_t gm_smem(int window, int margin, int spw, size_t* bytes) {
+  *bytes = gm_smem_bytes(window + margin, spw);
+  if (*bytes <= 48 * 1024) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      gardner_manchester_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(*bytes));
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
 }
 
 bool bad_agc_args(int n_params, int B, int n) {
@@ -259,29 +536,80 @@ extern "C" int pdt_agc_scan_serial(const float* x, const float* g_in,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Gardner + Manchester over time-major float32 x, t (n_win * window, B);
-// n_valid (B,) int32 valid lengths; state as the kernel's st_f/st_i rows.
-// Writes bits and emit (n_win * spw, B) uint8, btimes (n_win * spw, B)
-// float32 and the final state.  params: step_size, err_limit, kp,
-// resync_threshold.  Returns the cudaError_t of the launch.
+// Gardner + Manchester over lane-major float32 x, t (B, n_win * window),
+// read in place; n_valid (B,) int32 valid lengths; state as st_f/st_i
+// rows (SlotState).  Writes bits and emit (B, n_win * spw) uint8, btimes
+// (B, n_win * spw) float32, the final state and, unless filled is null,
+// each lane's slots filled as inactive into filled (B,) int32.  params:
+// step_size, err_limit, kp, resync_threshold.  Returns the cudaError_t of
+// the launch.
 extern "C" int pdt_gardner_manchester(
+    const float* x, const float* t, const int* n_valid, const float* st_f_in,
+    const int* st_i_in, uint8_t* bits, float* btimes, uint8_t* emit,
+    float* st_f_out, int* st_i_out, int* filled, int B, int n_win,
+    int window, int margin, int spw, const float* params, int n_params,
+    void* stream) {
+  if (bad_gardner_args(n_params, B, n_win, window, margin, spw)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  size_t smem;
+  const cudaError_t e = gm_smem(window, margin, spw, &smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gardner_manchester_kernel<<<B, kGmThreads, smem,    // one CTA a lane
+                              static_cast<cudaStream_t>(stream)>>>(
+      x, t, n_valid, st_f_in, st_i_in, bits, btimes, emit, st_f_out,
+      st_i_out, filled, B, n_win, window, margin, spw,
+      gardner_params(params));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Gardner kernel's launch configuration for a layout, into out[7]:
+// lanes per CTA, window buffers, threads a CTA, dynamic shared memory
+// bytes a CTA, resident CTAs an SM (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor), registers a thread, local bytes a thread.  Returns a
+// cudaError_t.
+extern "C" int pdt_gardner_manchester_config(int window, int margin,
+                                             int spw, int* out) {
+  if (bad_layout(window, margin, spw)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  size_t smem;
+  cudaError_t e = gm_smem(window, margin, spw, &smem);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) {
+    e = cudaFuncGetAttributes(&a, gardner_manchester_kernel);
+  }
+  int ctas = 0;
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas, gardner_manchester_kernel, kGmThreads, smem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = 1;
+  out[1] = gm_buffers(window + margin, spw);
+  out[2] = kGmThreads;
+  out[3] = static_cast<int>(smem);
+  out[4] = ctas;
+  out[5] = a.numRegs;
+  out[6] = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
+
+// The serial Gardner kernel, as pdt_gardner_manchester but one thread a
+// lane on time-major planes: x, t (n_win * window, B); bits, btimes, emit
+// (n_win * spw, B); no filled counts.
+extern "C" int pdt_gardner_manchester_serial(
     const float* x, const float* t, const int* n_valid, const float* st_f_in,
     const int* st_i_in, uint8_t* bits, float* btimes, uint8_t* emit,
     float* st_f_out, int* st_i_out, int B, int n_win, int window,
     int margin, int spw, const float* params, int n_params, void* stream) {
-  if (n_params != static_cast<int>(sizeof(GardnerParams) / sizeof(float)) ||
-      B <= 0 || n_win <= 0 || window <= 0 || margin < 0 || spw <= 0) {
+  if (bad_gardner_args(n_params, B, n_win, window, margin, spw)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  GardnerParams p;
-  p.step_size = params[0];
-  p.err_limit = params[1];
-  p.kp = params[2];
-  p.resync_threshold = params[3];
   const dim3 grid((B + kThreads - 1) / kThreads);
-  gardner_manchester_kernel<<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  gardner_manchester_serial_kernel<<<grid, kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
       x, t, n_valid, st_f_in, st_i_in, bits, btimes, emit, st_f_out,
-      st_i_out, B, n_win, window, margin, spw, p);
+      st_i_out, B, n_win, window, margin, spw, gardner_params(params));
   return static_cast<int>(cudaGetLastError());
 }

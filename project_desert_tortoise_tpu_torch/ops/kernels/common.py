@@ -51,15 +51,15 @@ def launch(device, name: str, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def kernel_config(device, name: str, *args) -> dict:
+def kernel_config(device, name: str, *args, fields=CONFIG_FIELDS) -> dict:
     """Call the library's config entry point `name` with `args` and an
-    int32 output array; returns its CONFIG_FIELDS, as the card reports
-    them for that kernel instantiation."""
+    int32 output array; returns its `fields`, as the card reports them for
+    that kernel instantiation."""
     from project_desert_tortoise_tpu_torch.ops.kernels import build
-    out = np.zeros(len(CONFIG_FIELDS), np.int32)
+    out = np.zeros(len(fields), np.int32)
     with torch.cuda.device(device):
         rc = getattr(build.load(), name)(
             *args, out.ctypes.data_as(ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"{name} failed: CUDA error {rc}")
-    return dict(zip(CONFIG_FIELDS, map(int, out)))
+    return dict(zip(fields, map(int, out)))

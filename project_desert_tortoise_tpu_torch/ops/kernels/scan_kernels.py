@@ -10,10 +10,12 @@ per launch at the main path's size, so each is a hand-written kernel in
 - :func:`agc_scan` and :func:`gardner_manchester` are the entry points.  A
   CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
   version.  ``.launches`` on each counts kernel launches.  The AGC kernel
-  is stage D of ``csrc/front_stages.cuh`` alone, one lane a CTA.
-- :func:`agc_scan_serial` launches the serial AGC kernel, one thread a
-  lane: the card-side oracle and timing baseline of :func:`agc_scan`, on
-  no path.
+  is stage D of ``csrc/front_stages.cuh`` alone, one lane a CTA; the
+  Gardner kernel runs one lane a CTA too, each window staged in shared
+  memory, and reads and writes lane-major rows in place.
+- :func:`agc_scan_serial` and :func:`gardner_manchester_serial` launch the
+  serial kernels, one thread a lane over time-major copies: the card-side
+  oracles and timing baselines of the two, on no path.
 - :func:`agc_scan_ref` and :func:`gardner_manchester_ref` are the plain
   PyTorch versions, on any device: loops over the steps, all lanes at once,
   in the JAX scans' order of float32 operations, so on the card they agree
@@ -224,20 +226,10 @@ def gardner_manchester_ref(fstate, istate, x, t, n, p: GardnerParams,
             torch.stack(btimes, 1), torch.stack(emits, 1))
 
 
-def gardner_manchester(fstate, istate, x, t, n, p: GardnerParams,
-                       lay: Layout):
-    """Gardner timing + Manchester decision over (B, cap) float32 `x` and
-    time plane `t`, cap = lay.n_win * lay.window; n: (B,) int32 valid
-    lengths.  fstate: six (B,) float32 planes (next_sample, half_raw,
-    prev_bit, Manchester cur, prev, prevprev); istate: two (B,) int32
-    planes (clockmod, evenodd).  Returns (fstate, istate, bits
-    (B, n_win*spw) uint8, bit_times float32, emit bool).  CPU tensors run
-    :func:`gardner_manchester_ref`."""
+def _gardner_args(fstate, istate, x, t, n, lay: Layout):
+    """Check a launch's arguments; returns the state as (6, B) float32 and
+    (2, B) int32 rows."""
     dev = x.device
-    if dev.type == "cpu":
-        return gardner_manchester_ref(fstate, istate, x, t, n, p, lay)
-    if dev.type != "cuda":
-        raise ValueError(f"gardner_manchester runs on cpu or cuda, not {dev}")
     B, cap = x.shape
     if cap != lay.n_win * lay.window:
         raise ValueError(f"x has {cap} samples, layout {lay} needs "
@@ -249,10 +241,67 @@ def gardner_manchester(fstate, istate, x, t, n, p: GardnerParams,
         check(f"fstate[{k}]", s, (B,), (torch.float32,), dev)
     for k, s in enumerate(istate):
         check(f"istate[{k}]", s, (B,), (torch.int32,), dev)
+    return (torch.stack(list(fstate)).contiguous(),
+            torch.stack(list(istate)).contiguous())
+
+
+def gardner_manchester(fstate, istate, x, t, n, p: GardnerParams,
+                       lay: Layout, *, filled=None):
+    """Gardner timing + Manchester decision over (B, cap) float32 `x` and
+    time plane `t`, cap = lay.n_win * lay.window; n: (B,) int32 valid
+    lengths.  fstate: six (B,) float32 planes (next_sample, half_raw,
+    prev_bit, Manchester cur, prev, prevprev); istate: two (B,) int32
+    planes (clockmod, evenodd).  Returns (fstate, istate, bits
+    (B, n_win*spw) uint8, bit_times float32, emit bool), the three
+    contiguous.  CPU tensors run :func:`gardner_manchester_ref`.
+    ``filled``, a (B,) int32 tensor on the card, receives each lane's
+    slots that followed an inactive slot in their window (filled, not
+    computed)."""
+    dev = x.device
+    if not on_card("gardner_manchester", dev):
+        return gardner_manchester_ref(fstate, istate, x, t, n, p, lay)
+    f_in, i_in = _gardner_args(fstate, istate, x, t, n, lay)
+    B = x.shape[0]
+    if filled is not None:
+        check("filled", filled, (B,), (torch.int32,), dev)
+    # lane-major rows, read in place: a window of a lane is contiguous
+    x, t, n = x.contiguous(), t.contiguous(), n.contiguous()
+    slots = lay.n_win * lay.spw
+    bits = torch.empty((B, slots), dtype=torch.uint8, device=dev)
+    btimes = torch.empty((B, slots), dtype=torch.float32, device=dev)
+    emit = torch.empty((B, slots), dtype=torch.bool, device=dev)
+    f_out = torch.empty_like(f_in)
+    i_out = torch.empty_like(i_in)
+    params = np.array(p, np.float32)
+    launch(dev, "pdt_gardner_manchester", x.data_ptr(), t.data_ptr(),
+           n.data_ptr(), f_in.data_ptr(), i_in.data_ptr(), bits.data_ptr(),
+           btimes.data_ptr(), emit.data_ptr(), f_out.data_ptr(),
+           i_out.data_ptr(), None if filled is None else filled.data_ptr(),
+           B, lay.n_win, lay.window, lay.margin, lay.spw,
+           params.ctypes.data_as(ctypes.c_void_p), params.size)
+    gardner_manchester.launches += 1
+    return (tuple(f_out.unbind(0)), tuple(i_out.unbind(0)), bits, btimes,
+            emit)
+
+
+gardner_manchester.launches = 0
+
+
+def gardner_manchester_serial(fstate, istate, x, t, n, p: GardnerParams,
+                              lay: Layout):
+    """:func:`gardner_manchester` on the serial kernel, one thread a lane
+    over time-major copies of `x` and `t`; its outputs are transposed
+    views of time-major planes.  No path calls it: the card checks and
+    ``chip_smoke.py`` hold :func:`gardner_manchester` to it over whole
+    passes and time the two in one run.  CUDA tensors only."""
+    dev = x.device
+    if not on_card("gardner_manchester_serial", dev):
+        raise ValueError("gardner_manchester_serial runs on a CUDA device "
+                         "only")
+    f_in, i_in = _gardner_args(fstate, istate, x, t, n, lay)
+    B = x.shape[0]
     xt = x.t().contiguous()           # time-major (cap, B)
     tt = t.t().contiguous()
-    f_in = torch.stack(list(fstate)).contiguous()
-    i_in = torch.stack(list(istate)).contiguous()
     n = n.contiguous()
     slots = lay.n_win * lay.spw
     bits = torch.empty((slots, B), dtype=torch.uint8, device=dev)
@@ -261,14 +310,31 @@ def gardner_manchester(fstate, istate, x, t, n, p: GardnerParams,
     f_out = torch.empty_like(f_in)
     i_out = torch.empty_like(i_in)
     params = np.array(p, np.float32)
-    launch(dev, "pdt_gardner_manchester", xt.data_ptr(), tt.data_ptr(),
-           n.data_ptr(), f_in.data_ptr(), i_in.data_ptr(), bits.data_ptr(),
-           btimes.data_ptr(), emit.data_ptr(), f_out.data_ptr(),
-           i_out.data_ptr(), B, lay.n_win, lay.window, lay.margin, lay.spw,
-           params.ctypes.data_as(ctypes.c_void_p), params.size)
-    gardner_manchester.launches += 1
+    launch(dev, "pdt_gardner_manchester_serial", xt.data_ptr(),
+           tt.data_ptr(), n.data_ptr(), f_in.data_ptr(), i_in.data_ptr(),
+           bits.data_ptr(), btimes.data_ptr(), emit.data_ptr(),
+           f_out.data_ptr(), i_out.data_ptr(), B, lay.n_win, lay.window,
+           lay.margin, lay.spw, params.ctypes.data_as(ctypes.c_void_p),
+           params.size)
+    gardner_manchester_serial.launches += 1
     return (tuple(f_out.unbind(0)), tuple(i_out.unbind(0)), bits.t(),
             btimes.t(), emit.t())
 
 
-gardner_manchester.launches = 0
+gardner_manchester_serial.launches = 0
+
+# what pdt_gardner_manchester_config reports, in order
+GARDNER_CONFIG_FIELDS = ("lanes_per_cta", "buffers", "threads",
+                         "dynamic_smem_bytes", "ctas_per_sm", "registers",
+                         "local_bytes")
+
+
+def gardner_launch_config(lay: Layout, device="cuda") -> dict:
+    """The Gardner kernel's launch configuration for a layout: lanes per
+    CTA, window buffers in shared memory, threads and dynamic shared
+    memory bytes a CTA, the CTAs resident on an SM at that size, and
+    registers and local (spill) bytes a thread, as the card reports
+    them."""
+    return kernel_config(device, "pdt_gardner_manchester_config",
+                         lay.window, lay.margin, lay.spw,
+                         fields=GARDNER_CONFIG_FIELDS)

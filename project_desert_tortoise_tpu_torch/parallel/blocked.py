@@ -55,11 +55,12 @@ from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
     pll_scan_kernel)
 
 # device bytes one (lane, input sample) needs across each branch: input,
-# time and output planes, their time-major copies and the compaction
-# temporaries; the two unfused branches also hold the interpolated stream
-# (`interp` values per sample) and its time plane.  About 1.5x the peaks
-# measured on a 12-minute POES pass (~56 and ~60 bytes, PERF.md).
-_LANE_SAMPLE_BYTES = {"fused": 64, "front": 80, False: 96}
+# time and output planes and the compaction temporaries; the two unfused
+# branches also hold the interpolated stream (`interp` values per sample)
+# and its time plane.  About 1.5x the peaks measured on a 12-minute POES
+# pass, the larger of the two passes per sample: 51.9 bytes ("front") and
+# 60.0 (False) above what was held before (PERF.md).
+_LANE_SAMPLE_BYTES = {"fused": 64, "front": 78, False: 90}
 _BATCH_BYTES = 8 << 30
 
 

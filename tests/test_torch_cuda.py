@@ -2,7 +2,9 @@
 the fused chain (POES and ARGOS geometries, staged times and in-kernel time
 generation), the front-half chain (PLL+FIR+AGC, both geometries), the PLL
 scan, the AGC scan, the windowed Gardner/Manchester scan and every variant
-of the two ablation kernels.  The decoupled fused and front-half kernels
+of the two ablation kernels.  The Gardner kernel also on the cases of
+``tests/test_torch_gardner_order.py`` (both geometries) and over many
+windows against its serial twin (``gardner_manchester_serial``).  The decoupled fused and front-half kernels
 also on warm, cold and mixed lanes, ragged batches and lanes shorter than
 a chunk, and against the serial kernels they replace
 (``fused_demod_serial``, ``pll_fir_agc_serial``) over 120,000 samples;
@@ -37,6 +39,8 @@ from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
 from project_desert_tortoise_tpu_torch.tools import ablate_fused as AF
 from project_desert_tortoise_tpu_torch.tools import ablate_kernel as AK
 from project_desert_tortoise_tpu_torch.utils.config import ARGOS, POES_TIP
+from test_torch_gardner_order import (
+    CASES, GEOMETRIES, gardner_case, gardner_order)
 
 FS = 50000.0
 ARGOS_FS = 32000.0
@@ -600,3 +604,118 @@ def test_scan_launch_config_on_card(card):
         assert cfg["lanes_per_cta"] == 1 and cfg["chunk"] == 256
         assert cfg["threads"] == 128 and 0 < cfg["registers"] <= 255
         assert 0 < cfg["smem_bytes"] <= 49152 and cfg["local_bytes"] <= 48
+
+
+# --- the Gardner kernel: one lane a CTA, each window in shared memory
+
+def _gardner_args(case, dev):
+    """A case of tests/test_torch_gardner_order.py as tensors on dev."""
+    f, i, x, t, n, p, lay = case
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (tuple(on(r) for r in f), tuple(on(r) for r in i), on(x), on(t),
+            on(n), p, lay)
+
+
+def _gardner_counts():
+    return (sk.gardner_manchester.launches,
+            sk.gardner_manchester_serial.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_gardner_window_kernel_cases_on_card(card, geometry, case):
+    """gardner_manchester against its plain version and its serial twin,
+    bit for bit, on the CPU model's cases (POES: one window buffer; ARGOS:
+    two); one launch a call, the serial twin's count unmoved by it;
+    contiguous lane-major outputs; the slots filled as inactive, lane by
+    lane, as the CPU model counts them."""
+    np_case = gardner_case(geometry, case)
+    args = _gardner_args(np_case, card)
+    B, lay = args[2].shape[0], args[-1]
+    filled = torch.full((B,), -1, dtype=torch.int32, device=card)
+    before = _gardner_counts()
+    got = sk.gardner_manchester(*args, filled=filled)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_gardner_counts(), before)] == [1, 0]
+    for a in got[2:]:
+        assert a.shape == (B, lay.n_win * lay.spw) and a.is_contiguous()
+    _equal(got, sk.gardner_manchester_ref(*args))
+    _equal(got, sk.gardner_manchester_serial(*args))
+    assert [a - b for a, b in zip(_gardner_counts(), before)] == [1, 1]
+    _, model = gardner_order(*_gardner_args(np_case, "cpu"))
+    assert torch.equal(filled.cpu().to(torch.int64), model["filled"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_gardner_window_kernel_matches_serial_over_many_windows_on_card(
+        card, geometry):
+    """61 lanes (not a multiple of a warp) over 12 windows, valid lengths
+    from the whole row down to inside the first window, a carried state on
+    every other lane: bit for bit against the serial twin."""
+    B = 61
+    f, i, x, t, n, p, lay = gardner_case(geometry, "carried", B=B, seed=3)
+    n_win = 12
+    x = np.tile(x, (1, -(-n_win // lay.n_win)))[:, :n_win * lay.window]
+    t = np.tile(t, (1, -(-n_win // lay.n_win)))[:, :n_win * lay.window]
+    lay = sk.layout(x.shape[1], lay.window, p.step_size, p.err_limit)
+    f[:, 1::2] = 0.0
+    i[:, 1::2] = 0
+    n = (x.shape[1] * (1.0 - np.arange(B) / B)).astype(np.int32)
+    args = _gardner_args((f, i, x, t, n, p, lay), card)
+    got = sk.gardner_manchester(*args)
+    want = sk.gardner_manchester_serial(*args)
+    assert int(want[4].sum()) > 100 * B
+    _equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gardner_launch_config_on_card(card):
+    """What the card reports for the unfused branches' layouts: one lane a
+    CTA, 128 threads; POES (windows of 12,288 and 16 samples of margin)
+    one window buffer and ARGOS two, within 72 KB of dynamic shared
+    memory, so that three CTAs share an SM (352 lanes in one wave on 132
+    SMs); no local memory (no spills)."""
+    for geometry, buffers in (("poes", 1), ("argos", 2)):
+        lay = gardner_case(geometry, "full", B=1)[-1]
+        cfg = sk.gardner_launch_config(lay)
+        assert cfg["lanes_per_cta"] == 1 and cfg["threads"] == 128
+        assert cfg["buffers"] == buffers
+        span = lay.window + lay.margin
+        assert cfg["dynamic_smem_bytes"] >= buffers * span * 4
+        assert cfg["dynamic_smem_bytes"] <= 72 * 1024
+        assert cfg["ctas_per_sm"] >= 3
+        assert 0 < cfg["registers"] <= 255 and cfg["local_bytes"] == 0
+
+
+@pytest.mark.cuda
+def test_gardner_kernels_refuse_bad_input(card):
+    """Both wrappers raise on a wrong dtype, shape or layout and count no
+    launch; the serial twin refuses CPU tensors; a window whose buffer
+    exceeds an SM's shared memory is refused by the launch."""
+    fs, ist, x, t, n, p, lay = _gardner_args(
+        gardner_case("argos", "full", B=4), card)
+    before = _gardner_counts()
+    for f in (sk.gardner_manchester, sk.gardner_manchester_serial):
+        with pytest.raises(TypeError):
+            f(fs, ist, x.double(), t, n, p, lay)
+        with pytest.raises(TypeError):
+            f(fs, ist, x, t, n.long(), p, lay)
+        with pytest.raises(ValueError):
+            f(fs, ist, x[:, :-1], t, n, p, lay)
+        with pytest.raises(ValueError):
+            f(fs[:5], ist, x, t, n, p, lay._replace(n_win=lay.n_win + 1))
+        with pytest.raises(ValueError):
+            f((fs[0][:3],) + fs[1:], ist, x, t, n, p, lay)
+    with pytest.raises(TypeError):
+        sk.gardner_manchester(fs, ist, x, t, n, p, lay,
+                              filled=torch.zeros((4,), device=card))
+    cpu = _gardner_args(gardner_case("argos", "full", B=4), "cpu")
+    with pytest.raises(ValueError):
+        sk.gardner_manchester_serial(*cpu)
+    huge = sk.layout(2 * 65536, 65536, p.step_size, p.err_limit)
+    z = torch.zeros((4, 2 * 65536), device=card)
+    with pytest.raises(RuntimeError):
+        sk.gardner_manchester(fs, ist, z, z, n, p, huge)
+    assert _gardner_counts() == before
