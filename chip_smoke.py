@@ -4,7 +4,7 @@
 Builds the kernels from the sources of this checkout (one library, one
 nvcc per source in parallel) and holds each against its plain PyTorch
 version on the card, bit for bit: at small shapes, then on the blocks the
-main paths stage (their first 32,768 or 8,192 samples).  It checks the
+main paths stage (their first 16,384 or 8,192 samples).  It checks the
 block-parallel slice on the CPU against the card on each of its three
 branches (``use_pallas`` "fused", "front", False), for POES and for ARGOS,
 and drives the port's three entry points:
@@ -16,8 +16,22 @@ and drives the port's three entry points:
   on the front and scan branches;
 - a synthetic 12-minute ARGOS pass (32 kHz, 23.04 M samples, 589
   packets) through ``demod_argos --fast`` and the same two branches;
+- the same POES pass through ``demod_poes`` without ``--fast``, the exact
+  chunked chain (3,600 chunks, one lane each: ``pll_scan``, ``agc_scan``
+  and ``gardner_manchester_scan``), whose payloads must be the JAX exact
+  chain's and each one the fast path's (``exact_cli``: the wall split
+  into chunk steps, fetches, framer and writer; each kernel's ms a
+  chunk);
 - the two ablation tools (``project_desert_tortoise_tpu_torch/tools``),
   every variant at 128 and at 4,224 lanes (``ablation`` lines).
+
+The exact chain's kernels are held to their plain versions at one lane
+(``pll_scan`` and ``agc_scan`` from an unlocked start,
+``gardner_manchester_scan`` over a quirks image with stale mid-bit
+pointers), ``gardner_manchester_scan`` also at 352 lanes on the
+unwindowed layout of the POES blocks, and ``DemodSession`` on a short clip
+on the card against the CPU and against its plain versions on the card
+(``exact_small``).
 
 It holds the decoupled ``fused_demod``, ``pll_fir_agc``, ``pll_scan`` and
 ``agc_scan`` and the windowed ``gardner_manchester`` to their serial twins
@@ -72,13 +86,25 @@ ARGOS_REFERENCE_MISSED = (
 # what else that fast path decodes on the pass (packets whose tail the
 # squelch zeroed), in hex; the test recomputes it too
 ARGOS_REFERENCE_EXTRA = ("250e9fffffffff", "77b73fffffffff")
+# what the JAX package's exact chain (DemodSession, POES_TIP, quirks on)
+# misses on the POES pass, and what else it decodes (in hex; the
+# acquisition lead-in frame apart): nothing either way.  The exact_cli
+# phase holds the port's exact chain to both;
+# tests/test_torch_exact_pass.py recomputes them on the CPU.
+EXACT_REFERENCE_MISSED = ()
+EXACT_REFERENCE_EXTRA = ()
+# the exact chain's B=1 checks of pll_scan and agc_scan from an unlocked
+# start: poes_tip's and poes_tip_realtime's chunks and a short final one
+EXACT_CHECK_L = (10000, 2400, 1234)
 # samples per lane of the plain-version checks on the main paths' blocks:
-# 8 of the unfused branches' 4,096-sample Gardner windows (the plain
-# versions are per-sample loops of ~0.1-3.5 ms a step on the card); the
-# POES fused kernel on the staged plane, which the CLI no longer runs, and
-# ARGOS's scan-branch kernels (two of its Gardner windows), on the first
-# 8,192
-MAIN_CHECK_L = 32768
+# 4 of the unfused branches' 4,096-sample Gardner windows (the plain
+# versions are per-sample loops of ~0.1-3.5 ms a step on the card; 8
+# windows until the exact chain's phases joined the run: the plain checks
+# at 16,384 take ~160 s on an H100 at 700 W, so 32,768 would bring the
+# whole run to ~1,030 s of its 1,200); the POES fused kernel on the staged
+# plane, which the CLI no longer runs, and ARGOS's scan-branch kernels
+# (two of its Gardner windows), on the first 8,192
+MAIN_CHECK_L = 16384
 PLANE_CHECK_L = 8192
 # the ablation tools: lane counts (S x 128) of the timed runs, at each of
 # which every variant is checked against its plain version over
@@ -109,6 +135,10 @@ KERNELS = {
     # its serial design, kept in the same way
     "gardner_manchester_serial": (CSRC + "scan_kernels.cu",
                                   JAX + "ops/clock.py:151"),
+    # the exact chain's Gardner scan followed by its Manchester scan
+    "gardner_manchester_scan": (CSRC + "scan_kernels.cu",
+                                JAX + "ops/clock.py:58, " + JAX
+                                + "ops/manchester.py:34"),
     "ablate_kernel": (CSRC + "ablate_kernel.cu", "tools/ablate_kernel.py:32"),
     "ablate_fused": (CSRC + "ablate_fused.cu", "tools/ablate_fused.py:42"),
 }
@@ -117,6 +147,7 @@ KERNELS = {
 PATH_KERNELS = {"fused": ("fused_demod",),
                 "front": ("pll_fir_agc", "gardner_manchester"),
                 False: ("pll_scan", "agc_scan", "gardner_manchester"),
+                "exact": ("pll_scan", "agc_scan", "gardner_manchester_scan"),
                 "ablate_kernel": ("ablate_kernel",),
                 "ablate_fused": ("ablate_fused",)}
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 flop/s
@@ -155,6 +186,7 @@ def kernel_fns() -> dict:
             "gardner_manchester": scan_kernels.gardner_manchester,
             "gardner_manchester_serial":
                 scan_kernels.gardner_manchester_serial,
+            "gardner_manchester_scan": scan_kernels.gardner_manchester_scan,
             "ablate_kernel": ablate_kernel.ablate_kernel,
             "ablate_fused": ablate_fused.ablate_fused}
 
@@ -667,21 +699,34 @@ def synth_pass(mode_name: str, workdir: str):
     return wav, [bytes(w) for w in want], lead_in
 
 
-def payload_check(mode_name: str, got, want, lead_in) -> dict:
-    """How many of the synthesized payloads came out exactly once, which
-    were missed or repeated, and what else was decoded (the acquisition
-    lead-in apart).  Raises if any repeats, or unless the missed and the
-    extra payloads are exactly the reference's: POES none, ARGOS
-    ARGOS_REFERENCE_MISSED and ARGOS_REFERENCE_EXTRA."""
+def payload_diff(got, want, lead_in):
+    """The indices of the synthesized payloads `want` missing from the
+    decoded payloads `got` and of those decoded more than once, and what
+    else was decoded (in hex, sorted; the acquisition lead-in apart)."""
     counts = collections.Counter(got)
     wanted = set(want)
     missed = [i for i, w in enumerate(want) if counts[w] == 0]
     repeated = [i for i, w in enumerate(want) if counts[w] > 1]
     extra = sorted(g.hex() for g in got if g not in wanted and g != lead_in)
+    return missed, extra, repeated
+
+
+def payload_check(mode_name: str, got, want, lead_in,
+                  exact: bool = False) -> dict:
+    """How many of the synthesized payloads came out exactly once, which
+    were missed or repeated, and what else was decoded (the acquisition
+    lead-in apart).  Raises if any repeats, or unless the missed and the
+    extra payloads are exactly the reference's: POES's fast path none,
+    ARGOS ARGOS_REFERENCE_MISSED and ARGOS_REFERENCE_EXTRA, the exact
+    chain (`exact`) EXACT_REFERENCE_MISSED and EXACT_REFERENCE_EXTRA."""
+    counts = collections.Counter(got)
+    missed, extra, repeated = payload_diff(got, want, lead_in)
     once = len(want) - len(missed) - len(repeated)
     argos = mode_name == "argos"
-    ref = ARGOS_REFERENCE_MISSED if argos else ()
-    ref_extra = list(ARGOS_REFERENCE_EXTRA) if argos else []
+    ref = (EXACT_REFERENCE_MISSED if exact else
+           ARGOS_REFERENCE_MISSED if argos else ())
+    ref_extra = list(EXACT_REFERENCE_EXTRA if exact else
+                     ARGOS_REFERENCE_EXTRA if argos else ())
     differ = sorted(set(missed) ^ set(ref))
     out = dict(frames_written=len(got), recovered_once=once, of=len(want),
                missed=missed, repeated=repeated, extra=len(extra),
@@ -1397,6 +1442,408 @@ def phase_branch_stages(mode_name: str, staged, br,
     return out
 
 
+@contextlib.contextmanager
+def patched(module, name: str, value):
+    """module.name replaced by value for the duration."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield saved
+    finally:
+        setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def exact_kernels_replaced(make):
+    """The exact chain's three kernel wrappers, as chain.chunk_step reaches
+    them (module attributes), replaced by make(name, wrapper, plain) for
+    the duration."""
+    from project_desert_tortoise_tpu_torch.ops import pll
+    from project_desert_tortoise_tpu_torch.ops.kernels import pll_kernel
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels
+
+    def pll_plain(params, state, z, **_):
+        return pll.pll_scan_ref(params, state, *z)
+    sites = (("pll_scan", pll_kernel, "pll_scan_kernel", pll_plain),
+             ("agc_scan", scan_kernels, "agc_scan",
+              scan_kernels.agc_scan_ref),
+             ("gardner_manchester_scan", scan_kernels,
+              "gardner_manchester_scan",
+              scan_kernels.gardner_manchester_scan_ref))
+    with contextlib.ExitStack() as stack:
+        for name, mod, attr, plain in sites:
+            stack.enter_context(patched(mod, attr, make(
+                name, getattr(mod, attr), plain)))
+        yield
+
+
+def sym_image(L: int, step: float, seed: int):
+    """An interpolated-rate stream of +-1 symbols `step` samples long with
+    noise (tests/test_torch_chain.py::_sym_stream), float32 (1, L)."""
+    rng = np.random.default_rng(seed)
+    sym = rng.choice([-1.0, 1.0], int(L / step) + 2)
+    pos = (np.arange(L) + rng.uniform(0, step)) / step
+    x = sym[pos.astype(int)] + 0.1 * rng.standard_normal(L)
+    return x.astype(np.float32)[None]
+
+
+def phase_exact_kernels(stats: dict):
+    """The exact chain's kernels at one lane against their plain versions,
+    bit for bit.  pll_scan from an unlocked start (the acquisition sweep
+    in the kernel) and agc_scan on its interpolated output, over
+    EXACT_CHECK_L samples of a synthetic POES signal from its start;
+    gardner_manchester_scan over poes_tip's quirks image (30,000
+    interpolated samples) with the mid-bit pointer carried stale inside
+    the image, past the valid length (a short final chunk), past the image
+    and negative."""
+    import torch
+    from project_desert_tortoise_tpu_torch import chain
+    from project_desert_tortoise_tpu_torch.ops import agc, fir, pll
+    from project_desert_tortoise_tpu_torch.ops import manchester as man
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+    from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
+        pll_scan_kernel)
+    from project_desert_tortoise_tpu_torch.utils import synth
+    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
+
+    dev = torch.device("cuda")
+    params = chain.make_params(POES_TIP, POES_FS, quirks=True)
+    iq, _ = synth.make_poes_recording(n_frames=4, fs=POES_FS)
+    iq = (iq / (np.abs(iq).max() * 1.2)).astype(np.complex64)
+    start = int(0.3 * POES_FS)              # where the signal starts
+    cold = pll.init_state(params.pll, (1,), device=dev)
+    gain = torch.full((1,), agc.static_gain(iq[:10000], POES_TIP.
+                                            static_gain_level), device=dev)
+    ap = sk.AGCParams(params.agc_attack, params.agc_decay)
+    locked_after = {}
+    for L in EXACT_CHECK_L:
+        z = tuple(torch.from_numpy(np.ascontiguousarray(
+            a[start:start + L])[None]).to(dev) for a in (iq.real, iq.imag))
+        unlocked = torch.zeros((1,), dtype=torch.int32, device=dev)
+        pll_scan_kernel(params.pll, cold, z, unlocked=unlocked)
+        locked_after[L] = int(unlocked[0])
+        pll_t = time_pair(
+            "pll_scan", f"exact chain, 1 lane, unlocked start, {L} samples",
+            lambda: pll_scan_kernel(params.pll, cold, z),
+            lambda: pll.pll_scan_ref(params.pll, cold, *z), [1, L], stats)
+        _, soft, _ = pll_scan_kernel(params.pll, cold, z)
+        x = fir.fir_interp(soft, params.taps, params.interp)
+        agc_t = time_pair("agc_scan", f"exact chain, 1 lane, {L} samples",
+                          lambda: sk.agc_scan(gain, x, ap),
+                          lambda: sk.agc_scan_ref(gain, x, ap),
+                          list(x.shape), stats)
+        if L == POES_TIP.chunk_size:     # the exact_cli run's chunk
+            for name, (ms, plain_ms, _), shape in (
+                    ("pll_scan", pll_t, [1, L]),
+                    ("agc_scan", agc_t, list(x.shape))):
+                stats[name]["exact"] = dict(check_ms=ms, plain_ms=plain_ms,
+                                            plain_shape=shape)
+    emit("exact_unlocked_steps", card=card_line(), steps_before_lock=
+         {str(k): v for k, v in locked_after.items()})
+
+    cap = 10000 * params.interp
+    msyms = chain.max_symbols(cap, params.step_size)
+    x = torch.from_numpy(sym_image(cap, params.step_size, 1)).to(dev)
+    t = (torch.arange(1, cap + 1, device=dev, dtype=torch.float32)
+         / float(np.float32(POES_FS)))[None].contiguous()
+    gp = sk.GardnerParams(params.step_size, params.gardner_err_limit,
+                          params.gardner_gain, params.resync_threshold)
+    m0 = man.manchester_init((1,), device=dev)
+    istate = (m0.clockmod, m0.evenodd + 1)
+    short = cap - 3 * 2591                  # a final chunk of 7,409 samples
+    for case, n_valid, half in (("stale inside the image", cap, cap - 9.6),
+                                ("past the valid length", short, short + 3.5),
+                                ("past the image", cap, cap + 7.25),
+                                ("negative", cap, -4.5)):
+        f = lambda v: torch.full((1,), float(np.float32(v)), device=dev)
+        fstate = (f(7.3), f(half), f(0.4), f(0.9), f(-0.8), f(0.7))
+        n = torch.full((1,), n_valid, dtype=torch.int32, device=dev)
+        time_pair("gardner_manchester_scan", f"quirks image, 1 lane, "
+                  f"half_raw {case}",
+                  lambda: sk.gardner_manchester_scan(fstate, istate, x, t, n,
+                                                     gp, msyms),
+                  lambda: sk.gardner_manchester_scan_ref(fstate, istate, x,
+                                                         t, n, gp, msyms),
+                  [1, cap], stats)
+
+
+def phase_exact_fallback(staged, stats: dict):
+    """gardner_manchester_scan at the block-parallel path's lanes: the
+    unwindowed layout demod_blocks falls back to (window=0) on the POES
+    pass's 352 blocks, the scan branch's y and the interpolated position
+    plane, against its plain version bit for bit."""
+    import torch
+    from project_desert_tortoise_tpu_torch.ops import clock, fir
+    from project_desert_tortoise_tpu_torch.ops import manchester as man
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+    from project_desert_tortoise_tpu_torch.parallel import blocked
+
+    params, plan, fs, n, norm, zre, zim, lo, fest = staged
+    B, L = zre.shape
+    interp, dev = params.interp, zre.device
+    pst, gain0 = blocked.warm_state(params, fest, fs, norm)
+    y = branch_ys(params, (zre, zim), pst, gain0)[False]
+    pos = blocked.sample_positions(lo, n, plan.total, 1 if interp > 1 else 0)
+    t = fir.fir_out_times(pos, interp) if interp > 1 else pos
+    del pos
+    n_i = L * interp
+    max_syms = int(n_i / params.step_size * 1.02) + 16   # JAX's _plan_caps
+    g0 = clock.gardner_init((B,), device=dev)
+    m0 = man.manchester_init((B,), device=dev)
+    fstate = (*g0, m0.cur, m0.prev, m0.prevprev)
+    istate = (m0.clockmod, m0.evenodd)
+    n_valid = torch.full((B,), n_i, dtype=torch.int32, device=dev)
+    gp = sk.GardnerParams(params.step_size, params.gardner_err_limit,
+                          params.gardner_gain, params.resync_threshold)
+    args = (fstate, istate, y, t, n_valid, gp, max_syms)
+    ms, plain_ms, err = time_pair(
+        "gardner_manchester_scan", f"poes window=0 layout, {B} lanes",
+        lambda: sk.gardner_manchester_scan(*args),
+        lambda: sk.gardner_manchester_scan_ref(*args), [B, n_i], {})
+    st = stats["gardner_manchester_scan"]
+    st["max_abs_err"] = max(st["max_abs_err"], err)
+    st["window0"] = dict(ms=ms, plain_ms=plain_ms, shape=[B, n_i],
+                         max_syms=max_syms)
+
+
+def state_tensors(state) -> list:
+    """A ChainState's tensors, the stream states' fields in order."""
+    out = []
+    for v in state:
+        out.extend(v if isinstance(v, tuple) else (v,))
+    return out
+
+
+# the card's ChainState against the CPU's at the end of a session: the
+# envelope of tests/test_torch_exact_chain.py (sin/cos round otherwise on
+# the card): soft values and the AGC gain 1e-4, the PLL's phase, frequency
+# and lock signal 2e-5, its quality EMA 1e-4, the Gardner pointers 1e-3
+# samples, the time image one sample period; what is not listed is equal
+STATE_LIMITS = {"pll.phase": 2e-5, "pll.freq": 2e-5, "pll.locksig": 2e-5,
+                "pll.avg_phase": 1e-4, "fir_hist": 1e-4, "agc.gain": 1e-4,
+                "gardner.next_sample": 1e-3, "gardner.half_raw": 1e-3,
+                "gardner.prev_bit": 1e-4, "manchester.cur": 1e-4,
+                "manchester.prev": 1e-4, "manchester.prevprev": 1e-4,
+                "x_img": 1e-4, "t_img": 1.0001 / POES_FS}
+
+
+def state_diff(card, cpu, what: str) -> dict:
+    """Each field's max abs difference between two ChainStates; raises
+    where one is past its STATE_LIMITS entry (0 where none is)."""
+    diffs = {}
+    for name, a in card._asdict().items():
+        b = getattr(cpu, name)
+        fields = (a._asdict().items() if isinstance(a, tuple)
+                  else ((None, a),))
+        for f, v in fields:
+            key = name if f is None else f"{name}.{f}"
+            w = b if f is None else getattr(b, f)
+            if tuple(v.shape) != tuple(w.shape):
+                raise AssertionError(f"{what}: {key} has shape "
+                                     f"{tuple(v.shape)} against "
+                                     f"{tuple(w.shape)}")
+            diffs[key] = max_abs_err(v.cpu(), w)
+    past = {k: d for k, d in diffs.items() if d > STATE_LIMITS.get(k, 0.0)}
+    if past:
+        raise AssertionError(f"{what}: final state past its limits {past}")
+    return diffs
+
+
+def phase_exact_small():
+    """DemodSession on a 0.8 s synthetic POES clip (4 frames, acquisition
+    included), for poes_tip with quirks on and off and poes_tip_realtime:
+    on the card against the CPU (the plain versions, whose sin/cos round
+    otherwise than the card's), frames under the docs/DESIGN.md §4b
+    contract and the final state within STATE_LIMITS; and on the card
+    against the same session with the plain versions on the card
+    (launches not counted), frames and final state bit for bit."""
+    from project_desert_tortoise_tpu_torch.models.demodulator import (
+        DemodSession)
+    from project_desert_tortoise_tpu_torch.utils import synth, wav as W
+    from project_desert_tortoise_tpu_torch.utils.config import (
+        POES_TIP, POES_TIP_REALTIME)
+
+    iq, _ = synth.make_poes_recording(n_frames=4, fs=POES_FS)
+    iq = (iq / (np.abs(iq).max() * 1.2)).astype(np.complex64)
+    t = W.time_axis(len(iq), POES_FS, np.float32)
+
+    def session(mode, quirks, device):
+        t0 = time.time()
+        s = DemodSession(mode, POES_FS, quirks=quirks, device=device)
+        return s, s.run(iq, t), time.time() - t0
+
+    def frames(res):
+        return [(f.time, f.inverted, bytes(f.data), f.complete)
+                for f in res.frames]
+    for name, mode, quirks in (("poes_tip", POES_TIP, True),
+                               ("poes_tip no quirks", POES_TIP, False),
+                               ("poes_tip_realtime", POES_TIP_REALTIME,
+                                True)):
+        cpu_s, cpu, cpu_wall = session(mode, quirks, "cpu")
+        card_s, card, card_wall = session(mode, quirks, "cuda")
+        diffs = state_diff(card_s.state, cpu_s.state, f"exact chain {name}")
+        # docs/DESIGN.md §4b on a few frames: payloads identical, at most
+        # one timestamp a sample period off
+        a, b = cpu.frames, card.frames
+        shifted = sum(x.time != y.time for x, y in zip(a, b))
+        if (len(a) != len(b) or len(a) < 2 or shifted > 1
+                or any(x.inverted != y.inverted
+                       or not np.array_equal(x.data, y.data)
+                       or abs(x.time - y.time) > 1.0001 / POES_FS
+                       for x, y in zip(a, b))):
+            raise AssertionError(f"exact chain {name}: the card's "
+                                 f"{len(b)} frames against the CPU's "
+                                 f"{len(a)}, {shifted} timestamps shifted")
+        with exact_kernels_replaced(lambda name, kern, plain: plain):
+            plain_s, plain, plain_wall = session(mode, quirks, "cuda")
+        if frames(card) != frames(plain):
+            raise AssertionError(f"exact chain {name}: the kernels' frames "
+                                 "differ from the plain versions'")
+        check_equal(tuple(state_tensors(card_s.state)),
+                    tuple(state_tensors(plain_s.state)),
+                    f"exact chain {name} final state")
+        emit("exact_small", card=card_line(), mode=name, cpu_s=cpu_wall,
+             card_s=card_wall, plain_on_card_s=plain_wall, frames=len(b),
+             time_shifted=shifted, state_max_abs_diff_vs_cpu=diffs,
+             frames_and_state_bit_exact_vs_plain=True)
+
+
+# the library entry point each of the exact chain's kernels launches
+EXACT_ENTRY = {"pll_scan": "pdt_pll_scan", "agc_scan": "pdt_agc_scan",
+               "gardner_manchester_scan": "pdt_gardner_scan"}
+
+
+def phase_exact_cli(workdir: str, wav: str, want, lead_in, fast_lines,
+                    stats: dict):
+    """The pass through the port's ``demod_poes`` without ``--fast``: the
+    exact chain on the card (3,603 chunks of up to 10,000 samples).  Its
+    payloads must be the JAX exact chain's (EXACT_REFERENCE_MISSED,
+    _EXTRA) and each one the fast path decoded in this run.  Each launch
+    of the three kernels is bracketed by CUDA events in the run itself
+    (common.launch_events): their sum is the kernels' device time, which
+    also holds the few microseconds a launch takes to reach an idle card.
+    The wall is split on the host clock: the chunk steps' host time
+    (launches are queued), the device-to-host fetch (which waits for the
+    chunk's device work), the framer, the frame writer, the rest (WAV
+    load, static gain); the host's share is the wall outside the fetch.  Fills the three kernels' rows (ms a launch over
+    the run, the bound of the run's mean work a launch); returns the
+    launches."""
+    import torch
+    from project_desert_tortoise_tpu_torch import chain
+    from project_desert_tortoise_tpu_torch.apps import demod_poes
+    from project_desert_tortoise_tpu_torch.models import demodulator
+    from project_desert_tortoise_tpu_torch.ops import framer
+    from project_desert_tortoise_tpu_torch.ops.kernels import common
+    from project_desert_tortoise_tpu_torch.utils import output
+    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
+    from project_desert_tortoise_tpu_torch.utils.output import (
+        parse_frames_file)
+
+    out = os.path.join(workdir, "poes_exact.txt")
+    split = collections.Counter()
+
+    def clocked(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                split[key] += time.perf_counter() - t0
+        return run
+    err, so = io.StringIO(), io.StringIO()
+    events = {}
+    with contextlib.ExitStack() as stack:
+        for key, mod, attr in (
+                ("chunk_step", chain, "chunk_step"),
+                ("fetch", demodulator.DemodSession, "_fetch"),
+                ("framer", framer.StreamFramer, "process"),
+                ("write", output.FrameWriter, "write_all")):
+            stack.enter_context(patched(mod, attr, clocked(
+                key, getattr(mod, attr))))
+        stack.enter_context(patched(common, "launch_events", events))
+        stack.enter_context(contextlib.redirect_stderr(err))
+        stack.enter_context(contextlib.redirect_stdout(so))
+        t0 = time.time()
+        rc, counts = drive("exact", lambda: demod_poes.run([wav, "--out",
+                                                            out]))
+        wall = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"demod_poes (exact chain) exited {rc}")
+    got = [bytes(b) for _, _, b in parse_frames_file(out)]
+    fast = {b for _, b in fast_lines}
+    not_fast = [g.hex() for g in got if g not in fast]
+    if not_fast:
+        raise AssertionError(f"the exact chain decoded {len(not_fast)} "
+                             f"payloads the fast path did not: "
+                             f"{not_fast[:5]}")
+    check = payload_check("poes", got, want, lead_in, exact=True)
+    torch.cuda.synchronize()
+    event_s = {}
+    for k, entry in EXACT_ENTRY.items():
+        pairs = events.get(entry, [])
+        if len(pairs) != counts[k]:
+            raise AssertionError(f"{k}: {len(pairs)} timed launches against "
+                                 f"{counts[k]} counted")
+        event_s[k] = sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+    if set(events) != set(EXACT_ENTRY.values()):
+        raise AssertionError(f"the exact chain launched {sorted(events)}")
+    progress = re.sub(r"\x1b\[[0-9;]*m", "", err.getvalue().rsplit(
+        "\r", 1)[-1]).strip()
+    n_bits = int(re.search(r"(\d+) Bits", progress).group(1))
+    n_syms = int(re.search(r"(\d+) Sym", progress).group(1))
+    n_samples = round(float(re.search(r"([0-9.]+) Ks", progress).group(1))
+                      * 1e3)
+    # the bound of the run's mean work a launch: bytes each input read once
+    # and each output written once, operations counted from the sources as
+    # in phase_branch_stages (PLL ~40 a sample, AGC 8 an output,
+    # Gardner+Manchester ~30 an active symbol slot)
+    params = chain.make_params(POES_TIP, POES_FS, quirks=True)
+    interp = params.interp
+    slots = chain.max_symbols(POES_TIP.chunk_size * interp, params.step_size)
+    per = {k: 1.0 / counts[k] for k in EXACT_ENTRY}
+    work = {
+        "pll_scan": bound((n_samples * 16.0 + counts["pll_scan"] * 48.0)
+                          * per["pll_scan"],
+                          n_samples * 40.0 * per["pll_scan"]),
+        "agc_scan": bound(n_samples * interp * 8.0 * per["agc_scan"],
+                          n_samples * interp * 8.0 * per["agc_scan"]),
+        "gardner_manchester_scan": bound(
+            (n_syms * 12.0 * per["gardner_manchester_scan"] + slots * 11.0),
+            n_syms * 30.0 * per["gardner_manchester_scan"])}
+    shapes = {"pll_scan": [1, POES_TIP.chunk_size],
+              "agc_scan": [1, POES_TIP.chunk_size * interp],
+              "gardner_manchester_scan": [1, POES_TIP.chunk_size * interp]}
+    ms = {k: event_s[k] * 1e3 / counts[k] for k in EXACT_ENTRY}
+    for k in EXACT_ENTRY:
+        row = dict(ms=ms[k], shape=shapes[k], launches_exact_cli=counts[k],
+                   **work[k])
+        if k == "gardner_manchester_scan":
+            stats[k].update(row)
+        else:
+            stats[k]["exact"].update(row)
+    kernels_s = sum(event_s.values())
+    split["other"] = wall - sum(split.values())
+    emit("exact_cli", wall_s=wall, launches={k: counts[k] for k in
+                                             PATH_KERNELS["exact"]},
+         split_s=dict(split), kernel_event_s=event_s,
+         kernel_event_ms_a_launch=ms, kernels_event_s=kernels_s,
+         kernels_event_share_of_wall=kernels_s / wall,
+         # the wall outside the chunk's one wait on the device (the fetch)
+         host_share_of_wall=1.0 - split["fetch"] / wall,
+         samples=n_samples, symbols=n_syms, bits=n_bits,
+         symbol_slots_a_launch=slots,
+         # gardner_manchester_scan's next-sample chain is
+         # gardner_manchester_serial's, 17 counted operations a slot
+         # (computed, not measured)
+         gardner_manchester_scan_chain_bound_ms=chain_bound_ms(
+             slots, GM_SLOT_CHAIN_OPS),
+         framer_bits_per_s=n_bits / split["framer"] if split["framer"]
+         else None,
+         progress_line=progress, stdout_tail=so.getvalue()[-200:],
+         card=card_line(), **check)
+    return counts
+
+
 # operations a step of each ablation variant, counted from
 # csrc/ablate_kernel.cu and csrc/ablate_fused.cu (sinf/cosf one each;
 # register shifts free): ablate_kernel per variant, ablate_fused per stage
@@ -1516,10 +1963,9 @@ def main() -> int:
     phase_kernel()
     phase_tgen_small(stats)
     phase_new_kernels(stats["poes"])
+    phase_exact_kernels(stats["poes"])
     phase_argos_kernels(stats["argos"])
-    ablation_launches = phase_ablation(stats["poes"])
-    phase_slice("poes")
-    phase_slice("argos")
+    phase_exact_small()
     launches = {"poes": collections.Counter(), "argos": collections.Counter()}
     staged = {}
     walls = {}
@@ -1529,6 +1975,9 @@ def main() -> int:
             out, walls[mode_name], counts, lines = phase_cli_path(
                 mode_name, workdir, wav, want, lead_in)
             launches[mode_name].update(counts)
+            if mode_name == "poes":
+                launches[mode_name].update(phase_exact_cli(
+                    workdir, wav, want, lead_in, lines, stats["poes"]))
             for br in ("front", False):
                 launches[mode_name].update(phase_branch_path(
                     mode_name, wav, br, want, lead_in, lines))
@@ -1537,7 +1986,11 @@ def main() -> int:
             if mode_name == "poes":
                 phase_plane_lines(mode_name, staged[mode_name], t_ext, out,
                                   workdir)
+                phase_exact_fallback(staged[mode_name], stats["poes"])
             os.remove(wav)
+    ablation_launches = phase_ablation(stats["poes"])
+    phase_slice("poes")
+    phase_slice("argos")
     for mode_name in ("poes", "argos"):
         st = stats[mode_name]
         phase_fused_at_main_shape(mode_name, staged[mode_name],

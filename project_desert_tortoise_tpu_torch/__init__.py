@@ -1,10 +1,13 @@
 """Project Desert Tortoise, PyTorch/CUDA port.
 
-The block-parallel POES demodulator of ``project_desert_tortoise_tpu`` (the
-JAX reference, which stays in the repository unchanged) rebuilt on PyTorch,
-with the chain's per-lane recurrences as hand-written CUDA kernels for
-Hopper (``csrc/``): the fused chain, the front half (PLL + FIR + AGC), the
-PLL, the AGC and Gardner timing with the Manchester decision.  Module paths
+The block-parallel POES and ARGOS demodulator and the exact chunked chain
+(``DemodSession``, the CLIs without ``--fast``, float32 modes) of
+``project_desert_tortoise_tpu`` (the JAX reference, which stays in the
+repository unchanged) rebuilt on PyTorch, with the chain's per-lane
+recurrences as hand-written CUDA kernels for Hopper (``csrc/``): the fused
+chain, the front half (PLL + FIR + AGC), the PLL, the AGC and Gardner
+timing with the Manchester decision, windowed and over whole buffer
+images.  Module paths
 and names follow the JAX package so each counterpart is easy to find; this
 package imports torch and numpy, never jax and nothing of the JAX package
 (it keeps its own copies of the jax-free modules it needs).

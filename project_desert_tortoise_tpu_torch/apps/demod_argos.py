@@ -6,9 +6,12 @@ Twin of ``project_desert_tortoise_tpu/apps/demod_argos.py`` (the reference
 reference accepts WAV input only; RAW input (with ``-s``) is accepted with
 a notice.  The time axis loads in float64 (the mode's dtype) and the fast
 path casts it to float32.  ``--mode argos_realtime`` decodes the realtime
-variant (float32, inverse sync).
+variant (float32, inverse sync), also on the exact chunked chain (no
+``--fast``); the float64 ``argos`` mode's exact chain is not ported yet.
 
     python -m project_desert_tortoise_tpu_torch.apps.demod_argos X.wav --fast
+    python -m project_desert_tortoise_tpu_torch.apps.demod_argos X.wav \
+        --mode argos_realtime
 """
 from project_desert_tortoise_tpu_torch.apps.demod_poes import run
 

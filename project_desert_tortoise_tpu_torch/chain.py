@@ -1,15 +1,27 @@
-"""Chain parameters of the block-parallel fast path.
+"""The demodulation chain: parameters, explicit state and one chunk step.
 
-``ChainParams`` has the fields of the JAX package's record
-(``project_desert_tortoise_tpu/chain.py:36-99``) so the two compare field by
-field; ``make_params`` builds the fast path's parameters (``quirks=False``),
-and ``from_jax`` converts the JAX package's parameters and stream states,
-the "weights" of this system, into the port's.  The exact chunked chain
-(``chunk_step``) is not part of this package yet.
+Twin of ``project_desert_tortoise_tpu/chain.py``.  ``ChainParams`` has the
+fields of the JAX package's record so the two compare field by field, and
+``from_jax`` converts the JAX package's parameters, chain states and
+stream states, the "weights" of this system, into the port's.
+
+The exact chunked chain is the reference's ``while(!feof)`` driver loop
+(``POESTIPdemod/main.c:373-492``): every C static local becomes a field of
+`ChainState`, and one call to :func:`chunk_step` advances a chunk through
+
+    PLL -> [squelch] -> FIR(1:N interp) -> AGC -> Gardner -> Manchester
+
+on the card: the PLL, AGC and Gardner/Manchester kernels at one lane per
+stream, the FIR a convolution.  With ``quirks=True`` it keeps the
+reference's buffer-image semantics (see ops/clock.py); with
+``quirks=False`` it is chunk-size invariant.  The float32 modes with the
+``"gardner"`` clock are ported; the float64 ``argos`` mode and the other
+clock algorithms are not yet.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -20,6 +32,7 @@ from project_desert_tortoise_tpu_torch.ops import clock as clock_ops
 from project_desert_tortoise_tpu_torch.ops import fir as fir_ops
 from project_desert_tortoise_tpu_torch.ops import manchester as man_ops
 from project_desert_tortoise_tpu_torch.ops import pll as pll_ops
+from project_desert_tortoise_tpu_torch.ops.kernels import pll_kernel
 
 
 class ChainParams(NamedTuple):
@@ -43,9 +56,25 @@ class ChainParams(NamedTuple):
     quirks: bool
 
 
-def make_params(mode_cfg, fs: float) -> ChainParams:
-    """Fast-path parameters of `mode_cfg` at sample rate `fs` (the JAX
-    ``make_params(mode_cfg, fs, quirks=False)``)."""
+class ChainState(NamedTuple):
+    pll: pll_ops.PLLState
+    fir_hist: torch.Tensor
+    agc: agc_ops.AGCState
+    gardner: clock_ops.GardnerState
+    manchester: man_ops.ManchesterState
+    x_img: torch.Tensor         # persistent interp-domain buffer image
+    t_img: torch.Tensor
+
+
+def make_params(mode_cfg, fs: float, quirks: bool = False) -> ChainParams:
+    """Parameters of `mode_cfg` at sample rate `fs`.  ``quirks`` selects
+    the exact chain's C buffer-image semantics; the fast path runs with
+    the default, False.  (JAX's default is True, its exact chain's.)"""
+    if mode_cfg.gardner.algorithm.startswith("upsampling") and quirks:
+        raise ValueError(
+            "the MATLAB upsampling clock-recovery variants are whole-"
+            "stream formulations with no C chunk-quirk counterpart; use "
+            "quirks=False (the chunk-invariant mode)")
     dtype = mode_cfg.np_dtype()
     interp = mode_cfg.fir.interp_factor(fs)
     order = mode_cfg.fir.order(fs)
@@ -72,19 +101,180 @@ def make_params(mode_cfg, fs: float) -> ChainParams:
         upsample_level=mode_cfg.gardner.upsample_level,
         upsample_kind=mode_cfg.gardner.upsample_kind,
         resync_threshold=mode_cfg.manchester.resync_threshold,
-        quirks=False,
+        quirks=quirks,
     )
 
 
+TAIL_MARGIN = 16  # carried interp-domain samples for chunk-invariant mode
+
+
+def max_symbols(cap_interp: int, step_size: float) -> int:
+    return int(cap_interp / step_size * 1.05) + 8
+
+
+def _check_ported(params: ChainParams) -> None:
+    if params.clock_algorithm != "gardner":
+        raise ValueError(f"clock algorithm {params.clock_algorithm!r}: not "
+                         "ported yet (the exact chain runs \"gardner\")")
+
+
+def init_state(params: ChainParams, initial_gain: float, chunk_cap: int,
+               batch_shape=(), *, device) -> ChainState:
+    """The stream state at its start, float32 on `device`."""
+    _check_ported(params)
+    n_taps = len(params.taps)
+    hist_len = -(-(n_taps - 1) // params.interp)
+    cap_i = chunk_cap * params.interp
+    zeros = lambda n: torch.zeros(tuple(batch_shape) + (n,),
+                                  dtype=torch.float32, device=device)
+    return ChainState(
+        pll=pll_ops.init_state(params.pll, batch_shape, device=device),
+        fir_hist=zeros(hist_len),
+        agc=agc_ops.agc_init(initial_gain, batch_shape, device=device),
+        gardner=clock_ops.gardner_init(batch_shape, device=device),
+        manchester=man_ops.manchester_init(batch_shape, device=device),
+        x_img=zeros(cap_i),
+        t_img=zeros(cap_i),
+    )
+
+
+class ChunkOutput(NamedTuple):
+    bits: torch.Tensor          # (..., max_syms) uint8
+    bit_times: torch.Tensor     # (..., max_syms)
+    bit_mask: torch.Tensor      # (..., max_syms) bool
+    sym_count: torch.Tensor
+    locksig: torch.Tensor       # (..., n) lock-detector stream
+    avg_phase: torch.Tensor     # per-chunk-end quality EWMA
+    agc_stream: torch.Tensor    # (..., n*interp) post-AGC soft stream (-r tap)
+    syms: torch.Tensor          # (..., max_syms) recovered soft symbols
+    sym_valid: torch.Tensor     # (..., max_syms) validity mask
+
+
+@functools.lru_cache(maxsize=16)
+def _device_taps(taps: tuple, device: torch.device) -> torch.Tensor:
+    """The FIR taps as a float32 tensor on `device`, copied there once: a
+    copy a chunk would wait for the kernels queued before it."""
+    return torch.tensor(taps, dtype=torch.float32, device=device)
+
+
+def chunk_step(params: ChainParams, state: ChainState, iq_re, iq_im, t,
+               t_next):
+    """Advance one chunk (JAX ``chunk_step``, ``chain.py:163-303``).
+
+    iq_re/iq_im/t/t_next: (..., n) float32 on the state's device, n <= the
+    state's chunk capacity; t_next[i] = time of input sample i+1.  The
+    leading axes are streams, one kernel lane each.  Returns (state,
+    ChunkOutput)."""
+    _check_ported(params)
+    lead = tuple(iq_re.shape[:-1])
+    n = iq_re.shape[-1]
+    interp = params.interp
+    cap_i = state.x_img.shape[-1]
+    rows = lambda a: a.reshape(-1, a.shape[-1])
+    lanes = lambda s: s.reshape(-1)
+    back = lambda a: a.reshape(lead + tuple(a.shape[1:]))
+
+    pll_state, soft, locksig = pll_kernel.pll_scan_kernel(
+        params.pll, pll_ops.PLLState(*map(lanes, state.pll)),
+        (rows(iq_re), rows(iq_im)))
+    if params.squelch_position == "after_pll":
+        soft = agc_ops.squelch(soft, locksig, params.squelch_threshold)
+
+    fir_hist = rows(state.fir_hist)
+    y = fir_ops.fir_interp(soft, _device_taps(params.taps, soft.device),
+                           interp, fir_hist)
+    fir_hist = fir_ops.fir_history_update(soft, fir_hist, len(params.taps),
+                                          interp)
+    # LowPassFilterInterp emits t[i+1] per output group (LowPassFilter.c:68);
+    # the plain LowPassFilter (interp == 1 modes) leaves the time axis alone
+    t_out = (fir_ops.fir_out_times(rows(t_next), interp) if interp > 1
+             else rows(t))
+
+    agc_state, y = agc_ops.agc_scan(agc_ops.AGCState(lanes(state.agc.gain)),
+                                    y, params.agc_attack, params.agc_decay)
+    if params.squelch_position == "after_agc":
+        if interp != 1:
+            raise ValueError("after_agc squelch requires interp == 1")
+        y = agc_ops.squelch(y, locksig, params.squelch_threshold)
+
+    n_i = n * interp
+    g_in = clock_ops.GardnerState(*map(lanes, state.gardner))
+    m_in = man_ops.ManchesterState(*map(lanes, state.manchester))
+    msyms = max_symbols(cap_i, params.step_size)
+    if params.quirks:
+        # persistent buffer images (C heap semantics; see ops/clock.py): the
+        # carried mid-bit pointer is NOT rolled over and reads the new
+        # chunk's buffer image at its stale absolute index
+        x_img = torch.cat([y, rows(state.x_img)[:, n_i:]], dim=-1)
+        t_img = torch.cat([t_out, rows(state.t_img)[:, n_i:]], dim=-1)
+        n_scan = n_i
+    else:
+        # chunk-size-invariant streaming: carry a small tail of the previous
+        # chunk so the pending mid-bit read resolves to the true stream
+        # sample (fixing the reference's chunk-boundary bug,
+        # changelog.txt:9,107).  Work in margin-offset coordinates.
+        m = TAIL_MARGIN
+        x_img = torch.cat([rows(state.x_img)[:, -m:], y], dim=-1)
+        t_img = torch.cat([rows(state.t_img)[:, -m:], t_out], dim=-1)
+        g_in = g_in._replace(next_sample=g_in.next_sample + m,
+                             half_raw=g_in.half_raw + m)
+        n_scan = m + n_i
+    (gardner_state, man_state, syms, sym_times, sym_valid, sym_count, bits,
+     bit_times, bit_mask) = clock_ops.gardner_manchester_scan(
+        g_in, m_in, x_img, t_img, n_scan, params.step_size,
+        params.gardner_err_limit, params.gardner_gain,
+        params.resync_threshold, msyms)
+    if not params.quirks:
+        # the scan subtracted (m + n_i) from next_sample; bring half_raw
+        # into the same next-chunk-relative coordinates
+        gardner_state = gardner_state._replace(
+            half_raw=gardner_state.half_raw - n_scan)
+
+    if params.quirks and not lead:
+        # Gardner/Manchester write their outputs over the head of the shared
+        # time buffer in C; replicate so a shorter final chunk sees the same
+        # stale tail the reference would.
+        pos = torch.arange(cap_i, device=t_img.device)
+        pad = lambda v: torch.nn.functional.pad(v, (0, cap_i - msyms))
+        t_img = torch.where(pos < sym_count[:, None], pad(sym_times), t_img)
+        bt_packed, _, nbits = man_ops.compress_stream(
+            bit_times, bit_times, bit_mask, msyms)
+        t_img = torch.where(pos < nbits[:, None], pad(bt_packed), t_img)
+
+    new_state = ChainState(
+        pll=pll_ops.PLLState(*map(back, pll_state)), fir_hist=back(fir_hist),
+        agc=agc_ops.AGCState(back(agc_state.gain)),
+        gardner=clock_ops.GardnerState(*map(back, gardner_state)),
+        manchester=man_ops.ManchesterState(*map(back, man_state)),
+        x_img=back(x_img), t_img=back(t_img))
+    out = ChunkOutput(bits=back(bits), bit_times=back(bit_times),
+                      bit_mask=back(bit_mask), sym_count=back(sym_count),
+                      locksig=back(locksig),
+                      avg_phase=back(pll_state.avg_phase),
+                      agc_stream=back(y), syms=back(syms),
+                      sym_valid=back(sym_valid))
+    return new_state, out
+
+
 def from_jax(obj, device="cpu"):
-    """Convert a JAX ``ChainParams`` or a JAX stream state (``PLLState``,
-    ``AGCState``, ``GardnerState``, ``ManchesterState``) into the port's.
+    """Convert a JAX ``ChainParams``, ``ChainState`` or stream state
+    (``PLLState``, ``AGCState``, ``GardnerState``, ``ManchesterState``) into
+    the port's.
 
     Parameters are python floats and a taps tuple on both sides and carry
     over field by field; a state's arrays become tensors on `device`:
     float32, ``locked`` bool, the Manchester ``clockmod``/``evenodd``
-    int32.  Works by field names, so jax need not be importable here.
+    int32; a chain state's stream states convert so, and its FIR history
+    and buffer images become float32 tensors.  Works by field names, so jax
+    need not be importable here.
     """
+    if getattr(obj, "_fields", None) == ChainState._fields:
+        arr = lambda v: torch.tensor(np.asarray(v, np.float32), device=device)
+        return ChainState(
+            pll=from_jax(obj.pll, device), fir_hist=arr(obj.fir_hist),
+            agc=from_jax(obj.agc, device), gardner=from_jax(obj.gardner, device),
+            manchester=from_jax(obj.manchester, device),
+            x_img=arr(obj.x_img), t_img=arr(obj.t_img))
     if hasattr(obj, "taps"):
         fields = obj._asdict()
         fields["pll"] = pll_ops.PLLParams(**obj.pll._asdict())

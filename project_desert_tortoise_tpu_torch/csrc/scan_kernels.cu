@@ -1,12 +1,17 @@
-// The two per-lane recurrences of the scan branch of the block-parallel
-// path on Hopper (sm_90a):
+// The per-lane recurrences of the scan branch of the block-parallel path
+// and of the exact chunked chain on Hopper (sm_90a):
 //
 //  - agc_scan: the attack/decay AGC, replacing the XLA scan
 //    project_desert_tortoise_tpu/ops/agc.py::agc_scan (step :76-83);
 //  - gardner_manchester: Gardner timing recovery and the Manchester
 //    decision over windows of the interpolated stream, replacing the XLA
 //    scan project_desert_tortoise_tpu/ops/clock.py::
-//    gardner_manchester_windowed (:151-263), slot for slot.
+//    gardner_manchester_windowed (:151-263), slot for slot;
+//  - gardner_scan: Gardner timing recovery and the Manchester decision over
+//    a whole buffer image, replacing the XLA scans ops/clock.py::
+//    gardner_scan (:58-108) and ops/manchester.py::manchester_scan
+//    (:34-74), the exact chain's (chain.py:200, :281) and the unwindowed
+//    fallback of the block-parallel path (parallel/blocked.py:315-319).
 //
 // What bounds them: the AGC reads and writes 4 bytes per sample and does
 // ~10 dependent operations on them, so at the real size (352 lanes) it is
@@ -44,6 +49,12 @@
 // reading device memory at each slot, is its card-side oracle and timing
 // baseline; no path calls it.  Integer Manchester state stays int, as in
 // JAX.
+//
+// pdt_gardner_scan: one thread a lane, the image read from device memory
+// at each slot (the exact chain runs one lane, whose ~30,000-float image
+// stays in L2), every slot written: the soft symbol, its time, the active
+// flag, the bit and its emit flag.  A first design: the chain waits on a
+// device-memory read a slot.
 //
 // Numerics as in pdt_common.cuh.
 
@@ -440,6 +451,58 @@ gardner_manchester_serial_kernel(const float* __restrict__ x,
   g.store(st_f_out, st_i_out, B, b, n);
 }
 
+// The exact chain's Gardner + Manchester scan: one thread a lane over
+// lane-major (B, cap) buffer images, max_syms slots, as the XLA scans
+// clock.py::gardner_scan (:58-108) then manchester.py::manchester_scan
+// (:34-74) compute them.  The on-time read is clamped to [0, cap - 1]; the
+// mid-bit read is 0 outside [0, cap), so a stale pointer that the quirks
+// chain carries over (clock.py:11-17) reads the image at its absolute
+// index, anywhere in it.  Each slot's on-time value is its soft symbol and
+// its time the bit's time; inactive slots freeze the state.
+__global__ void __launch_bounds__(kThreads)
+gardner_scan_kernel(const float* __restrict__ x, const float* __restrict__ t,
+                    const int* __restrict__ n_valid,
+                    const float* __restrict__ st_f_in,
+                    const int* __restrict__ st_i_in, float* __restrict__ syms,
+                    float* __restrict__ times, uint8_t* __restrict__ valid,
+                    uint8_t* __restrict__ bits, uint8_t* __restrict__ emit,
+                    float* __restrict__ st_f_out, int* __restrict__ st_i_out,
+                    int* __restrict__ count, int B, int cap, int max_syms,
+                    const GardnerParams p) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  SlotState g;
+  g.load(st_f_in, st_i_in, B, b);
+  const GardnerConsts c(p);
+  const int n = n_valid[b];
+  const float nf = static_cast<float>(n);
+  const float capf = static_cast<float>(cap);
+  const float* xr = x + static_cast<size_t>(b) * cap;
+  const float* tr = t + static_cast<size_t>(b) * cap;
+  const size_t row = static_cast<size_t>(b) * max_syms;
+  int active_slots = 0;
+  for (int s = 0; s < max_syms; ++s) {
+    const float idxf = rintf(g.ns);
+    const bool active = idxf < nf;                      // clock.py:78
+    const int ii = min(max(__float2int_rz(idxf), 0), cap - 1);
+    const float cur = xr[ii];
+    const float hidxf = rintf(g.half_raw);
+    const bool in_img = hidxf >= 0.0f && hidxf < capf;  // clock.py:83
+    const float hval =
+        in_img ? xr[min(max(__float2int_rz(hidxf), 0), cap - 1)] : 0.0f;
+    const int be = gardner_slot(g, cur, hval, active, c);
+    const size_t o = row + s;
+    syms[o] = cur;
+    times[o] = tr[ii];
+    valid[o] = active ? 1 : 0;
+    bits[o] = static_cast<uint8_t>(be & 1);
+    emit[o] = static_cast<uint8_t>(be >> 1);
+    active_slots += active ? 1 : 0;
+  }
+  g.store(st_f_out, st_i_out, B, b, n);
+  count[b] = active_slots;
+}
+
 bool bad_layout(int window, int margin, int spw) {
   return window <= 0 || margin < 0 || spw <= 0;
 }
@@ -611,5 +674,32 @@ extern "C" int pdt_gardner_manchester_serial(
                                      static_cast<cudaStream_t>(stream)>>>(
       x, t, n_valid, st_f_in, st_i_in, bits, btimes, emit, st_f_out,
       st_i_out, B, n_win, window, margin, spw, gardner_params(params));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The exact chain's Gardner + Manchester scan over lane-major float32
+// buffer images x, t (B, cap), n_valid (B,) int32 valid lengths, state as
+// st_f/st_i rows (SlotState).  Writes syms, times (B, max_syms) float32,
+// valid, bits, emit (B, max_syms) uint8, the final state (next_sample
+// rolled over by n_valid) and count (B,) int32, the active slots.  params:
+// step_size, err_limit, kp, resync_threshold.  Returns the cudaError_t of
+// the launch.
+extern "C" int pdt_gardner_scan(const float* x, const float* t,
+                                const int* n_valid, const float* st_f_in,
+                                const int* st_i_in, float* syms,
+                                float* times, uint8_t* valid, uint8_t* bits,
+                                uint8_t* emit, float* st_f_out, int* st_i_out,
+                                int* count, int B, int cap, int max_syms,
+                                const float* params, int n_params,
+                                void* stream) {
+  if (n_params != static_cast<int>(sizeof(GardnerParams) / sizeof(float)) ||
+      B <= 0 || cap <= 0 || max_syms <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  gardner_scan_kernel<<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
+      st_f_out, st_i_out, count, B, cap, max_syms, gardner_params(params));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,21 @@
 """Symbol timing: the Gardner step size, and Gardner timing with the
-Manchester decision over windows of the interpolated stream.
+Manchester decision over the interpolated stream, windowed or whole.
 
 Twins of ``project_desert_tortoise_tpu/ops/clock.py``: ``gardner_step_size``,
-``GardnerState``, ``gardner_init`` and ``gardner_manchester_windowed``
-(``clock.py:34-42, 151-263``).  The windowed recurrence runs in the kernel
-``ops/kernels/scan_kernels.py::gardner_manchester`` on the card; on the
-fused path it runs inside the fused kernel instead.
+``GardnerState``, ``gardner_init``, ``gardner_manchester_windowed``
+(``clock.py:34-42, 151-263``) and ``gardner_scan`` (``clock.py:58-108``)
+followed by ``ops/manchester.py::manchester_scan``, which are one function
+here, :func:`gardner_manchester_scan`, as one kernel computes both.  The
+windowed recurrence runs in the kernel
+``ops/kernels/scan_kernels.py::gardner_manchester`` on the card, the whole
+one in ``scan_kernels.py::gardner_manchester_scan``; on the fused path it
+runs inside the fused kernel instead.
+
+Reference quirks kept from the JAX scan: the fractional pointer rolls over
+between chunks without the pending mid-bit pointer
+(``GardenerClockRecovery.c:111``), so the exact chain's first mid-bit read
+of a chunk lands at a stale index of the buffer image, and reads outside
+the image yield 0.0; ``rint`` rounds half to even.
 """
 
 from __future__ import annotations
@@ -37,6 +47,13 @@ def gardner_step_size(fs: float, baud: float, dtype=np.float32) -> float:
     return float(np.dtype(dtype).type(np.float64(fs) / np.float64(baud)))
 
 
+def _state_rows(g_state: GardnerState, m_state: man_ops.ManchesterState):
+    f32, i32 = torch.float32, torch.int32
+    return (tuple(s.to(f32) for s in (*g_state, m_state.cur, m_state.prev,
+                                      m_state.prevprev)),
+            (m_state.clockmod.to(i32), m_state.evenodd.to(i32)))
+
+
 def gardner_manchester_windowed(g_state: GardnerState,
                                 m_state: man_ops.ManchesterState, x, t, n,
                                 step_size: float, err_limit: float,
@@ -58,10 +75,7 @@ def gardner_manchester_windowed(g_state: GardnerState,
     lay = scan_kernels.layout(cap, window, step_size, err_limit, margin)
     n = torch.as_tensor(n, dtype=torch.int32, device=x.device).expand(B)
     p = scan_kernels.GardnerParams(step_size, err_limit, kp, resync_threshold)
-    f32, i32 = torch.float32, torch.int32
-    fstate = tuple(s.to(f32) for s in (*g_state, m_state.cur, m_state.prev,
-                                       m_state.prevprev))
-    istate = (m_state.clockmod.to(i32), m_state.evenodd.to(i32))
+    fstate, istate = _state_rows(g_state, m_state)
     (ns, half_raw, prev_bit, cur, prev, prevprev), (clockmod, evenodd), \
         bits, btimes, emit = scan_kernels.gardner_manchester(
             fstate, istate, x, t, n.contiguous(), p, lay)
@@ -69,3 +83,32 @@ def gardner_manchester_windowed(g_state: GardnerState,
             man_ops.ManchesterState(clockmod=clockmod, evenodd=evenodd,
                                     cur=cur, prev=prev, prevprev=prevprev),
             bits, btimes, emit)
+
+
+def gardner_manchester_scan(g_state: GardnerState,
+                            m_state: man_ops.ManchesterState, x, t, n,
+                            step_size: float, err_limit: float, kp: float,
+                            resync_threshold: float, max_syms: int):
+    """Gardner timing over `max_syms` slots of (B, cap) buffer images `x`,
+    `t`, then the Manchester decision on the recovered symbols: JAX's
+    ``gardner_scan`` followed by ``manchester_scan``.
+
+    n: valid length, an int or (B,).  Returns (g_state, m_state, syms,
+    sym_times, sym_valid, sym_count, bits uint8, bit_times, emit_mask),
+    the planes (B, max_syms); the bit times are the symbol times, as in
+    JAX.  CUDA tensors launch the kernel, CPU tensors run its plain
+    version."""
+    B = x.shape[0]
+    if isinstance(n, int):      # filled on the device: no host copy, no sync
+        n = torch.full((B,), n, dtype=torch.int32, device=x.device)
+    n = n.to(torch.int32).expand(B)
+    fstate, istate = _state_rows(g_state, m_state)
+    p = scan_kernels.GardnerParams(step_size, err_limit, kp, resync_threshold)
+    (ns, half_raw, prev_bit, cur, prev, prevprev), (clockmod, evenodd), \
+        syms, times, valid, bits, emit, count = \
+        scan_kernels.gardner_manchester_scan(fstate, istate, x, t,
+                                             n.contiguous(), p, max_syms)
+    return (GardnerState(ns, half_raw, prev_bit),
+            man_ops.ManchesterState(clockmod=clockmod, evenodd=evenodd,
+                                    cur=cur, prev=prev, prevprev=prevprev),
+            syms, times, valid, count, bits, times, emit)

@@ -2,8 +2,8 @@
 reference, the zero-stuffing interpolator and its output time axis.
 
 Twins of ``project_desert_tortoise_tpu/ops/fir.py``: ``make_lpfir``
-(``common/LowPassFilter.c:127-175``), ``fir_interp`` and ``fir_out_times``
-(``fir.py:59-111``).  ``fir_interp`` is one plain convolution over the
+(``common/LowPassFilter.c:127-175``), ``fir_interp``, ``fir_apply``,
+``fir_history_update`` and ``fir_out_times`` (``fir.py:59-111``).  ``fir_interp`` is one plain convolution over the
 block, as XLA computes it in the JAX package (a conv with
 ``lhs_dilation``); the chain kernels apply the same filter in polyphase
 form instead (``ops/kernels/chain_kernel.py::polyphase``).
@@ -39,7 +39,10 @@ def make_lpfir(order: int, cutoff_hz: float, fs_hz: float, interp: int,
 def fir_interp(x, taps, interp: int, history=None):
     """Zero-stuffing 1:interp upsampler + FIR over one block.
 
-    x: (..., n) real float32 (or float64) block; history: (..., H) previous real samples
+    x: (..., n) real float32 (or float64) block; taps: float32 values, or a
+    float32 tensor (the exact chain passes one already on the device: a
+    copy from the host would wait for the work queued before it);
+    history: (..., H) previous real samples
     with H = ceil((N-1)/interp), or None for stream start (zeros).  Returns
     y of shape (..., n*interp): the JAX convolution's output, with its
     padding (the stuffed history's excess trimmed on the left, `interp - 1`
@@ -49,8 +52,9 @@ def fir_interp(x, taps, interp: int, history=None):
     XLA's.
     """
     # float32 taps, in x's type (a float64 x gives the exact-sum reference)
-    taps = torch.as_tensor(np.asarray(taps, np.float32),
-                           device=x.device).to(x.dtype)
+    if not isinstance(taps, torch.Tensor):
+        taps = torch.as_tensor(np.asarray(taps, np.float32))
+    taps = taps.to(device=x.device, dtype=x.dtype)
     n_taps = taps.shape[0]
     hist_len = -(-(n_taps - 1) // interp)  # ceil
     lead = tuple(x.shape[:-1])
@@ -70,6 +74,17 @@ def fir_interp(x, taps, interp: int, history=None):
         y = torch.nn.functional.conv1d(s[..., excess:],
                                        taps.reshape(1, 1, n_taps))
     return y.reshape(lead + (-1,))
+
+
+def fir_apply(x, taps, history=None):
+    """Plain streaming FIR (interp == 1), reference ``LowPassFilter.c:76``."""
+    return fir_interp(x, taps, 1, history)
+
+
+def fir_history_update(x, history, n_taps: int, interp: int):
+    """The trailing history window after consuming block `x`."""
+    hist_len = -(-(n_taps - 1) // interp)
+    return torch.cat([history, x], dim=-1)[..., -hist_len:]
 
 
 def fir_out_times(t_next, interp: int):

@@ -1,20 +1,24 @@
-"""Data-parallel sync-word framing and core-interval stitching.
+"""Sync-word framers and core-interval stitching.
 
-Twins of ``project_desert_tortoise_tpu/ops/framer.py`` (``Frame``,
-``FrameBatch``, ``frame_extract``, ``stitch_frames`` and the two
-correlations, ``framer.py:28-50, 120-290``; reference per-app
-``ByteSync.c``): match all sync positions of a bit block at once, greedily
-suppress syncs inside a frame being shifted, pre-pack byte values with two
-small correlations and gather one value per output byte; then keep the
-frames whose sync time falls inside their block's core interval and sort
-them into stream order.  The streaming framer (``StreamFramer``) belongs to
-the exact chain and is not ported yet.
+Twins of ``project_desert_tortoise_tpu/ops/framer.py`` (reference per-app
+``ByteSync.c``):
+
+- ``Frame`` and ``StreamFramer`` (``framer.py:28-117``), line for line:
+  the exact streaming framer of the exact chain, host-side numpy, one bit
+  at a time (``POESTIPdemod/ByteSync.c:16``, ``ARGOSdemod/ByteSync.c:17``).
+- ``FrameBatch``, ``frame_extract``, ``stitch_frames`` and the two
+  correlations (``framer.py:120-290``): the fast path's data-parallel
+  framer.  Match all sync positions of a bit block at once, greedily
+  suppress syncs inside a frame being shifted, pre-pack byte values with
+  two small correlations and gather one value per output byte; then keep
+  the frames whose sync time falls inside their block's core interval and
+  sort them into stream order.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,11 +27,94 @@ import torch.nn.functional as F
 
 @dataclasses.dataclass
 class Frame:
-    """A complete frame of the fast path (the streaming framer's partial
-    frames and quality annotations come with the exact chain)."""
     time: float
     inverted: bool
     data: np.ndarray          # uint8 payload including prefix bytes
+    complete: bool = True
+    quality_db: float = None  # PLL quality at emission (optional annotation)
+    snr_db: float = None      # M2M4 SNR at emission (closes README.md:42 TODO)
+    carrier_hz: float = None  # PLL carrier offset at emission (Doppler track)
+
+    def hex_line(self, time_decimals: int = 5,
+                 with_quality: bool = False, inverted_mark: bool = True) -> str:
+        ts = f"{self.time:.{time_decimals}f}"
+        if self.inverted and inverted_mark:
+            ts += "i"
+        body = " ".join(f"{b:02X}" for b in self.data)
+        line = f"{ts} {body}"
+        if with_quality and self.quality_db is not None:
+            line += f" | q={self.quality_db:.1f}dB snr={self.snr_db:.1f}dB"
+            if self.carrier_hz is not None:
+                line += f" f={self.carrier_hz:+.1f}Hz"
+        return line
+
+
+class StreamFramer:
+    """Exact streaming framer; one instance per channel."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.sync = cfg.sync_bits()          # uint8 0/1
+        self.n_sync = len(self.sync)
+        self.history = np.zeros(self.n_sync, np.uint8)  # memset '0' equivalent
+        self.shifting = False
+        self.inverted = False
+        self.bit_idx = 0
+        self.byte = 0
+        self.frame: List[int] = []
+        self.frame_time = 0.0
+        self.frames: List[Frame] = []
+
+    def process(self, bits: np.ndarray, times: np.ndarray) -> List[Frame]:
+        """Consume a chunk of bits (uint8 0/1) with per-bit times; returns
+        frames completed or started during this chunk (completed ones only)."""
+        cfg = self.cfg
+        done_before = len(self.frames)
+        for i in range(len(bits)):
+            b = int(bits[i])
+            if self.shifting:
+                eff = (1 - b) if self.inverted else b
+                self.byte = ((self.byte << 1) | eff) & 0xFF
+                self.bit_idx += 1
+                if self.bit_idx > 7:
+                    self.frame.append(self.byte)
+                    self.byte = 0
+                    self.bit_idx = 0
+                    if len(self.frame) >= cfg.frame_bytes - cfg.data_start_byte + len(cfg.prefix_bytes):
+                        self._finish(complete=True)
+
+            self.history = np.roll(self.history, -1)
+            self.history[-1] = b
+
+            if not self.shifting:
+                if np.array_equal(self.history, self.sync):
+                    self._start(float(times[i]), inverted=False)
+                elif cfg.detect_inverted and np.array_equal(self.history, 1 - self.sync):
+                    self._start(float(times[i]), inverted=True)
+        return self.frames[done_before:]
+
+    def _start(self, t: float, inverted: bool):
+        cfg = self.cfg
+        self.shifting = True
+        self.inverted = inverted
+        self.frame_time = t
+        self.frame = list(cfg.prefix_bytes)
+        self.byte = 0
+        self.bit_idx = cfg.first_bit_index
+
+    def _finish(self, complete: bool):
+        self.frames.append(Frame(self.frame_time, self.inverted,
+                                 np.array(self.frame, np.uint8), complete))
+        self.shifting = False
+        self.frame = []
+
+    def flush(self) -> Optional[Frame]:
+        """At end of stream: surface a partial frame, if any (the reference
+        leaves it as an unterminated output line)."""
+        if self.shifting and self.frame:
+            self._finish(complete=False)
+            return self.frames[-1]
+        return None
 
 
 class FrameBatch(NamedTuple):

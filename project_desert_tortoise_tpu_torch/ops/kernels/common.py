@@ -24,6 +24,16 @@ def check(name, t, shape, dtypes, device):
                          f"expected {shape}")
 
 
+def resolve_device(device) -> torch.device:
+    """The torch device an entry point was asked for; raises if it is a
+    CUDA device and no card is there (no quiet switch to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           "available")
+    return dev
+
+
 def on_card(name: str, device) -> bool:
     """True where `name` launches its kernel (a CUDA device), False where it
     runs its plain version (the CPU); raises for any other device."""
@@ -39,14 +49,28 @@ def state_rows(pll_state, *extra):
                         *extra]).contiguous()
 
 
+# While a dict is set here, launch() records a pair of CUDA events on the
+# stream around each launch, appended to the list under its entry point's
+# name (chip_smoke.py times a whole run's kernels so); None records nothing.
+launch_events = None
+
+
 def launch(device, name: str, *args) -> None:
     """Call the library entry point `name` with `args` and the current
     stream of `device` (a CUDA device) as its last argument; raises if the
     launch reports a CUDA error."""
     from project_desert_tortoise_tpu_torch.ops.kernels import build
+    events = launch_events
     with torch.cuda.device(device):
-        rc = getattr(build.load(), name)(
-            *args, torch.cuda.current_stream(device).cuda_stream)
+        stream = torch.cuda.current_stream(device)
+        if events is not None:
+            pair = tuple(torch.cuda.Event(enable_timing=True)
+                         for _ in range(2))
+            pair[0].record(stream)
+        rc = getattr(build.load(), name)(*args, stream.cuda_stream)
+        if events is not None:
+            pair[1].record(stream)
+            events.setdefault(name, []).append(pair)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 

@@ -1,23 +1,28 @@
-"""The per-lane recurrences of the scan branch: the AGC and Gardner timing
-with the Manchester decision.
+"""The per-lane recurrences of the scan branch and the exact chain: the AGC
+and Gardner timing with the Manchester decision.
 
 Counterparts of the JAX package's XLA scans ``ops/agc.py::agc_scan``
-(``agc.py:65-98``) and ``ops/clock.py::gardner_manchester_windowed``
-(``clock.py:151-263``); as per-sample torch loops they would take minutes
+(``agc.py:65-98``), ``ops/clock.py::gardner_manchester_windowed``
+(``clock.py:151-263``) and ``ops/clock.py::gardner_scan`` followed by
+``ops/manchester.py::manchester_scan`` (``clock.py:58-108``,
+``manchester.py:34-74``); as per-sample torch loops they would take minutes
 per launch at the main path's size, so each is a hand-written kernel in
 ``csrc/scan_kernels.cu``.
 
-- :func:`agc_scan` and :func:`gardner_manchester` are the entry points.  A
-  CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-  version.  ``.launches`` on each counts kernel launches.  The AGC kernel
-  is stage D of ``csrc/front_stages.cuh`` alone, one lane a CTA; the
-  Gardner kernel runs one lane a CTA too, each window staged in shared
-  memory, and reads and writes lane-major rows in place.
+- :func:`agc_scan`, :func:`gardner_manchester` and
+  :func:`gardner_manchester_scan` are the entry points.  A CUDA tensor
+  launches the kernel or raises; a CPU tensor runs the plain version.
+  ``.launches`` on each counts kernel launches.  The AGC kernel is stage D
+  of ``csrc/front_stages.cuh`` alone, one lane a CTA; the windowed Gardner
+  kernel runs one lane a CTA too, each window staged in shared memory, and
+  reads and writes lane-major rows in place; the whole-image Gardner
+  kernel of the exact chain (and of the block path's unwindowed
+  fallback) runs one thread a lane over the image in device memory.
 - :func:`agc_scan_serial` and :func:`gardner_manchester_serial` launch the
   serial kernels, one thread a lane over time-major copies: the card-side
   oracles and timing baselines of the two, on no path.
-- :func:`agc_scan_ref` and :func:`gardner_manchester_ref` are the plain
-  PyTorch versions, on any device: loops over the steps, all lanes at once,
+- :func:`agc_scan_ref`, :func:`gardner_manchester_ref` and
+  :func:`gardner_manchester_scan_ref` are the plain PyTorch versions, on any device: loops over the steps, all lanes at once,
   in the JAX scans' order of float32 operations, so on the card they agree
   with the kernels bit for bit.
 """
@@ -150,6 +155,69 @@ def layout(cap: int, window: int, step_size: float, err_limit: float,
                   spw=int(window / step_size * 1.08) + 4)
 
 
+class _SlotConsts(NamedTuple):
+    """The Gardner/Manchester constants of the plain versions as (B,) lane
+    tensors, rounded as the JAX scans round them."""
+    kp: torch.Tensor
+    err_limit: torch.Tensor
+    neg_limit: torch.Tensor
+    step: torch.Tensor
+    half_step: torch.Tensor
+    thr: torch.Tensor
+    zero: torch.Tensor
+    one_u8: torch.Tensor
+
+
+def _slot_consts(p: GardnerParams, like: torch.Tensor) -> _SlotConsts:
+    c = lambda v: lane_const(v, like)
+    return _SlotConsts(
+        kp=c(p.kp), err_limit=c(p.err_limit),
+        neg_limit=c(-np.float32(p.err_limit)), step=c(p.step_size),
+        half_step=c(np.float32(p.step_size) / np.float32(2.0)),
+        thr=c(p.resync_threshold), zero=c(0.0),
+        one_u8=torch.ones(like.shape, dtype=torch.uint8, device=like.device))
+
+
+def _plain_slot(st, cur, hval, active, k: _SlotConsts):
+    """One symbol slot of the plain versions (JAX ``clock.py:84-100`` and
+    ``manchester.py:43-70``): the timing error and update from the slot's
+    on-time value `cur` and mid-bit value `hval`, then the Manchester
+    resync and decision on this symbol.  st: (next_sample, half_raw,
+    prev_bit, Manchester cur, prev, prevprev, clockmod, evenodd); an
+    active slot advances it.  Returns (state, bit uint8, emit)."""
+    ns, half_raw, prev_bit, m_cur, m_prev, m_prevprev, clockmod, evenodd = st
+    err = torch.clamp(k.kp * (cur - prev_bit) * hval, k.neg_limit,
+                      k.err_limit)
+    ns_adj = ns - err
+    half_new = ns_adj + k.half_step
+    ns_new = ns_adj + k.step
+
+    # Manchester on this symbol (ManchesterDecode.c:27-97)
+    prevprev, prev = m_prev, m_cur
+    mismatch = evenodd != clockmod
+    strong = (torch.abs(prevprev) > k.thr) & (torch.abs(prev) > k.thr)
+    resync = mismatch & (fastmath.sign(prevprev)
+                         == fastmath.sign(prev)) & strong
+    cm = torch.where(resync, evenodd, clockmod)
+    boundary = evenodd == cm
+    use_prev = torch.abs(prev) > torch.abs(cur)
+    bit = torch.where(use_prev, (prev > 0).to(torch.uint8),
+                      k.one_u8 - (cur > 0).to(torch.uint8))
+    keep = lambda new, old: torch.where(active, new, old)
+    st = (keep(ns_new, ns), keep(half_new, half_raw), keep(cur, prev_bit),
+          keep(cur, m_cur), keep(prev, m_prev), keep(prevprev, m_prevprev),
+          keep(cm, clockmod), keep((evenodd + 1) & 1, evenodd))
+    return st, bit, active & boundary
+
+
+def _plain_result(st, n):
+    """The plain versions' final state: fstate and istate rows, with the
+    chunk rollover of next_sample (JAX clock.py:104-107); half_raw is
+    kept."""
+    ns, *rest = st
+    return (ns - n.to(torch.float32), *rest[:5]), tuple(rest[5:])
+
+
 def gardner_manchester_ref(fstate, istate, x, t, n, p: GardnerParams,
                            lay: Layout):
     """Plain PyTorch version of :func:`gardner_manchester`: the JAX windowed
@@ -157,17 +225,8 @@ def gardner_manchester_ref(fstate, istate, x, t, n, p: GardnerParams,
     buffer entry k is sample w*window - margin + k, zero before the
     stream)."""
     f32, i32 = torch.float32, torch.int32
-    ns, half_raw, prev_bit, m_cur, m_prev, m_prevprev = fstate
-    clockmod, evenodd = istate
-    dev = x.device
-    like = ns
-    c = lambda v: lane_const(v, like)
-    kp, err_limit, neg_limit = c(p.kp), c(p.err_limit), c(-np.float32(
-        p.err_limit))
-    step = c(p.step_size)
-    half_step = c(np.float32(p.step_size) / np.float32(2.0))
-    thr, zero = c(p.resync_threshold), c(0.0)
-    one_u8 = torch.ones(like.shape, dtype=torch.uint8, device=dev)
+    st = (*fstate, *istate)
+    k = _slot_consts(p, fstate[0])
     span = lay.window + lay.margin
     # xp[j] = x[j - margin]: every window's buffer is a slice of it
     xp = torch.nn.functional.pad(x.to(f32), (lay.margin, 0))
@@ -177,6 +236,7 @@ def gardner_manchester_ref(fstate, istate, x, t, n, p: GardnerParams,
         w_end = torch.clamp(n, max=(w + 1) * lay.window).to(f32)
         base = w * lay.window - lay.margin
         for _ in range(lay.spw):
+            ns, half_raw = st[0], st[1]
             idxf = torch.round(ns)
             active = idxf < w_end
             ii = torch.clamp(idxf.to(i32) - base, 0, span - 1)
@@ -188,50 +248,21 @@ def gardner_manchester_ref(fstate, istate, x, t, n, p: GardnerParams,
             h_ok = (hl >= 0) & (hl < span) & (hidxf >= 0)
             hat = (torch.clamp(hl, 0, span - 1)
                    + w * lay.window).to(torch.int64)[:, None]
-            hval = torch.where(h_ok, torch.gather(xp, 1, hat)[:, 0], zero)
-
-            err = torch.clamp(kp * (cur - prev_bit) * hval, neg_limit,
-                              err_limit)
-            ns_adj = ns - err
-            half_new = ns_adj + half_step
-            ns_new = ns_adj + step
-
-            # Manchester on this symbol (ManchesterDecode.c:27-97)
-            prevprev, prev = m_prev, m_cur
-            mismatch = evenodd != clockmod
-            strong = (torch.abs(prevprev) > thr) & (torch.abs(prev) > thr)
-            resync = mismatch & (fastmath.sign(prevprev)
-                                 == fastmath.sign(prev)) & strong
-            cm = torch.where(resync, evenodd, clockmod)
-            boundary = evenodd == cm
-            use_prev = torch.abs(prev) > torch.abs(cur)
-            bit = torch.where(use_prev, (prev > 0).to(torch.uint8),
-                              one_u8 - (cur > 0).to(torch.uint8))
+            hval = torch.where(h_ok, torch.gather(xp, 1, hat)[:, 0], k.zero)
+            st, bit, emit = _plain_slot(st, cur, hval, active, k)
             bits.append(bit)
             btimes.append(tval)
-            emits.append(active & boundary)
-
-            ns = torch.where(active, ns_new, ns)
-            half_raw = torch.where(active, half_new, half_raw)
-            prev_bit = torch.where(active, cur, prev_bit)
-            clockmod = torch.where(active, cm, clockmod)
-            evenodd = torch.where(active, (evenodd + 1) & 1, evenodd)
-            m_cur = torch.where(active, cur, m_cur)
-            m_prev = torch.where(active, prev, m_prev)
-            m_prevprev = torch.where(active, prevprev, m_prevprev)
-    # chunk rollover (JAX clock.py:262): half_raw is kept
-    ns = ns - n.to(f32)
-    return ((ns, half_raw, prev_bit, m_cur, m_prev, m_prevprev),
-            (clockmod, evenodd), torch.stack(bits, 1),
+            emits.append(emit)
+    return (*_plain_result(st, n), torch.stack(bits, 1),
             torch.stack(btimes, 1), torch.stack(emits, 1))
 
 
-def _gardner_args(fstate, istate, x, t, n, lay: Layout):
-    """Check a launch's arguments; returns the state as (6, B) float32 and
-    (2, B) int32 rows."""
+def _gardner_args(fstate, istate, x, t, n, lay=None):
+    """Check a launch's arguments (and the layout, if any); returns the
+    state as (6, B) float32 and (2, B) int32 rows."""
     dev = x.device
     B, cap = x.shape
-    if cap != lay.n_win * lay.window:
+    if lay is not None and cap != lay.n_win * lay.window:
         raise ValueError(f"x has {cap} samples, layout {lay} needs "
                          f"{lay.n_win * lay.window}")
     check("x", x, (B, cap), (torch.float32,), dev)
@@ -338,3 +369,76 @@ def gardner_launch_config(lay: Layout, device="cuda") -> dict:
     return kernel_config(device, "pdt_gardner_manchester_config",
                          lay.window, lay.margin, lay.spw,
                          fields=GARDNER_CONFIG_FIELDS)
+
+
+def gardner_manchester_scan_ref(fstate, istate, x, t, n, p: GardnerParams,
+                                max_syms: int):
+    """Plain PyTorch version of :func:`gardner_manchester_scan`: JAX's
+    ``gardner_scan`` then ``manchester_scan`` (``clock.py:58-108``,
+    ``manchester.py:34-74``), slot by slot over all lanes at once."""
+    f32, i32 = torch.float32, torch.int32
+    B, cap = x.shape
+    st = (*fstate, *istate)
+    k = _slot_consts(p, fstate[0])
+    n_f, cap_f = n.to(f32), lane_const(cap, fstate[0])
+    x, t = x.to(f32), t.to(f32)
+    syms, times, valid, bits, emits = [], [], [], [], []
+    for _ in range(max_syms):
+        ns, half_raw = st[0], st[1]
+        idxf = torch.round(ns)
+        active = idxf < n_f
+        ii = torch.clamp(idxf.to(i32), 0, cap - 1).to(torch.int64)[:, None]
+        cur = torch.gather(x, 1, ii)[:, 0]
+        tval = torch.gather(t, 1, ii)[:, 0]
+        hidxf = torch.round(half_raw)
+        in_img = (hidxf >= k.zero) & (hidxf < cap_f)
+        hi = torch.clamp(hidxf.to(i32), 0, cap - 1).to(torch.int64)[:, None]
+        hval = torch.where(in_img, torch.gather(x, 1, hi)[:, 0], k.zero)
+        st, bit, emit = _plain_slot(st, cur, hval, active, k)
+        syms.append(cur)
+        times.append(tval)
+        valid.append(active)
+        bits.append(bit)
+        emits.append(emit)
+    valid = torch.stack(valid, 1)
+    return (*_plain_result(st, n), torch.stack(syms, 1),
+            torch.stack(times, 1), valid, torch.stack(bits, 1),
+            torch.stack(emits, 1), valid.sum(1, dtype=i32))
+
+
+def gardner_manchester_scan(fstate, istate, x, t, n, p: GardnerParams,
+                            max_syms: int):
+    """Gardner timing + Manchester decision over whole (B, cap) float32
+    buffer images `x` and `t` (no windows), max_syms slots; n: (B,) int32
+    valid lengths; fstate, istate as :func:`gardner_manchester`.  Returns
+    (fstate, istate, syms, times (B, max_syms) float32, valid, bits uint8,
+    emit bool (B, max_syms), count (B,) int32 active slots); a slot's time
+    is its symbol's and its bit's.  CPU tensors run
+    :func:`gardner_manchester_scan_ref`."""
+    dev = x.device
+    if not on_card("gardner_manchester_scan", dev):
+        return gardner_manchester_scan_ref(fstate, istate, x, t, n, p,
+                                           max_syms)
+    f_in, i_in = _gardner_args(fstate, istate, x, t, n)
+    B, cap = x.shape
+    x, t, n = x.contiguous(), t.contiguous(), n.contiguous()
+    syms = torch.empty((B, max_syms), dtype=torch.float32, device=dev)
+    times = torch.empty_like(syms)
+    flags = torch.empty((3, B, max_syms), dtype=torch.bool, device=dev)
+    count = torch.empty((B,), dtype=torch.int32, device=dev)
+    f_out = torch.empty_like(f_in)
+    i_out = torch.empty_like(i_in)
+    params = np.array(p, np.float32)
+    launch(dev, "pdt_gardner_scan", x.data_ptr(), t.data_ptr(), n.data_ptr(),
+           f_in.data_ptr(), i_in.data_ptr(), syms.data_ptr(),
+           times.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
+           flags[2].data_ptr(), f_out.data_ptr(), i_out.data_ptr(),
+           count.data_ptr(), B, cap, max_syms,
+           params.ctypes.data_as(ctypes.c_void_p), params.size)
+    gardner_manchester_scan.launches += 1
+    valid, bits, emit = flags.unbind(0)
+    return (tuple(f_out.unbind(0)), tuple(i_out.unbind(0)), syms, times,
+            valid, bits.view(torch.uint8), emit, count)
+
+
+gardner_manchester_scan.launches = 0

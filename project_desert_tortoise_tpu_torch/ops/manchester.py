@@ -2,9 +2,10 @@
 
 Twins of ``project_desert_tortoise_tpu/ops/manchester.py``:
 ``ManchesterState``, ``manchester_init`` (``manchester.py:20-31``),
-``compress_sorted`` and ``compress_spaced`` (``manchester.py:93-135``).  The
-Manchester decision itself runs inside the kernels (the fused kernel, and
-``ops/kernels/scan_kernels.py::gardner_manchester``).
+``compress_stream``, ``compress_sorted`` and ``compress_spaced``
+(``manchester.py:77-135``).  The Manchester decision itself runs inside the
+kernels (the fused kernel, and ``ops/kernels/scan_kernels.py``'s
+``gardner_manchester`` and ``gardner_manchester_scan``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,24 @@ def manchester_init(batch_shape=(), *, device,
     z = torch.zeros(batch_shape, dtype=dtype, device=device)
     zi = torch.zeros(batch_shape, dtype=torch.int32, device=device)
     return ManchesterState(clockmod=zi, evenodd=zi, cur=z, prev=z, prevprev=z)
+
+
+def compress_stream(values, times, mask, capacity: int):
+    """Pack masked entries of the last axis to the front of fixed-capacity
+    arrays, order-preserving, zeros past the count (a cumulative-sum
+    scatter).  Returns (values (..., capacity), times, count)."""
+    lead = tuple(mask.shape[:-1])
+    idx = torch.cumsum(mask.to(torch.int64), dim=-1) - 1
+    idx = torch.where(mask, idx, capacity)       # parked past the end
+    out_v = torch.zeros(lead + (capacity + 1,), dtype=values.dtype,
+                        device=values.device)
+    out_t = torch.zeros(lead + (capacity + 1,), dtype=times.dtype,
+                        device=times.device)
+    idx = torch.clamp(idx, max=capacity)         # beyond capacity: dropped
+    out_v.scatter_(-1, idx, values)
+    out_t.scatter_(-1, idx, times)
+    count = mask.sum(-1, dtype=torch.int32)
+    return out_v[..., :capacity], out_t[..., :capacity], count
 
 
 def compress_sorted(values, times, mask, capacity: int):

@@ -49,6 +49,8 @@ from project_desert_tortoise_tpu_torch.ops import pll as pll_ops
 from project_desert_tortoise_tpu_torch.ops.framer import Frame
 from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
     pll_fir_agc)
+from project_desert_tortoise_tpu_torch.ops.kernels.common import (
+    resolve_device)
 from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
     fused_demod)
 from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
@@ -174,7 +176,9 @@ def demod_blocks(params: chain_lib.ChainParams, total: int, blocks_re,
     as in JAX.  freq_est: (B,)
     coarse carrier in Hz.  use_pallas picks the branch (:func:`branch`);
     window: input samples per Gardner window of the unfused branches (JAX's
-    default), which fixes their slot layout (total % window == 0).
+    default), which fixes their slot layout; where it does not divide
+    `total` (or is 0), Gardner/Manchester runs over the whole block in one
+    scan instead, as JAX falls back (``gardner_manchester_scan``).
     Returns (bits (B, cap) uint8, bit_times, n_bits, avg_phase).
     """
     use_pallas = branch(use_pallas)
@@ -194,9 +198,8 @@ def demod_blocks(params: chain_lib.ChainParams, total: int, blocks_re,
             min_spacing=4)
         return bits_c, times_c, n_bits, avg_phase
 
-    if total % window:
-        raise ValueError(f"block length {total} is not a multiple of the "
-                         f"window {window}")
+    if window and total % window:
+        window = 0          # JAX's fallback for odd sizes (blocked.py:210)
     interp = params.interp
     if params.squelch_position == "after_agc" and interp > 1:
         # JAX squelches y (B, total*interp) with |locksig| (B, total)
@@ -225,13 +228,26 @@ def demod_blocks(params: chain_lib.ChainParams, total: int, blocks_re,
     t_out = fir_ops.fir_out_times(t_next, interp) if interp > 1 else t_next
 
     B, dev = blocks_re.shape[0], blocks_re.device
-    _, _, bits, bit_times, bit_mask = clock_ops.gardner_manchester_windowed(
-        clock_ops.gardner_init((B,), device=dev),
-        man_ops.manchester_init((B,), device=dev), y, t_out, total * interp,
-        params.step_size, params.gardner_err_limit, params.gardner_gain,
-        params.resync_threshold, window=window * interp)
+    g0 = clock_ops.gardner_init((B,), device=dev)
+    m0 = man_ops.manchester_init((B,), device=dev)
+    n_i = total * interp
+    if window:
+        _, _, bits, bit_times, bit_mask = \
+            clock_ops.gardner_manchester_windowed(
+                g0, m0, y, t_out, n_i, params.step_size,
+                params.gardner_err_limit, params.gardner_gain,
+                params.resync_threshold, window=window * interp)
+        max_bits = bits.shape[-1] // 2 + 8
+    else:
+        # the whole block in one scan (JAX blocked.py:313-319)
+        max_syms = int(n_i / params.step_size * 1.02) + 16
+        max_bits = max_syms // 2 + 8
+        *_, bits, bit_times, bit_mask = clock_ops.gardner_manchester_scan(
+            g0, m0, y, t_out, n_i, params.step_size,
+            params.gardner_err_limit, params.gardner_gain,
+            params.resync_threshold, max_syms)
     bits_c, times_c, n_bits = man_ops.compress_sorted(
-        bits, bit_times, bit_mask, bits.shape[-1] // 2 + 8)
+        bits, bit_times, bit_mask, max_bits)
     return bits_c, times_c, n_bits, pll_state.avg_phase
 
 
@@ -352,10 +368,7 @@ def demodulate_blocked(iq, t, fs, mode_cfg, norm_factor: Optional[float] = None,
     runs.  The port runs the branch it is asked for at any block count;
     JAX silently falls back to its XLA branch when B % 128 != 0.
     """
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
+    dev = resolve_device(device)
     dt = np.dtype(np.float32)
     params = chain_lib.make_params(mode_cfg, fs)
     plan = plan or default_plan(mode_cfg, fs)

@@ -7,6 +7,7 @@ too long for the kernel's plain per-sample version on the CPU here).
 """
 
 import numpy as np
+import pytest
 import torch
 
 from project_desert_tortoise_tpu.apps import demod_poes as jax_cli
@@ -40,13 +41,22 @@ def test_cli_fast_matches_jax_cli(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
+    """Still refused, with a message naming what is missing: the exact
+    chain of the float64 ``argos`` mode, ``--products``, and the exact
+    chain's options together with ``--fast``."""
+    from project_desert_tortoise_tpu_torch.apps import demod_argos
     wav = str(tmp_path / "x.wav")
     W.write_iq_wav(wav, np.zeros(100, np.complex64), int(FS))
-    assert port_cli.run([wav]) != 0              # exact chain
+    assert port_cli.run([wav, "--mode", "argos"]) == 2
+    assert "float64" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as done:
+        demod_argos.main([wav])
+    assert done.value.code == 2
     assert "not ported" in capsys.readouterr().err
-    assert port_cli.run([wav, "--fast", "--products", str(tmp_path)]) != 0
-    # the exact chain's options are refused, not ignored
+    assert port_cli.run([wav, "--fast", "--products", str(tmp_path)]) == 2
+    assert "not ported" in capsys.readouterr().err
+    # the exact chain's options are refused with --fast, not ignored
     for opts in (["-r"], ["-c", "4096"], ["--no-quirks"],
                  ["--timebase", "integer"]):
         assert port_cli.run([wav, "--fast", *opts]) == 2
-        assert "not ported" in capsys.readouterr().err
+        assert "exact chunked chain" in capsys.readouterr().err

@@ -1,0 +1,168 @@
+"""The exact chain's kernels against their plain PyTorch versions, on the
+card: ``gardner_manchester_scan`` at one lane over a quirks buffer image
+whose carried mid-bit pointer is stale (inside the image, past the valid
+length, past the image, negative) and at 37 lanes with ragged valid
+lengths; ``pll_scan`` and ``agc_scan`` at one lane from an unlocked start
+over a chunk of each float32 mode and a short final one; and three chunks
+of ``chain.chunk_step`` in each float32 mode, the kernels against the
+plain versions on the same card, every output and state bit for bit.
+
+Marked ``cuda``; skips without a card.  On a machine with one:
+
+    python -m pytest tests/test_torch_exact_cuda.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from project_desert_tortoise_tpu_torch import chain
+from project_desert_tortoise_tpu_torch.ops import agc, fir, pll
+from project_desert_tortoise_tpu_torch.ops import manchester as man
+from project_desert_tortoise_tpu_torch.ops.kernels import pll_kernel
+from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+from project_desert_tortoise_tpu_torch.utils import synth, wav as W
+from project_desert_tortoise_tpu_torch.utils.config import MODES, POES_TIP
+
+FS = 50000.0
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _equal(got, want):
+    for a, b in zip(got, want):
+        if isinstance(a, (tuple, list)):
+            _equal(a, b)
+        else:
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _image(B, cap, step, seed, dev):
+    rng = np.random.default_rng(seed)
+    x = np.empty((B, cap), np.float32)
+    for b in range(B):
+        sym = rng.choice([-1.0, 1.0], int(cap / step) + 2)
+        pos = (np.arange(cap) + rng.uniform(0, step)) / step
+        x[b] = sym[pos.astype(int)] + 0.1 * rng.standard_normal(cap)
+    t = np.tile(np.arange(1, cap + 1, dtype=np.float32) / np.float32(FS),
+                (B, 1))
+    return torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["inside", "past n", "past cap",
+                                  "negative"])
+@pytest.mark.parametrize("B", [1, 37])
+def test_gardner_manchester_scan_matches_plain_on_card(card, case, B):
+    params = chain.make_params(POES_TIP, FS, quirks=True)
+    cap = 6000 * params.interp
+    msyms = chain.max_symbols(cap, params.step_size)
+    x, t = _image(B, cap, params.step_size, B, card)
+    n = torch.full((B,), cap, dtype=torch.int32, device=card)
+    n[::3] = cap - 4321                      # short final chunks
+    half = {"inside": cap - 9.6, "past n": cap - 4321 + 3.5,
+            "past cap": cap + 7.25, "negative": -4.5}[case]
+    full = lambda v: torch.full((B,), float(np.float32(v)), device=card)
+    fstate = (full(7.3), full(half), full(0.4), full(0.9), full(-0.8),
+              full(0.7))
+    m0 = man.manchester_init((B,), device=card)
+    istate = (m0.clockmod, m0.evenodd + 1)
+    gp = sk.GardnerParams(params.step_size, params.gardner_err_limit,
+                          params.gardner_gain, params.resync_threshold)
+    before = sk.gardner_manchester_scan.launches
+    got = sk.gardner_manchester_scan(fstate, istate, x, t, n, gp, msyms)
+    torch.cuda.synchronize()
+    assert sk.gardner_manchester_scan.launches == before + 1
+    _equal(got, sk.gardner_manchester_scan_ref(fstate, istate, x, t, n, gp,
+                                               msyms))
+    assert int(got[-1].min()) > 0 and int(got[-2].sum()) > 100 * B
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [10000, 2400, 1234])
+def test_one_lane_pll_and_agc_from_an_unlocked_start_on_card(card, L):
+    params = chain.make_params(POES_TIP, FS)
+    iq, _ = synth.make_poes_recording(n_frames=3, fs=FS)
+    iq = (iq / (np.abs(iq).max() * 1.2)).astype(np.complex64)
+    a = int(0.3 * FS)                        # where the signal starts
+    z = tuple(torch.from_numpy(np.ascontiguousarray(v[a:a + L])[None]).to(
+        card) for v in (iq.real, iq.imag))
+    cold = pll.init_state(params.pll, (1,), device=card)
+    got = pll_kernel.pll_scan_kernel(params.pll, cold, z)
+    _equal(got, pll.pll_scan_ref(params.pll, cold, *z))
+    x = fir.fir_interp(got[1], params.taps, params.interp)
+    gain = torch.full((1,), 17.58, device=card)
+    ap = sk.AGCParams(params.agc_attack, params.agc_decay)
+    _equal(sk.agc_scan(gain, x, ap), sk.agc_scan_ref(gain, x, ap))
+
+
+def _plain_kernels(monkeypatch):
+    """The exact chain's kernel wrappers, as chain.chunk_step reaches them,
+    replaced by their plain versions."""
+    monkeypatch.setattr(pll_kernel, "pll_scan_kernel",
+                        lambda p, s, z, **_: pll.pll_scan_ref(p, s, *z))
+    monkeypatch.setattr(sk, "agc_scan", sk.agc_scan_ref)
+    monkeypatch.setattr(sk, "gardner_manchester_scan",
+                        sk.gardner_manchester_scan_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,quirks", [
+    ("poes_tip", True), ("poes_tip", False), ("poes_tip_realtime", True),
+    ("argos_realtime", True)])
+def test_chunk_step_kernels_match_plain_on_card(card, mode, quirks,
+                                                monkeypatch):
+    cfg = MODES[mode]
+    fs = 32000.0 if mode.startswith("argos") else FS
+    params = chain.make_params(cfg, fs, quirks=quirks)
+    if mode.startswith("argos"):
+        iq, _ = synth.make_argos_recording(n_packets=1, fs=fs)
+    else:
+        iq, _ = synth.make_poes_recording(n_frames=3, fs=fs)
+    iq = (iq / (np.abs(iq).max() * 1.2)).astype(np.complex64)
+    t = W.time_axis(len(iq), fs, np.float32)
+    t_ext = np.concatenate([t, [t[-1] + np.float32(1.0) / np.float32(fs)]])
+    chunk, a0 = 2000, int(0.3 * fs)
+
+    def run():
+        state = chain.init_state(params, 17.58, chunk, device=card)
+        outs = []
+        for k, n in enumerate((chunk, chunk, chunk * 5 // 8)):
+            a = a0 + k * chunk
+            planes = [torch.from_numpy(np.ascontiguousarray(v)).to(card)
+                      for v in (iq[a:a + n].real, iq[a:a + n].imag,
+                                t[a:a + n], t_ext[a + 1:a + n + 1])]
+            state, out = chain.chunk_step(params, state, *planes)
+            outs.append(out)
+        return state, outs
+    before = sk.gardner_manchester_scan.launches
+    got = run()
+    assert sk.gardner_manchester_scan.launches == before + 3
+    with monkeypatch.context() as m:
+        _plain_kernels(m)
+        want = run()
+    _equal(got, want)
+    assert sum(int(o.bit_mask.sum()) for o in got[1]) > 0
+
+
+@pytest.mark.cuda
+def test_gardner_scan_refuses_bad_input(card):
+    params = chain.make_params(POES_TIP, FS)
+    gp = sk.GardnerParams(params.step_size, params.gardner_err_limit,
+                          params.gardner_gain, params.resync_threshold)
+    x = torch.zeros((2, 300), device=card)
+    n = torch.full((2,), 300, dtype=torch.int32, device=card)
+    f = tuple(torch.zeros(2, device=card) for _ in range(6))
+    i = tuple(torch.zeros(2, dtype=torch.int32, device=card)
+              for _ in range(2))
+    with pytest.raises(TypeError):
+        sk.gardner_manchester_scan(f, i, x.double(), x, n, gp, 20)
+    with pytest.raises(ValueError):
+        sk.gardner_manchester_scan(f, i, x, x.cpu(), n, gp, 20)
+    with pytest.raises(ValueError):
+        sk.gardner_manchester_scan(f, i, x, x, n[:1], gp, 20)

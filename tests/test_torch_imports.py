@@ -45,7 +45,9 @@ def test_port_imports_with_jax_blocked():
     pkg = "project_desert_tortoise_tpu_torch."
     assert {pkg + m for m in ("apps.demod_poes", "apps.demod_argos",
                               "tools.ablate_kernel", "tools.ablate_fused",
-                              "ops.kernels.fused_kernel")} <= mods
+                              "ops.kernels.fused_kernel",
+                              "models.demodulator", "models.poes",
+                              "utils.metrics")} <= mods
 
 
 def test_no_port_file_imports_jax():
