@@ -29,8 +29,10 @@ The exact chain's kernels are held to their plain versions at one lane
 (``pll_scan`` and ``agc_scan`` from an unlocked start,
 ``gardner_manchester_scan`` over a quirks image with stale mid-bit
 pointers), ``gardner_manchester_scan`` also at 352 lanes on the
-unwindowed layout of the POES blocks, and ``DemodSession`` on a short clip
-on the card against the CPU and against its plain versions on the card
+unwindowed layout of the POES blocks, each time against its serial twin
+``gardner_manchester_scan_serial`` too (timed in the same run; a
+``design`` line each), and ``DemodSession`` on a short clip on the card
+against the CPU and against its plain versions on the card
 (``exact_small``).
 
 It holds the decoupled ``fused_demod``, ``pll_fir_agc``, ``pll_scan`` and
@@ -106,6 +108,10 @@ EXACT_CHECK_L = (10000, 2400, 1234)
 # (two of its Gardner windows), on the first 8,192
 MAIN_CHECK_L = 16384
 PLANE_CHECK_L = 8192
+# floats of the forced small ring on which gardner_manchester_scan is
+# also checked (four tiles of 512: recycled, the stale pointer read from
+# device memory)
+SMALL_RING = 2048
 # the ablation tools: lane counts (S x 128) of the timed runs, at each of
 # which every variant is checked against its plain version over
 # (steps, window)
@@ -139,6 +145,10 @@ KERNELS = {
     "gardner_manchester_scan": (CSRC + "scan_kernels.cu",
                                 JAX + "ops/clock.py:58, " + JAX
                                 + "ops/manchester.py:34"),
+    # its serial design, kept in the same way
+    "gardner_manchester_scan_serial": (CSRC + "scan_kernels.cu",
+                                       JAX + "ops/clock.py:58, " + JAX
+                                       + "ops/manchester.py:34"),
     "ablate_kernel": (CSRC + "ablate_kernel.cu", "tools/ablate_kernel.py:32"),
     "ablate_fused": (CSRC + "ablate_fused.cu", "tools/ablate_fused.py:42"),
 }
@@ -187,6 +197,8 @@ def kernel_fns() -> dict:
             "gardner_manchester_serial":
                 scan_kernels.gardner_manchester_serial,
             "gardner_manchester_scan": scan_kernels.gardner_manchester_scan,
+            "gardner_manchester_scan_serial":
+                scan_kernels.gardner_manchester_scan_serial,
             "ablate_kernel": ablate_kernel.ablate_kernel,
             "ablate_fused": ablate_fused.ablate_fused}
 
@@ -195,7 +207,7 @@ def drive(path, fn):
     """Run one main path: every kernel count set to 0 just before fn(),
     read just after; fails unless each kernel of the path launched and no
     other did (the serial kernels among them, gardner_manchester_serial
-    too).  Returns (fn's result,
+    and gardner_manchester_scan_serial too).  Returns (fn's result,
     {kernel: launches})."""
     import torch
     fns = kernel_fns()
@@ -234,7 +246,9 @@ def bound(n_bytes: float, flops: float) -> dict:
 # float->int, subtract, two clamps, add, the gather's index, address and
 # load, subtract, two multiplies, two clamps, subtract, add, select), the
 # count kept for gardner_manchester too, over the slots its chain computes
-# (up to each window's first inactive one); fused_demod's stage E
+# (up to each window's first inactive one) and for gardner_manchester_scan
+# (up to the first inactive slot), whose load is a shared-memory one;
+# fused_demod's stage E
 # (csrc/fused_demod.cu, GardnerLane::run) a due symbol, 16 (the age:
 # subtract, two clamps; the read's index and load; subtract, two
 # multiplies, two clamps, subtract, add; rintf, float->int, clamp; the
@@ -1495,7 +1509,11 @@ def phase_exact_kernels(stats: dict):
     gardner_manchester_scan over poes_tip's quirks image (30,000
     interpolated samples) with the mid-bit pointer carried stale inside
     the image, past the valid length (a short final chunk), past the image
-    and negative."""
+    and negative, also against its serial twin (both timed in this run)
+    and on a forced small ring; one `design` line: the launch
+    configuration the card reports, the times and the chain bound (17
+    counted dependent operations a slot, computed, not measured) over all
+    slots and over the slots the chain computes."""
     import torch
     from project_desert_tortoise_tpu_torch import chain
     from project_desert_tortoise_tpu_torch.ops import agc, fir, pll
@@ -1551,6 +1569,8 @@ def phase_exact_kernels(stats: dict):
     m0 = man.manchester_init((1,), device=dev)
     istate = (m0.clockmod, m0.evenodd + 1)
     short = cap - 3 * 2591                  # a final chunk of 7,409 samples
+    GS, GSS = sk.gardner_manchester_scan, sk.gardner_manchester_scan_serial
+    times = {}
     for case, n_valid, half in (("stale inside the image", cap, cap - 9.6),
                                 ("past the valid length", short, short + 3.5),
                                 ("past the image", cap, cap + 7.25),
@@ -1558,20 +1578,46 @@ def phase_exact_kernels(stats: dict):
         f = lambda v: torch.full((1,), float(np.float32(v)), device=dev)
         fstate = (f(7.3), f(half), f(0.4), f(0.9), f(-0.8), f(0.7))
         n = torch.full((1,), n_valid, dtype=torch.int32, device=dev)
+        args = (fstate, istate, x, t, n, gp, msyms)
         time_pair("gardner_manchester_scan", f"quirks image, 1 lane, "
-                  f"half_raw {case}",
-                  lambda: sk.gardner_manchester_scan(fstate, istate, x, t, n,
-                                                     gp, msyms),
-                  lambda: sk.gardner_manchester_scan_ref(fstate, istate, x,
-                                                         t, n, gp, msyms),
-                  [1, cap], stats)
+                  f"half_raw {case}", lambda: GS(*args),
+                  lambda: sk.gardner_manchester_scan_ref(*args), [1, cap],
+                  stats)
+        ms, ms_old, got, want = old_new_ms(lambda: GS(*args),
+                                           lambda: GSS(*args), reps=10)
+        check_equal(got, want, f"gardner_manchester_scan vs serial "
+                    f"(half_raw {case})")
+        check_equal(GS(*args, ring_floats=SMALL_RING), want,
+                    f"gardner_manchester_scan, small ring, vs serial "
+                    f"(half_raw {case})")
+        times[case] = (ms, ms_old, int(got[-1][0]))
+        emit("whole_image_vs_serial", kernel="gardner_manchester_scan",
+             case=f"quirks image, half_raw {case}", B=1, L=cap,
+             bit_exact=True, small_ring_bit_exact=True, ms=ms,
+             serial_ms=ms_old, speedup=ms_old / ms, card=card_line())
+    ms, ms_old, count = times["stale inside the image"]
+    computed = min(count + 1, msyms)      # up to the first inactive slot
+    emit("design", mode="poes exact chain", card=card_line(),
+         gardner_manchester_scan=dict(
+             sk.gardner_scan_launch_config(1, cap), shape=[1, cap],
+             max_syms=msyms, ms=ms, serial_ms=ms_old,
+             chain_bound_ms=chain_bound_ms(msyms, GM_SLOT_CHAIN_OPS),
+             computed_slots_a_lane=computed,
+             computed_chain_bound_ms=chain_bound_ms(computed,
+                                                    GM_SLOT_CHAIN_OPS),
+             small_ring=sk.gardner_scan_launch_config(1, cap, SMALL_RING)))
+    stats["gardner_manchester_scan_serial"] = dict(
+        ms=ms_old, shape=[1, cap], redesigned_ms=ms, max_abs_err=0.0)
+    stats["gardner_manchester_scan"]["isolated"] = dict(
+        ms=ms, serial_ms=ms_old, shape=[1, cap])
 
 
 def phase_exact_fallback(staged, stats: dict):
     """gardner_manchester_scan at the block-parallel path's lanes: the
     unwindowed layout demod_blocks falls back to (window=0) on the POES
     pass's 352 blocks, the scan branch's y and the interpolated position
-    plane, against its plain version bit for bit."""
+    plane, against its plain version and its serial twin bit for bit, the
+    two kernels timed in this run; one `design` line."""
     import torch
     from project_desert_tortoise_tpu_torch.ops import clock, fir
     from project_desert_tortoise_tpu_torch.ops import manchester as man
@@ -1600,10 +1646,31 @@ def phase_exact_fallback(staged, stats: dict):
         "gardner_manchester_scan", f"poes window=0 layout, {B} lanes",
         lambda: sk.gardner_manchester_scan(*args),
         lambda: sk.gardner_manchester_scan_ref(*args), [B, n_i], {})
+    GS, GSS = sk.gardner_manchester_scan, sk.gardner_manchester_scan_serial
+    ms_new, ms_old, got, want = old_new_ms(lambda: GS(*args),
+                                           lambda: GSS(*args), reps=5)
+    check_equal(got, want, "gardner_manchester_scan vs serial (window=0 "
+                "layout)")
+    computed = min(int(got[-1].max()) + 1, max_syms)
+    del got, want
+    emit("whole_pass_vs_serial", mode="poes",
+         kernel="gardner_manchester_scan", case="window=0 layout", B=B,
+         L=n_i, bit_exact=True, ms=ms_new, serial_ms=ms_old,
+         speedup=ms_old / ms_new, card=card_line())
+    emit("design", mode="poes window=0", card=card_line(),
+         gardner_manchester_scan=dict(
+             sk.gardner_scan_launch_config(B, n_i), shape=[B, n_i],
+             max_syms=max_syms, ms=ms_new, serial_ms=ms_old,
+             chain_bound_ms=chain_bound_ms(max_syms, GM_SLOT_CHAIN_OPS),
+             computed_slots_a_lane=computed,
+             computed_chain_bound_ms=chain_bound_ms(computed,
+                                                    GM_SLOT_CHAIN_OPS)))
     st = stats["gardner_manchester_scan"]
     st["max_abs_err"] = max(st["max_abs_err"], err)
     st["window0"] = dict(ms=ms, plain_ms=plain_ms, shape=[B, n_i],
-                         max_syms=max_syms)
+                         max_syms=max_syms, serial_ms=ms_old)
+    stats["gardner_manchester_scan_serial"]["window0"] = dict(
+        ms=ms_old, shape=[B, n_i], redesigned_ms=ms_new)
 
 
 def state_tensors(state) -> list:
@@ -2006,9 +2073,10 @@ def main() -> int:
 
     # the serial twins compute the same function as the redesigned kernels:
     # the same bound and plain version
-    for st in stats.values():
+    for mode_name, st in stats.items():
+        exact = ("gardner_manchester_scan",) if mode_name == "poes" else ()
         for k in ("fused_demod", "pll_fir_agc", "pll_scan", "agc_scan",
-                  "gardner_manchester"):
+                  "gardner_manchester", *exact):
             for f in ("bound_ms", "bound_by", "plain_ms", "plain_shape"):
                 st[k + "_serial"][f] = st[k][f]
 

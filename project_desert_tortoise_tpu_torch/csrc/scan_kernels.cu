@@ -50,13 +50,36 @@
 // baseline; no path calls it.  Integer Manchester state stays int, as in
 // JAX.
 //
-// pdt_gardner_scan: one thread a lane, the image read from device memory
-// at each slot (the exact chain runs one lane, whose ~30,000-float image
-// stays in L2), every slot written: the soft symbol, its time, the active
-// flag, the bit and its emit flag.  A first design: the chain waits on a
-// device-memory read a slot.
+// pdt_gardner_scan: one lane a CTA on lane-major (B, cap) buffer images.
+// The lane's x image is staged in shared memory as a ring of tiles, each
+// a 1-D bulk copy (TMA) with the ragged head and tail of an unaligned row
+// as 4-byte cp.async copies, both completing on the tile's mbarrier.  One
+// thread runs the slot chain and issues the copies; it waits on a tile
+// only when a read index first enters it, so it starts after the first
+// tile.  Where the image fits in the shared-memory budget (every float32
+// mode's chunk at one lane) the ring holds all of it and no tile is
+// refilled; otherwise (the block path's unwindowed fallback, long chunks)
+// a tile is refilled once the on-time and mid-bit reads have both passed
+// it.  A mid-bit read outside the staged tiles (the stale quirks pointer
+// at a chunk's first slot, or one the ring has dropped) reads device
+// memory, 0 outside [0, cap) as in the scan.  The chain thread runs the
+// timing half of each slot alone (the Manchester decision feeds nothing
+// back into it), records each slot's clamped on-time index and soft
+// symbol in shared memory, in double-buffered segments, and stops at the
+// first inactive slot: from there the state is frozen and every later
+// slot repeats that one with valid 0 and emit 0.  While the chain runs the
+// next segment, one mover thread makes the Manchester decision on the
+// segment's records and the three mover warps store it in coalesced rows
+// (the times gathered from t at the recorded indices), then fill the
+// slots after the stop.  The budget is chosen so that ceil(B / SMs) CTAs
+// share an SM (352 lanes in one wave at three).
+// pdt_gardner_scan_serial, one thread a lane, the image read from device
+// memory at each slot and every slot written by the chain thread, is its
+// card-side oracle and timing baseline; no path calls it.
 //
 // Numerics as in pdt_common.cuh.
+
+#include <algorithm>
 
 #include "front_stages.cuh"
 
@@ -148,24 +171,77 @@ struct SlotState {
     evenodd = i[B + b];
   }
 
-  // with the chunk rollover of next_sample (clock.py:262); half_raw is
-  // kept
-  __device__ void store(float* f, int* i, int B, int b, int n) const {
+  // the timing rows, with the chunk rollover of next_sample
+  // (clock.py:262); half_raw is kept
+  __device__ void store_timing(float* f, int B, int b, int n) const {
     f[b] = ns - static_cast<float>(n);
     f[B + b] = half_raw;
     f[2 * B + b] = prev_bit;
+  }
+
+  __device__ void store_manchester(float* f, int* i, int B, int b) const {
     f[3 * B + b] = m_cur;
     f[4 * B + b] = m_prev;
     f[5 * B + b] = m_prevprev;
     i[b] = clockmod;
     i[B + b] = evenodd;
   }
+
+  __device__ void store(float* f, int* i, int B, int b, int n) const {
+    store_timing(f, B, b, n);
+    store_manchester(f, i, B, b);
+  }
 };
 
+// The timing half of a symbol slot (clock.py:220-232), for
+// gardner_scan_kernel's chain thread: the error from the slot's on-time
+// value cur and mid-bit value hval; an active slot advances next_sample,
+// half_raw and prev_bit.
+__device__ __forceinline__ void timing_slot(SlotState& g, float cur,
+                                            float hval, bool active,
+                                            const GardnerConsts& c) {
+  float err = c.kp * (cur - g.prev_bit) * hval;
+  err = fminf(fmaxf(err, c.neg_limit), c.err_limit);
+  const float ns_adj = g.ns - err;
+  const float half_new = ns_adj + c.half_step;
+  const float ns_new = ns_adj + c.step;
+  if (active) {
+    g.ns = ns_new;
+    g.half_raw = half_new;
+    g.prev_bit = cur;
+  }
+}
+
+// The Manchester half (ManchesterDecode.c:27-97), for
+// gardner_scan_kernel's mover: the decision on the slot's symbol cur.  Returns the bit, plus 2 where it is emitted; an
+// active slot advances the Manchester state.  Nothing of it feeds the
+// timing half.
+__device__ __forceinline__ int manchester_slot(SlotState& g, float cur,
+                                               bool active, float thr) {
+  const float prevprev = g.m_prev;
+  const float prev = g.m_cur;
+  const bool strong = fabsf(prevprev) > thr && fabsf(prev) > thr;
+  const bool resync = g.evenodd != g.clockmod
+                      && sgn(prevprev) == sgn(prev) && strong;
+  const int cm = resync ? g.evenodd : g.clockmod;
+  const bool boundary = g.evenodd == cm;
+  const bool use_prev = fabsf(prev) > fabsf(cur);
+  const int bit = use_prev ? (prev > 0.0f ? 1 : 0) : (cur > 0.0f ? 0 : 1);
+  if (active) {
+    g.clockmod = cm;
+    g.evenodd = (g.evenodd + 1) & 1;
+    g.m_cur = cur;
+    g.m_prev = prev;
+    g.m_prevprev = prevprev;
+  }
+  return bit | (active && boundary ? 2 : 0);
+}
+
 // One symbol slot from its on-time value cur and mid-bit value hval
-// (clock.py:220-253): the timing error and update, and the Manchester
-// decision (ManchesterDecode.c:27-97) on this symbol.  Returns the slot's
-// bit, plus 2 where it is emitted; an active slot advances the state.
+// (clock.py:220-253): both halves in one body, as the windowed and serial
+// kernels run them (written out, not composed of the two above, so that
+// their compiled code stays as it was measured).  Returns the slot's bit,
+// plus 2 where it is emitted; an active slot advances the state.
 __device__ __forceinline__ int gardner_slot(SlotState& g, float cur,
                                             float hval, bool active,
                                             const GardnerConsts& c) {
@@ -451,8 +527,8 @@ gardner_manchester_serial_kernel(const float* __restrict__ x,
   g.store(st_f_out, st_i_out, B, b, n);
 }
 
-// The exact chain's Gardner + Manchester scan: one thread a lane over
-// lane-major (B, cap) buffer images, max_syms slots, as the XLA scans
+// The exact chain's Gardner + Manchester scan, serially: one thread a lane
+// over lane-major (B, cap) buffer images, max_syms slots, as the XLA scans
 // clock.py::gardner_scan (:58-108) then manchester.py::manchester_scan
 // (:34-74) compute them.  The on-time read is clamped to [0, cap - 1]; the
 // mid-bit read is 0 outside [0, cap), so a stale pointer that the quirks
@@ -460,15 +536,19 @@ gardner_manchester_serial_kernel(const float* __restrict__ x,
 // index, anywhere in it.  Each slot's on-time value is its soft symbol and
 // its time the bit's time; inactive slots freeze the state.
 __global__ void __launch_bounds__(kThreads)
-gardner_scan_kernel(const float* __restrict__ x, const float* __restrict__ t,
-                    const int* __restrict__ n_valid,
-                    const float* __restrict__ st_f_in,
-                    const int* __restrict__ st_i_in, float* __restrict__ syms,
-                    float* __restrict__ times, uint8_t* __restrict__ valid,
-                    uint8_t* __restrict__ bits, uint8_t* __restrict__ emit,
-                    float* __restrict__ st_f_out, int* __restrict__ st_i_out,
-                    int* __restrict__ count, int B, int cap, int max_syms,
-                    const GardnerParams p) {
+gardner_scan_serial_kernel(const float* __restrict__ x,
+                           const float* __restrict__ t,
+                           const int* __restrict__ n_valid,
+                           const float* __restrict__ st_f_in,
+                           const int* __restrict__ st_i_in,
+                           float* __restrict__ syms, float* __restrict__ times,
+                           uint8_t* __restrict__ valid,
+                           uint8_t* __restrict__ bits,
+                           uint8_t* __restrict__ emit,
+                           float* __restrict__ st_f_out,
+                           int* __restrict__ st_i_out, int* __restrict__ count,
+                           int B, int cap, int max_syms,
+                           const GardnerParams p) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   SlotState g;
@@ -503,6 +583,354 @@ gardner_scan_kernel(const float* __restrict__ x, const float* __restrict__ t,
   count[b] = active_slots;
 }
 
+// --- gardner_scan_kernel: the same scan, the image staged in shared memory
+
+constexpr int kGsThreads = 128;    // warp 0: the chain; warps 1-3: movers
+constexpr int kGsMovers = kGsThreads - 32;
+constexpr int kGsSegment = 256;    // slot records a segment (two segments)
+constexpr int kGsTileLog2 = 10;    // a tile holds 1,024 floats at most
+constexpr int kGsMinRing = 64;     // floats: four 64-byte tiles
+// the H100's shared memory: a CTA's dynamic maximum, an SM's total and
+// what the SM reserves a CTA
+constexpr int kGsMaxSmem = 232448;
+constexpr int kGsSmemPerSm = 233472;
+constexpr int kGsCtaReserve = 1024;
+constexpr int kGsMaxCtasPerSm = 8;
+
+// dynamic shared memory: the tiles' mbarriers and the segments' (full,
+// free), then the ring (ring floats, plus 4 for the row's shift to a
+// 16-byte boundary), then two segments of records: indices, soft symbols,
+// bits
+__host__ __device__ inline int gs_bar_bytes(int tiles) {
+  return ((tiles + 4) * 8 + 15) / 16 * 16;
+}
+
+__host__ __device__ inline int gs_smem_bytes(int tiles, int ring) {
+  return gs_bar_bytes(tiles) + (ring + 4) * 4 +
+         2 * kGsSegment * static_cast<int>(2 * sizeof(float) + 1);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// one arrival, and `bytes` more for the bulk copies to complete
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// one arrival once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// a 1-D bulk copy (TMA) of 16-byte aligned `bytes` from device to shared
+// memory, completing on bar
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(bar)) : "memory");
+}
+
+// a shared-memory load the compiler issues where it is written (not sunk
+// behind the branch that may replace its value)
+__device__ __forceinline__ float ld_shared(unsigned addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// The lane's x image as a ring of `tiles` tiles of 2^lt floats: image
+// tile k (samples k << lt ...) in ring slot k % tiles, sample i at
+// xs[i & mask] with xs the ring shifted by the row's misalignment, so
+// that a tile's 16-byte aligned body is one bulk copy.  RESIDENT: the
+// ring holds the whole image (tiles = nt, sample i at xs[i]) and no tile
+// is refilled.  Tiles [lo, hi) are staged (their copies waited), tiles
+// [lo, min(lo + tiles, nt)) issued.  Run by the chain thread alone.
+template <bool RESIDENT>
+struct Ring {
+  const float* xr;      // the lane's row in device memory
+  float* xs;
+  uint64_t* full;       // a tile slot's mbarrier
+  unsigned xs_addr;     // xs as a shared-memory address
+  int lt, tiles, mask, cap, nt, head;
+  int lo = 0, hi = 0;
+
+  __device__ Ring(const float* row, float* ring, uint64_t* bars, int lt_,
+                  int tiles_, int cap_)
+      : xr(row), full(bars), lt(lt_), tiles(tiles_),
+        mask((tiles_ << lt_) - 1), cap(cap_),
+        nt((cap_ + (1 << lt_) - 1) >> lt_) {
+    // floats before the row's first 16-byte boundary
+    const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(row) >> 2)
+                   & 3;
+    head = (4 - sh) & 3;
+    xs = ring + sh;
+    xs_addr = smem_addr(xs);
+    for (int k = 0; k < min(tiles, nt); ++k) issue(k);
+  }
+
+  __device__ int slot(int k) const { return RESIDENT ? k : k & (tiles - 1); }
+  __device__ int parity(int k) const {
+    return RESIDENT ? 0 : (k / tiles) & 1;
+  }
+  __device__ unsigned addr(int i) const {
+    return xs_addr + 4u * static_cast<unsigned>(RESIDENT ? i : i & mask);
+  }
+
+  // image tile k into its slot: the aligned body as one bulk copy, the
+  // ragged head and tail of the row as 4-byte copies
+  __device__ void issue(int k) {
+    const int i0 = k << lt;
+    const int len = min(1 << lt, cap - i0);
+    float* dst = xs + (slot(k) << lt);
+    const float* src = xr + i0;
+    const int h = min(head, len);
+    const int body = (len - h) & ~3;
+    uint64_t* bar = full + slot(k);
+    mbar_arrive_expect_tx(bar, body * 4);
+    if (body > 0) bulk_copy(dst + h, src + h, body * 4, bar);
+    for (int i = 0; i < h; ++i) cp_async4(dst + i, src + i);
+    for (int i = h + body; i < len; ++i) cp_async4(dst + i, src + i);
+    mbar_arrive_cp_async(bar);
+  }
+
+  // drop tiles [lo, m), issuing the tiles that take their slots
+  __device__ void release_to(int m) {
+    // the chain's reads of the dropped tiles before the copies over them
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    for (; lo < m; ++lo) {
+      if (lo + tiles < nt) issue(lo + tiles);
+    }
+  }
+
+  // wait until tile k is staged, dropping the oldest tiles where the ring
+  // needs their slots
+  __device__ void stage_to(int k) {
+    while (hi <= k) {
+      if (!RESIDENT && hi - lo >= tiles) release_to(hi - tiles + 1);
+      mbar_wait(full + slot(hi), parity(hi));
+      ++hi;
+    }
+  }
+
+  // x at sample i: from the ring where its tile is staged, else (a read
+  // outside the staged span) from device memory
+  __device__ float read(int i) const {
+    const int k = i >> lt;
+    return k >= lo && k < hi ? ld_shared(addr(i)) : xr[i];
+  }
+
+  // A slot whose reads leave the staged span, or whose reads have both
+  // passed the oldest tile: stage the on-time read's tile, and the
+  // mid-bit read's where the ring can hold it with the on-time one; read
+  // both; drop the tiles behind both reads (a mid-bit read outside the
+  // ring holds none).
+  __device__ void slow(int ii, int hc, bool in_img, float& cur, float& h) {
+    const int kt = ii >> lt;
+    int kh = hc >> lt;
+    stage_to(kt);
+    if (in_img && kh >= hi && kh < lo + tiles) stage_to(kh);
+    cur = read(ii);
+    h = in_img ? read(hc) : 0.0f;
+    if (!RESIDENT) {
+      if (!in_img || kh < lo || kh >= hi) kh = kt;
+      if (min(kt, kh) > lo) release_to(min(kt, kh));
+    }
+  }
+
+  // wait for every copy issued, so that none lands after the CTA exits
+  __device__ void drain() {
+    const int issued = min(lo + tiles, nt);
+    for (int k = hi; k < issued; ++k) mbar_wait(full + slot(k), parity(k));
+  }
+};
+
+// The chain thread over slots [s0, s1): each slot's clamped on-time index
+// and its value (the soft symbol) into the segment's records, up to and
+// including the first inactive slot, whose index it returns (-1 if every
+// slot was active).  The timing half only: the Manchester decision needs
+// the records alone and runs on a mover (gardner_scan_kernel).  Both
+// reads are issued from the ring before the test that sends a slot to
+// Ring::slow, so the test runs beside the loads; it reads the clamped
+// indices only.  ADD: next_sample and half_raw stay below kRintAddLimit
+// in magnitude over the segment, so their rounded values are exact
+// integers and the activity and mid-bit tests integer compares.  The
+// scan's rules (clock.py:76-85): the on-time index rint(next_sample)
+// clamped to [0, cap - 1], the mid-bit read 0 unless rint(half_raw) lies
+// in [0, cap): chain_window's with base 0 and span cap.
+template <bool ADD, bool RESIDENT>
+__device__ __forceinline__ int chain_segment(SlotState& g, Ring<RESIDENT>& r,
+                                             int* ridx, float* rsym, int s0,
+                                             int s1, int n,
+                                             const GardnerConsts& c) {
+  const int cap_m1 = r.cap - 1;
+  const float nf = static_cast<float>(n);
+  const int len = s1 - s0;
+  const unsigned tile = 1u << r.lt;
+  int lo_lim = r.lo << r.lt, hi_lim = r.hi << r.lt;
+  for (int k = 0; k < len; ++k) {
+    const int ir = rint_int<ADD>(g.ns);
+    const int hr = rint_int<ADD>(g.half_raw);
+    const bool active = ADD ? ir < n : rintf(g.ns) < nf;     // clock.py:78
+    const int ii = min(max(ir, 0), cap_m1);
+    const int hc = min(max(hr, 0), cap_m1);
+    const bool in_img = hr == hc && (ADD || rintf(g.half_raw) >= 0.0f);
+    float cur = ld_shared(r.addr(ii));
+    float h = ld_shared(r.addr(hc));
+    const bool staged =
+        max(ii, hc) < hi_lim &&
+        (RESIDENT || static_cast<unsigned>(min(ii, hc) - lo_lim) < tile);
+    if (__builtin_expect(!staged, 0)) {
+      r.slow(ii, hc, in_img, cur, h);
+      lo_lim = r.lo << r.lt;
+      hi_lim = r.hi << r.lt;
+    }
+    ridx[k] = ii;
+    rsym[k] = cur;
+    timing_slot(g, cur, in_img ? h : 0.0f, active, c);
+    if (!active) return s0 + k;
+  }
+  return -1;
+}
+
+template <bool RESIDENT>
+__global__ void __launch_bounds__(kGsThreads, 1)
+gardner_scan_kernel(const float* __restrict__ x, const float* __restrict__ t,
+                    const int* __restrict__ n_valid,
+                    const float* __restrict__ st_f_in,
+                    const int* __restrict__ st_i_in, float* __restrict__ syms,
+                    float* __restrict__ times, uint8_t* __restrict__ valid,
+                    uint8_t* __restrict__ bits, uint8_t* __restrict__ emit,
+                    float* __restrict__ st_f_out, int* __restrict__ st_i_out,
+                    int* __restrict__ count, int B, int cap, int max_syms,
+                    int lt, int tiles, int ring_floats,
+                    const GardnerParams p) {
+  extern __shared__ __align__(128) unsigned char gs_sm[];
+  __shared__ int stop_slot;          // the first inactive slot, or max_syms
+  uint64_t* full = reinterpret_cast<uint64_t*>(gs_sm);
+  uint64_t* seg_full = full + tiles;
+  uint64_t* seg_free = seg_full + 2;
+  float* ring = reinterpret_cast<float*>(gs_sm + gs_bar_bytes(tiles));
+  int* ridx = reinterpret_cast<int*>(ring + ring_floats + 4);
+  float* rsym = reinterpret_cast<float*>(ridx + 2 * kGsSegment);
+  uint8_t* rbe = reinterpret_cast<uint8_t*>(rsym + 2 * kGsSegment);
+  const int b = blockIdx.x;          // the CTA's lane
+  const int tid = threadIdx.x;
+  const float* xr = x + static_cast<size_t>(b) * cap;
+  const float* tr = t + static_cast<size_t>(b) * cap;
+  const size_t row = static_cast<size_t>(b) * max_syms;
+  if (tid == 0) {
+    for (int k = 0; k < tiles; ++k) mbar_init(full + k, 2);
+    for (int q = 0; q < 2; ++q) {
+      mbar_init(seg_full + q, 1);
+      mbar_init(seg_free + q, kGsMovers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    stop_slot = max_syms;
+  }
+  __syncthreads();
+  SlotState g;
+  const GardnerConsts c(p);
+
+  if (tid == 0) {
+    // the chain: the timing half of every slot up to the first inactive
+    g.load(st_f_in, st_i_in, B, b);
+    const int n = n_valid[b];
+    Ring<RESIDENT> r(xr, ring, full, lt, tiles, cap);
+    // how far next_sample and half_raw can move in a slot, with half an
+    // ulp (< 0.25 below the limit) for each of its two adds
+    const float per_slot = fabsf(c.step) + fabsf(c.err_limit) + 1.0f;
+    int stop = max_syms;
+    for (int j = 0, s0 = 0; s0 < max_syms; ++j, s0 += kGsSegment) {
+      const int q = j & 1;
+      if (j >= 2) mbar_wait(seg_free + q, ((j >> 1) - 1) & 1);
+      const int s1 = min(s0 + kGsSegment, max_syms);
+      const float reach = (s1 - s0) * per_slot + 2.0f;
+      int* ri = ridx + q * kGsSegment;
+      float* rs = rsym + q * kGsSegment;
+      const int s = fabsf(g.ns) + reach < kRintAddLimit &&
+                            fabsf(g.half_raw) + reach < kRintAddLimit
+                        ? chain_segment<true>(g, r, ri, rs, s0, s1, n, c)
+                        : chain_segment<false>(g, r, ri, rs, s0, s1, n, c);
+      if (s >= 0) stop = stop_slot = s;
+      mbar_arrive(seg_full + q);
+      if (s >= 0) break;
+    }
+    g.store_timing(st_f_out, B, b, n);
+    count[b] = stop;
+    r.drain();
+  } else if (tid >= 32) {
+    // the movers: thread 32 makes the Manchester decision on segment j's
+    // records (through the stop slot), then all store the segment's slots
+    // and, once the chain has stopped, every later slot from the stop
+    // slot's record
+    const int m = tid - 32;
+    if (m == 0) g.load(st_f_in, st_i_in, B, b);
+    for (int j = 0;; ++j) {
+      const int q = j & 1;
+      mbar_wait(seg_full + q, (j >> 1) & 1);
+      const int s0 = j * kGsSegment;
+      const int s1 = min(s0 + kGsSegment, max_syms);
+      const int stop = stop_slot;
+      const int end = stop < s1 ? max_syms : s1;
+      const int* ri = ridx + q * kGsSegment;
+      const float* rs = rsym + q * kGsSegment;
+      uint8_t* rb = rbe + q * kGsSegment;
+      if (m == 0) {
+        const int last = min(s1, stop + 1) - s0;
+        for (int k = 0; k < last; ++k) {
+          rb[k] = static_cast<uint8_t>(
+              manchester_slot(g, rs[k], s0 + k < stop, c.thr));
+        }
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kGsMovers) : "memory");
+#pragma unroll 4
+      for (int s = s0 + m; s < end; s += kGsMovers) {
+        const int k = min(s, stop) - s0;
+        const int be = rb[k];
+        const size_t o = row + s;
+        syms[o] = rs[k];
+        times[o] = tr[ri[k]];
+        valid[o] = s < stop ? 1 : 0;
+        bits[o] = static_cast<uint8_t>(be & 1);
+        emit[o] = static_cast<uint8_t>(be >> 1);
+      }
+      if (end == max_syms) break;
+      mbar_arrive(seg_free + q);
+    }
+    if (m == 0) g.store_manchester(st_f_out, st_i_out, B, b);
+  }
+}
+
 bool bad_layout(int window, int margin, int spw) {
   return window <= 0 || margin < 0 || spw <= 0;
 }
@@ -531,6 +959,76 @@ cudaError_t gm_smem(int window, int margin, int spw, size_t* bytes) {
   const cudaError_t e = cudaFuncSetAttribute(
       gardner_manchester_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(*bytes));
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
+}
+
+bool bad_scan_args(int n_params, int B, int cap, int max_syms) {
+  return n_params != static_cast<int>(sizeof(GardnerParams) / sizeof(float))
+         || B <= 0 || cap <= 0 || max_syms <= 0;
+}
+
+// The ring of a gardner_scan_kernel launch.  The budget: an SM's shared
+// memory shared by ceil(B / SMs) CTAs (at most kGsMaxCtasPerSm).  The
+// whole image where it fits in the budget (and in ring_floats, if that is
+// not 0); else the largest power-of-two ring that does, in tiles of 1,024
+// floats, or of a quarter of the ring where that is smaller.
+struct ScanGeom {
+  int lt, tiles, resident, ring_floats, smem, ctas;
+};
+
+ScanGeom scan_geom(int B, int cap, int ring_floats) {
+  int dev = 0, n_sm = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    cudaGetLastError();
+    n_sm = 132;
+  }
+  ScanGeom g;
+  g.ctas = std::min(std::max((B + n_sm - 1) / n_sm, 1), kGsMaxCtasPerSm);
+  const int budget = std::min(kGsMaxSmem,
+                              kGsSmemPerSm / g.ctas - kGsCtaReserve)
+                     - static_cast<int>(sizeof(int));   // stop_slot
+  const int nt = (cap + (1 << kGsTileLog2) - 1) >> kGsTileLog2;
+  const int whole = (cap + 3) & ~3;
+  if ((ring_floats <= 0 || ring_floats >= whole) &&
+      gs_smem_bytes(nt, whole) <= budget) {
+    g.lt = kGsTileLog2;
+    g.tiles = nt;
+    g.resident = 1;
+    g.ring_floats = whole;
+  } else {
+    auto tile_log2 = [](int ring) {
+      int lt = 0;
+      while ((4 << lt) < ring) ++lt;   // a quarter of the ring
+      return std::min(lt, kGsTileLog2);
+    };
+    int ring = kGsMinRing;
+    for (int next = 2 * ring;
+         (ring_floats <= 0 || next <= ring_floats) &&
+         gs_smem_bytes(next >> tile_log2(next), next) <= budget;
+         next *= 2) {
+      ring = next;
+    }
+    g.lt = tile_log2(ring);
+    g.tiles = ring >> g.lt;
+    g.resident = 0;
+    g.ring_floats = ring;
+  }
+  g.smem = gs_smem_bytes(g.tiles, g.ring_floats);
+  return g;
+}
+
+// The kernel instantiation of a geometry, with its dynamic shared memory
+// limit raised to the launch's above the default 48 KB; the error if the
+// card refuses that size (then cleared).
+template <bool RESIDENT>
+cudaError_t gs_prepare(const ScanGeom& g) {
+  if (g.smem <= 48 * 1024) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      gardner_scan_kernel<RESIDENT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (e != cudaSuccess) cudaGetLastError();
   return e;
 }
@@ -681,7 +1179,9 @@ extern "C" int pdt_gardner_manchester_serial(
 // buffer images x, t (B, cap), n_valid (B,) int32 valid lengths, state as
 // st_f/st_i rows (SlotState).  Writes syms, times (B, max_syms) float32,
 // valid, bits, emit (B, max_syms) uint8, the final state (next_sample
-// rolled over by n_valid) and count (B,) int32, the active slots.  params:
+// rolled over by n_valid) and count (B,) int32, the active slots.
+// ring_floats: 0 lets scan_geom choose the ring; else the ring holds at
+// most that many floats (a small ring recycles its tiles).  params:
 // step_size, err_limit, kp, resync_threshold.  Returns the cudaError_t of
 // the launch.
 extern "C" int pdt_gardner_scan(const float* x, const float* t,
@@ -690,15 +1190,84 @@ extern "C" int pdt_gardner_scan(const float* x, const float* t,
                                 float* times, uint8_t* valid, uint8_t* bits,
                                 uint8_t* emit, float* st_f_out, int* st_i_out,
                                 int* count, int B, int cap, int max_syms,
-                                const float* params, int n_params,
-                                void* stream) {
-  if (n_params != static_cast<int>(sizeof(GardnerParams) / sizeof(float)) ||
-      B <= 0 || cap <= 0 || max_syms <= 0) {
+                                int ring_floats, const float* params,
+                                int n_params, void* stream) {
+  if (bad_scan_args(n_params, B, cap, max_syms)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const ScanGeom g = scan_geom(B, cap, ring_floats);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const GardnerParams p = gardner_params(params);
+  const cudaError_t e = g.resident ? gs_prepare<true>(g)
+                                   : gs_prepare<false>(g);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (g.resident) {
+    gardner_scan_kernel<true><<<B, kGsThreads, g.smem, st>>>(
+        x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
+        st_f_out, st_i_out, count, B, cap, max_syms, g.lt, g.tiles,
+        g.ring_floats, p);
+  } else {
+    gardner_scan_kernel<false><<<B, kGsThreads, g.smem, st>>>(
+        x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
+        st_f_out, st_i_out, count, B, cap, max_syms, g.lt, g.tiles,
+        g.ring_floats, p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Gardner scan kernel's launch configuration for B lanes of cap
+// samples and a ring_floats as pdt_gardner_scan takes it, into out[10]:
+// ring floats, tiles, floats a tile, the image resident (1) or recycled
+// (0), slots a record segment, threads a CTA, dynamic shared memory bytes
+// a CTA, resident CTAs an SM (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor), registers a thread, local bytes a thread.  Returns a
+// cudaError_t.
+extern "C" int pdt_gardner_scan_config(int B, int cap, int ring_floats,
+                                       int* out) {
+  if (B <= 0 || cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const ScanGeom g = scan_geom(B, cap, ring_floats);
+  cudaError_t e = g.resident ? gs_prepare<true>(g) : gs_prepare<false>(g);
+  cudaFuncAttributes a;
+  int ctas = 0;
+  if (e == cudaSuccess) {
+    e = g.resident ? cudaFuncGetAttributes(&a, gardner_scan_kernel<true>)
+                   : cudaFuncGetAttributes(&a, gardner_scan_kernel<false>);
+  }
+  if (e == cudaSuccess) {
+    e = g.resident ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &ctas, gardner_scan_kernel<true>, kGsThreads, g.smem)
+                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &ctas, gardner_scan_kernel<false>, kGsThreads,
+                         g.smem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = g.ring_floats;
+  out[1] = g.tiles;
+  out[2] = 1 << g.lt;
+  out[3] = g.resident;
+  out[4] = kGsSegment;
+  out[5] = kGsThreads;
+  out[6] = g.smem;
+  out[7] = ctas;
+  out[8] = a.numRegs;
+  out[9] = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
+
+// The serial Gardner scan kernel, as pdt_gardner_scan but one thread a
+// lane reading the image from device memory (no ring_floats).
+extern "C" int pdt_gardner_scan_serial(
+    const float* x, const float* t, const int* n_valid, const float* st_f_in,
+    const int* st_i_in, float* syms, float* times, uint8_t* valid,
+    uint8_t* bits, uint8_t* emit, float* st_f_out, int* st_i_out, int* count,
+    int B, int cap, int max_syms, const float* params, int n_params,
+    void* stream) {
+  if (bad_scan_args(n_params, B, cap, max_syms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((B + kThreads - 1) / kThreads);
-  gardner_scan_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  gardner_scan_serial_kernel<<<grid, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
       st_f_out, st_i_out, count, B, cap, max_syms, gardner_params(params));
   return static_cast<int>(cudaGetLastError());

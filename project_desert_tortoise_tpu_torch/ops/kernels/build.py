@@ -74,8 +74,14 @@ _SIGNATURES = {
     # st_i_out, B, n_win, window, margin, spw, params, n_params, stream
     "pdt_gardner_manchester_serial": [_P] * 10 + [_I] * 5 + [_P, _I, _P],
     # x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
+    # st_f_out, st_i_out, count, B, cap, max_syms, ring_floats, params,
+    # n_params, stream
+    "pdt_gardner_scan": [_P] * 13 + [_I] * 4 + [_P, _I, _P],
+    # B, cap, ring_floats, out
+    "pdt_gardner_scan_config": [_I] * 3 + [_P],
+    # x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
     # st_f_out, st_i_out, count, B, cap, max_syms, params, n_params, stream
-    "pdt_gardner_scan": [_P] * 13 + [_I] * 3 + [_P, _I, _P],
+    "pdt_gardner_scan_serial": [_P] * 13 + [_I] * 3 + [_P, _I, _P],
     # variant, in, st_in, out, st_out, B, L, params, n_params, stream
     "pdt_ablate_kernel": [_I] + [_P] * 4 + [_I] * 2 + [_P, _I, _P],
     # flags, re, im, tn, st_in, bit, btime, emit, st_out, B, L, window,

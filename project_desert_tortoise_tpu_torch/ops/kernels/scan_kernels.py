@@ -17,10 +17,14 @@ per launch at the main path's size, so each is a hand-written kernel in
   kernel runs one lane a CTA too, each window staged in shared memory, and
   reads and writes lane-major rows in place; the whole-image Gardner
   kernel of the exact chain (and of the block path's unwindowed
-  fallback) runs one thread a lane over the image in device memory.
-- :func:`agc_scan_serial` and :func:`gardner_manchester_serial` launch the
-  serial kernels, one thread a lane over time-major copies: the card-side
-  oracles and timing baselines of the two, on no path.
+  fallback) runs one lane a CTA too, the image staged in a ring of
+  shared-memory tiles, one thread on the slot chain's timing, one on the
+  Manchester decision over its records and three warps storing them.
+- :func:`agc_scan_serial`, :func:`gardner_manchester_serial` and
+  :func:`gardner_manchester_scan_serial` launch the serial kernels, one
+  thread a lane (over time-major copies for the first two, over the image
+  in device memory for the third): the card-side oracles and timing
+  baselines of the three, on no path.
 - :func:`agc_scan_ref`, :func:`gardner_manchester_ref` and
   :func:`gardner_manchester_scan_ref` are the plain PyTorch versions, on any device: loops over the steps, all lanes at once,
   in the JAX scans' order of float32 operations, so on the card they agree
@@ -406,19 +410,11 @@ def gardner_manchester_scan_ref(fstate, istate, x, t, n, p: GardnerParams,
             torch.stack(emits, 1), valid.sum(1, dtype=i32))
 
 
-def gardner_manchester_scan(fstate, istate, x, t, n, p: GardnerParams,
-                            max_syms: int):
-    """Gardner timing + Manchester decision over whole (B, cap) float32
-    buffer images `x` and `t` (no windows), max_syms slots; n: (B,) int32
-    valid lengths; fstate, istate as :func:`gardner_manchester`.  Returns
-    (fstate, istate, syms, times (B, max_syms) float32, valid, bits uint8,
-    emit bool (B, max_syms), count (B,) int32 active slots); a slot's time
-    is its symbol's and its bit's.  CPU tensors run
-    :func:`gardner_manchester_scan_ref`."""
+def _launch_scan(entry: str, fstate, istate, x, t, n, p: GardnerParams,
+                 max_syms: int, *extra):
+    """Launch a whole-image scan kernel (`extra`: its arguments after
+    max_syms); returns the wrapper's outputs."""
     dev = x.device
-    if not on_card("gardner_manchester_scan", dev):
-        return gardner_manchester_scan_ref(fstate, istate, x, t, n, p,
-                                           max_syms)
     f_in, i_in = _gardner_args(fstate, istate, x, t, n)
     B, cap = x.shape
     x, t, n = x.contiguous(), t.contiguous(), n.contiguous()
@@ -429,16 +425,74 @@ def gardner_manchester_scan(fstate, istate, x, t, n, p: GardnerParams,
     f_out = torch.empty_like(f_in)
     i_out = torch.empty_like(i_in)
     params = np.array(p, np.float32)
-    launch(dev, "pdt_gardner_scan", x.data_ptr(), t.data_ptr(), n.data_ptr(),
+    launch(dev, entry, x.data_ptr(), t.data_ptr(), n.data_ptr(),
            f_in.data_ptr(), i_in.data_ptr(), syms.data_ptr(),
            times.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
            flags[2].data_ptr(), f_out.data_ptr(), i_out.data_ptr(),
-           count.data_ptr(), B, cap, max_syms,
+           count.data_ptr(), B, cap, max_syms, *extra,
            params.ctypes.data_as(ctypes.c_void_p), params.size)
-    gardner_manchester_scan.launches += 1
     valid, bits, emit = flags.unbind(0)
     return (tuple(f_out.unbind(0)), tuple(i_out.unbind(0)), syms, times,
             valid, bits.view(torch.uint8), emit, count)
 
 
+def gardner_manchester_scan(fstate, istate, x, t, n, p: GardnerParams,
+                            max_syms: int, *, ring_floats: int = 0):
+    """Gardner timing + Manchester decision over whole (B, cap) float32
+    buffer images `x` and `t` (no windows), max_syms slots; n: (B,) int32
+    valid lengths; fstate, istate as :func:`gardner_manchester`.  Returns
+    (fstate, istate, syms, times (B, max_syms) float32, valid, bits uint8,
+    emit bool (B, max_syms), count (B,) int32 active slots); a slot's time
+    is its symbol's and its bit's.  CPU tensors run
+    :func:`gardner_manchester_scan_ref`.  The kernel stages each lane's
+    image in a ring of shared memory that it sizes itself
+    (:func:`gardner_scan_launch_config`); ``ring_floats`` > 0 caps the
+    ring (so that a small image recycles its tiles), for tests."""
+    dev = x.device
+    if not on_card("gardner_manchester_scan", dev):
+        return gardner_manchester_scan_ref(fstate, istate, x, t, n, p,
+                                           max_syms)
+    out = _launch_scan("pdt_gardner_scan", fstate, istate, x, t, n, p,
+                       max_syms, int(ring_floats))
+    gardner_manchester_scan.launches += 1
+    return out
+
+
 gardner_manchester_scan.launches = 0
+
+
+def gardner_manchester_scan_serial(fstate, istate, x, t, n,
+                                   p: GardnerParams, max_syms: int):
+    """:func:`gardner_manchester_scan` on the serial kernel, one thread a
+    lane reading the image from device memory.  No path calls it: the
+    card checks and ``chip_smoke.py`` hold :func:`gardner_manchester_scan`
+    to it and time the two in one run.  CUDA tensors only."""
+    dev = x.device
+    if not on_card("gardner_manchester_scan_serial", dev):
+        raise ValueError("gardner_manchester_scan_serial runs on a CUDA "
+                         "device only")
+    out = _launch_scan("pdt_gardner_scan_serial", fstate, istate, x, t, n,
+                       p, max_syms)
+    gardner_manchester_scan_serial.launches += 1
+    return out
+
+
+gardner_manchester_scan_serial.launches = 0
+
+# what pdt_gardner_scan_config reports, in order
+GARDNER_SCAN_CONFIG_FIELDS = (
+    "ring_floats", "tiles", "tile_floats", "resident", "segment_slots",
+    "threads", "dynamic_smem_bytes", "ctas_per_sm", "registers",
+    "local_bytes")
+
+
+def gardner_scan_launch_config(B: int, cap: int, ring_floats: int = 0,
+                               device="cuda") -> dict:
+    """The whole-image Gardner kernel's launch configuration for B lanes
+    of cap samples: the ring's floats, tiles and floats a tile, whether it
+    holds the whole image (1) or recycles its tiles (0), slots a record
+    segment, threads and dynamic shared memory bytes a CTA, the CTAs
+    resident on an SM at that size, and registers and local (spill) bytes
+    a thread, as the card reports them."""
+    return kernel_config(device, "pdt_gardner_scan_config", B, cap,
+                         ring_floats, fields=GARDNER_SCAN_CONFIG_FIELDS)

@@ -2,7 +2,11 @@
 card: ``gardner_manchester_scan`` at one lane over a quirks buffer image
 whose carried mid-bit pointer is stale (inside the image, past the valid
 length, past the image, negative) and at 37 lanes with ragged valid
-lengths; ``pll_scan`` and ``agc_scan`` at one lane from an unlocked start
+lengths, its ring holding the whole image or forced small (tiles
+recycled, the stale pointer read from device memory), on rows aligned to
+16 bytes or not, also against its serial twin
+``gardner_manchester_scan_serial``; ``pll_scan`` and ``agc_scan`` at one
+lane from an unlocked start
 over a chunk of each float32 mode and a short final one; and three chunks
 of ``chain.chunk_step`` in each float32 mode, the kernels against the
 plain versions on the same card, every output and state bit for bit.
@@ -42,7 +46,9 @@ def _equal(got, want):
             assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def _image(B, cap, step, seed, dev):
+def _image(B, cap, step, seed, dev, offset=0):
+    """x and t (B, cap) on dev; with `offset`, each a view `offset` floats
+    into its storage, so that rows start off a 16-byte boundary."""
     rng = np.random.default_rng(seed)
     x = np.empty((B, cap), np.float32)
     for b in range(B):
@@ -51,18 +57,33 @@ def _image(B, cap, step, seed, dev):
         x[b] = sym[pos.astype(int)] + 0.1 * rng.standard_normal(cap)
     t = np.tile(np.arange(1, cap + 1, dtype=np.float32) / np.float32(FS),
                 (B, 1))
-    return torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)
+
+    def place(a):
+        buf = torch.zeros(B * cap + offset, device=dev)
+        buf[offset:] = torch.from_numpy(a).reshape(-1).to(dev)
+        return buf[offset:].view(B, cap)
+    return place(x), place(t)
+
+
+# the forced small ring: 2,048 floats, four tiles of 512
+SMALL_RING = 2048
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["aligned", "unaligned"])
+@pytest.mark.parametrize("ring", ["resident", "small"])
 @pytest.mark.parametrize("case", ["inside", "past n", "past cap",
                                   "negative"])
 @pytest.mark.parametrize("B", [1, 37])
-def test_gardner_manchester_scan_matches_plain_on_card(card, case, B):
+def test_gardner_manchester_scan_matches_plain_on_card(card, case, B, ring,
+                                                       rows):
     params = chain.make_params(POES_TIP, FS, quirks=True)
-    cap = 6000 * params.interp
+    # unaligned: rows of 17,999 floats from 1 float past a 16-byte
+    # boundary, so each lane's row has its own ragged head and tail
+    cap = 6000 * params.interp - (rows == "unaligned")
     msyms = chain.max_symbols(cap, params.step_size)
-    x, t = _image(B, cap, params.step_size, B, card)
+    x, t = _image(B, cap, params.step_size, B, card,
+                  offset=int(rows == "unaligned"))
     n = torch.full((B,), cap, dtype=torch.int32, device=card)
     n[::3] = cap - 4321                      # short final chunks
     half = {"inside": cap - 9.6, "past n": cap - 4321 + 3.5,
@@ -74,12 +95,19 @@ def test_gardner_manchester_scan_matches_plain_on_card(card, case, B):
     istate = (m0.clockmod, m0.evenodd + 1)
     gp = sk.GardnerParams(params.step_size, params.gardner_err_limit,
                           params.gardner_gain, params.resync_threshold)
+    ring_floats = SMALL_RING if ring == "small" else 0
+    config = sk.gardner_scan_launch_config(B, cap, ring_floats)
+    assert config["resident"] == (ring == "resident"), config
+    assert config["local_bytes"] == 0, config
     before = sk.gardner_manchester_scan.launches
-    got = sk.gardner_manchester_scan(fstate, istate, x, t, n, gp, msyms)
+    got = sk.gardner_manchester_scan(fstate, istate, x, t, n, gp, msyms,
+                                     ring_floats=ring_floats)
     torch.cuda.synchronize()
     assert sk.gardner_manchester_scan.launches == before + 1
     _equal(got, sk.gardner_manchester_scan_ref(fstate, istate, x, t, n, gp,
                                                msyms))
+    _equal(got, sk.gardner_manchester_scan_serial(fstate, istate, x, t, n,
+                                                  gp, msyms))
     assert int(got[-1].min()) > 0 and int(got[-2].sum()) > 100 * B
 
 
@@ -160,9 +188,16 @@ def test_gardner_scan_refuses_bad_input(card):
     f = tuple(torch.zeros(2, device=card) for _ in range(6))
     i = tuple(torch.zeros(2, dtype=torch.int32, device=card)
               for _ in range(2))
-    with pytest.raises(TypeError):
-        sk.gardner_manchester_scan(f, i, x.double(), x, n, gp, 20)
-    with pytest.raises(ValueError):
-        sk.gardner_manchester_scan(f, i, x, x.cpu(), n, gp, 20)
-    with pytest.raises(ValueError):
-        sk.gardner_manchester_scan(f, i, x, x, n[:1], gp, 20)
+    for scan in (sk.gardner_manchester_scan,
+                 sk.gardner_manchester_scan_serial):
+        with pytest.raises(TypeError):
+            scan(f, i, x.double(), x, n, gp, 20)
+        with pytest.raises(ValueError):
+            scan(f, i, x, x.cpu(), n, gp, 20)
+        with pytest.raises(ValueError):
+            scan(f, i, x, x, n[:1], gp, 20)
+    with pytest.raises(RuntimeError):            # the kernel refuses 0 slots
+        sk.gardner_manchester_scan(f, i, x, x, n, gp, 0)
+    with pytest.raises(ValueError):              # no plain version behind it
+        sk.gardner_manchester_scan_serial(f, i, x.cpu(), x.cpu(), n.cpu(),
+                                          gp, 20)
