@@ -23,7 +23,23 @@ and drives the port's three entry points:
   into chunk steps, fetches, framer and writer; each kernel's ms a
   chunk);
 - the two ablation tools (``project_desert_tortoise_tpu_torch/tools``),
-  every variant at 128 and at 4,224 lanes (``ablation`` lines).
+  every variant at 128 and at 4,224 lanes (``ablation`` lines);
+- multi-channel serving (``serving``): a ``ChannelBank`` of 256 POES
+  channels of 1,228,800 int16 samples (32 synthetic recordings, each on 8
+  channels), pushed by producer threads and pumped in 128-lane batches,
+  on the fused and on the scan branch: every payload once on every
+  channel (extra frames only from the lead-in's acquisition), the scan
+  branch's lines ``demodulate_many``'s, the fused
+  branch's ``demodulate_blocked``'s, float32 staging's int16's; wall,
+  Msamples/s, per-batch dispatch-to-collect ms and each kernel's ms a
+  batch (CUDA events); then ``demod_serve`` on 16 of those channels as
+  WAVs, its files the API run's lines;
+- ``demod_realtime`` on 60 s of ``poes_tip_realtime`` fed on stdin (the
+  exact chain: an offline ``DemodSession``'s lines; ``--fast``:
+  ``demodulate_many``'s), and ``--fast --source follow:PATH`` on a RAW
+  file written while it runs, stopped by SIGINT; a checkpoint of the
+  exact session halfway, resumed to the lines of the run without the
+  stop (``realtime``, ``checkpoint``).
 
 The exact chain's kernels are held to their plain versions at one lane
 (``pll_scan`` and ``agc_scan`` from an unlocked start,
@@ -2018,6 +2034,596 @@ def phase_ablation(stats: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Streaming and serving: ChannelBank, demodulate_many, demod_serve,
+# demod_realtime, checkpoints
+
+
+SERVE_CHANNELS = 256
+SERVE_RECORDINGS = 32                     # each on SERVE_CHANNELS / 32
+SERVE_SAMPLES = 1_228_800                 # 12 cores of the default plan
+SERVE_FRAMES = 242                        # 24.6 s of minor frames
+# extra frames may come only from the acquisition of the lead-in frame
+# (0.3 s of noise, then the lead-in at 0.3-0.4 s; fault (e)): a corrupted
+# lead-in, or a sync found in the noise before it
+SERVE_LEAD_END_S = 0.4
+SERVE_CHUNK = 25_000
+SERVE_PRODUCERS = 4
+SERVE_CHECK_L = 4096
+SERVE_ENTRY = {"fused_demod": "pdt_fused_demod", "pll_scan": "pdt_pll_scan",
+               "agc_scan": "pdt_agc_scan",
+               "gardner_manchester": "pdt_gardner_manchester"}
+RT_FS = 48000.0
+RT_FRAMES = 596                           # 60 s of poes_tip_realtime
+# stdin and the followed file are fed faster than real time, at a pace the
+# consumer keeps up with (the ring holds 5.5 s of exact-chain input)
+RT_PACE = {"exact": 4.0, "fast": 8.0}
+
+
+def serve_carrier_hz(r: int) -> float:
+    """Recording r's carrier: half the recordings spread over -3..-1 kHz,
+    half over +1..+3 kHz.  Offsets of ~250-700 Hz are left out: there the
+    fast path's carrier warm start (coarse_carrier_est) loses up to the
+    first 1.2 s of frames in the JAX package as in the port (ROADMAP
+    fault (h))."""
+    half = SERVE_RECORDINGS // 2
+    side = -1.0 if r < half else 1.0
+    return side * (1000.0 + 2000.0 * (r % half) / max(half - 1, 1))
+
+
+def serving_recordings():
+    """SERVE_RECORDINGS synthetic POES recordings (one seed and carrier
+    each, serve_carrier_hz) as int16 planes; returns (re, im) (R, N)
+    int16, each recording's payloads and lead-in payload."""
+    from project_desert_tortoise_tpu_torch.utils import synth
+
+    t0 = time.time()
+    R = SERVE_RECORDINGS
+    re = np.empty((R, SERVE_SAMPLES), np.int16)
+    im = np.empty((R, SERVE_SAMPLES), np.int16)
+    want, lead = [], []
+    for r in range(R):
+        iq, frames = synth.make_poes_recording(
+            n_frames=SERVE_FRAMES, fs=POES_FS,
+            carrier_hz=serve_carrier_hz(r),
+            rng=np.random.default_rng(1000 + r))
+        iq = iq[:SERVE_SAMPLES] / (np.abs(iq).max() * 1.2)
+        re[r], im[r] = to_int16(iq.real), to_int16(iq.imag)
+        want.append([bytes(f) for f in frames[1:]])
+        lead.append(bytes(frames[0]))
+    emit("serving_synth", recordings=R, samples=SERVE_SAMPLES,
+         payloads_each=SERVE_FRAMES - 1, seconds=time.time() - t0)
+    return re, im, want, lead
+
+
+def bank_run(planes, br, n_channels, stage_dtype, on_batch=None):
+    """A ChannelBank on the card fed by SERVE_PRODUCERS threads in
+    SERVE_CHUNK pushes (channel ci from recording ci % R; int16 pushed
+    raw, or as float32 PCM values), pumped on this thread until every
+    producer is done, then drained.  Returns (bank, wall seconds)."""
+    from project_desert_tortoise_tpu_torch.parallel.serving import ChannelBank
+    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
+    import threading
+
+    re, im = planes
+    R = len(re)
+    bank = ChannelBank(POES_TIP, POES_FS, n_channels, batch_blocks=128,
+                       use_pallas=br, stage_dtype=stage_dtype,
+                       device="cuda")
+    cast = ((lambda x: x) if stage_dtype == np.int16 else
+            (lambda x: x.astype(np.float32) / np.float32(32768.0)))
+
+    def produce(k):
+        mine = range(k, n_channels, SERVE_PRODUCERS)
+        for lo in range(0, SERVE_SAMPLES, SERVE_CHUNK):
+            for ci in mine:
+                r = ci % R
+                bank.push(ci, cast(re[r, lo:lo + SERVE_CHUNK]),
+                          cast(im[r, lo:lo + SERVE_CHUNK]))
+        for ci in mine:
+            bank.end_of_stream(ci)
+    t0 = time.time()
+    threads = [threading.Thread(target=produce, args=(k,))
+               for k in range(SERVE_PRODUCERS)]
+    for th in threads:
+        th.start()
+    while any(th.is_alive() for th in threads):
+        if bank.pump() == 0:
+            time.sleep(0.001)
+    for th in threads:
+        th.join()
+    bank.drain()
+    return bank, time.time() - t0
+
+
+def frame_lines(frames):
+    """The lines FrameWriter writes for a POES mode (inverted frames
+    marked), without the trailing newline."""
+    return [f"{f.time:.5f}" + ("i" if f.inverted else "") + " "
+            + "".join(f"{b:02X} " for b in f.data) for f in frames]
+
+
+def serving_bound(name: str, params, B: int, L: int, in_bytes: int) -> dict:
+    """The bound of one launch at the serving batch shape (B, L), as the
+    other phases count it: bytes each input read once and each output
+    written once, operations counted from the sources; Gardner's symbols
+    all the slots the rows' samples hold (silent rows included)."""
+    interp = params.interp
+    if name == "fused_demod":
+        ops = 40.0 + 2 * len(params.taps) + 8 * interp + 20
+        return bound(B * L * (2.0 * in_bytes + 8.0), B * L * ops)
+    if name == "pll_scan":
+        return bound(B * L * 16.0, B * L * 40.0)
+    if name == "agc_scan":
+        return bound(B * L * interp * 8.0, B * L * interp * 8.0)
+    n_sym = B * L * interp / params.step_size
+    return bound(n_sym * 12.0 + n_sym * 6.0, n_sym * 30.0)
+
+
+def phase_serving(stats: dict):
+    """ChannelBank at full width: SERVE_CHANNELS channels of SERVE_SAMPLES
+    int16 samples, 128-lane batches, producer threads pushing while this
+    thread pumps; once on the fused branch and once on the scan branch
+    (False).  Every channel recovers each payload of its recording once
+    (the lead-in apart), with no other frame after the lead-in
+    (SERVE_LEAD_END_S), on both; on the scan branch every channel's lines
+    are demodulate_many's over the same planes; on the fused branch the
+    first 8 channels' are demodulate_blocked's (fused, the bank's norm);
+    int16 and float32 staging give the same lines on 8 channels.  Each
+    kernel launch of the bank runs is bracketed by CUDA events
+    (common.launch_events).  Returns ({kernel: launches}, the planes, the
+    scan branch's lines of the first 16 channels, the fused branch's)."""
+    import torch
+    from project_desert_tortoise_tpu_torch import chain
+    from project_desert_tortoise_tpu_torch.ops.kernels import common
+    from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
+        fused_demod, fused_demod_ref)
+    from project_desert_tortoise_tpu_torch.ops.pll import pll_scan_ref
+    from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
+        pll_scan_kernel)
+    from project_desert_tortoise_tpu_torch.parallel import blocked
+    from project_desert_tortoise_tpu_torch.utils import wav as W
+    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
+
+    re, im, want, lead = serving_recordings()
+    R, C = SERVE_RECORDINGS, SERVE_CHANNELS
+    params = chain.make_params(POES_TIP, POES_FS)
+    plan = blocked.default_plan(POES_TIP, POES_FS)
+    launches = collections.Counter()
+    lines = {}
+    captured = {}
+    problems = []
+    real_demod_frames = blocked.demod_frames
+
+    def capture(*a, **k):
+        # keep the last batch of each branch (its planes, lo, estimate,
+        # stream lengths, norm): the drain's, padded with silent rows
+        # unless it filled all 128
+        captured[a[11]] = (a[4], a[5], a[6], a[8], a[7], a[9])
+        return real_demod_frames(*a, **k)
+
+    for br in ("fused", False):
+        events = {}
+        with patched(common, "launch_events", events), \
+                patched(blocked, "demod_frames", capture):
+            (bank, wall), counts = drive(
+                br, lambda: bank_run((re, im), br, C, np.int16))
+        launches.update(counts)
+        torch.cuda.synchronize()
+        got = [frame_lines(f) for f in bank.frames]
+        lines[br] = got
+        missed, extra, repeated = collections.Counter(), {}, 0
+        missed_on, late = [], {}
+        for ci in range(C):
+            r = ci % R
+            m, e, rep = payload_diff([bytes(f.data) for f in bank.frames[ci]],
+                                     want[r], lead[r])
+            missed.update(m)
+            repeated += len(rep)
+            if m:
+                missed_on.append(ci)
+            known = set(want[r]) | {lead[r]}
+            odd = [f"{f.time:.5f}" for f in bank.frames[ci]
+                   if bytes(f.data) not in known]
+            if odd:
+                extra[ci] = odd
+            if any(float(x) >= SERVE_LEAD_END_S for x in odd):
+                late[ci] = odd
+        if missed or repeated or late:
+            problems.append(f"serving {br}: payloads missed (index: "
+                            f"channels) {dict(missed.most_common(10))}, on "
+                            f"channels {missed_on[:12]}, {repeated} "
+                            f"repeated, extra frames after the lead-in on "
+                            f"{len(late)} channels "
+                            f"{dict(list(late.items())[:4])}")
+        ms = sorted(bank.batch_ms)
+        kernel_ms = {}
+        for k in PATH_KERNELS[br]:
+            pairs = events.get(SERVE_ENTRY[k], [])
+            if len(pairs) != counts[k]:
+                raise AssertionError(f"serving {br}: {len(pairs)} timed "
+                                     f"launches of {k}, {counts[k]} counted")
+            kernel_ms[k] = sum(a.elapsed_time(b) for a, b in pairs) / len(
+                pairs)
+            in_bytes = 2 if k in ("fused_demod", "pll_scan") else 4
+            stats[k].setdefault("serving", {}).update(
+                ms=kernel_ms[k], shape=[128, plan.total],
+                launches_serving=counts[k], **serving_bound(
+                    k, params, 128, plan.total, in_bytes))
+        emit("serving", use_pallas=br, channels=C, samples_each=SERVE_SAMPLES,
+             stage="int16", batch_blocks=128, producers=SERVE_PRODUCERS,
+             wall_s=wall, msamples_per_s=C * SERVE_SAMPLES / wall / 1e6,
+             blocks=bank.blocks, batches=bank.batches,
+             batch_dispatch_to_collect_ms_p50=ms[len(ms) // 2],
+             batch_dispatch_to_collect_ms_p99=ms[min(len(ms) - 1,
+                                                     int(0.99 * len(ms)))],
+             kernel_ms_a_batch=kernel_ms,
+             kernels_ms_a_batch=sum(kernel_ms.values()),
+             frames=sum(map(len, bank.frames)), payloads_once=C * (
+                 SERVE_FRAMES - 1) - sum(missed.values()) - repeated,
+             of=C * (SERVE_FRAMES - 1),
+             lead_in_extras={ci: v for ci, v in list(extra.items())[:8]},
+             channels_with_lead_in_extras=len(extra),
+             launches=counts, norm=bank.norm,
+             card=card_line())
+        if br == "fused":
+            fused_norm = bank.norm
+        del bank
+
+    # the scan branch against demodulate_many over the same planes
+    t = W.time_axis(SERVE_SAMPLES, POES_FS, np.float32)
+    s = np.float32(1.0 / 32768.0)
+    iqs = np.empty((C, SERVE_SAMPLES), np.complex64)
+    for ci in range(C):
+        iqs[ci].real = re[ci % R] * s
+        iqs[ci].imag = im[ci % R] * s
+    t0 = time.time()
+    many, counts = drive(False, lambda: blocked.demodulate_many(
+        iqs, t, POES_FS, POES_TIP, batch_blocks=128, device="cuda"))
+    many_s = time.time() - t0
+    launches.update(counts)
+    differ = [ci for ci in range(C)
+              if frame_lines(many[ci]) != lines[False][ci]]
+    many_differ = len(differ)
+    if differ:
+        ci = differ[0]
+        a, b = frame_lines(many[ci]), lines[False][ci]
+        problems.append(f"serving False: {len(differ)} channels' lines "
+                        f"differ from demodulate_many's {differ[:10]}; "
+                        f"channel {ci}: {len(b)} lines against {len(a)}, "
+                        f"only the bank's {sorted(set(b) - set(a))[:2]}, "
+                        "only demodulate_many's "
+                        f"{sorted(set(a) - set(b))[:2]}")
+    del many
+    # the fused branch's first 8 channels against demodulate_blocked
+    t0 = time.time()
+    K = min(8, C)
+    offline, counts = drive("fused", lambda: [blocked.demodulate_blocked(
+        iqs[ci], t, POES_FS, POES_TIP, norm_factor=fused_norm,
+        use_pallas="fused", device="cuda") for ci in range(K)])
+    blocked_s = time.time() - t0
+    launches.update(counts)
+    differ = [ci for ci in range(K)
+              if frame_lines(offline[ci]) != lines["fused"][ci]]
+    blocked_differ = len(differ)
+    if differ:
+        ci = differ[0]
+        a, b = frame_lines(offline[ci]), lines["fused"][ci]
+        problems.append(f"serving fused: channels {differ} differ from "
+                        f"demodulate_blocked's lines; channel {ci}: {len(b)} "
+                        f"lines against {len(a)}, only the bank's "
+                        f"{sorted(set(b) - set(a))[:2]}, only "
+                        f"demodulate_blocked's {sorted(set(a) - set(b))[:2]}")
+    del iqs
+    # float32 staging of the first 8 channels against int16's
+    (bank32, wall32), counts = drive(
+        False, lambda: bank_run((re, im), False, K, np.float32))
+    launches.update(counts)
+    f32_equal = [frame_lines(f) for f in bank32.frames] == lines[False][:K]
+    if not f32_equal:
+        problems.append("serving: float32 staging's lines differ from "
+                        "int16 staging's")
+
+    # the kernels on a captured serving batch against their plain versions
+    # (its first SERVE_CHECK_L samples; silent rows where the run had some)
+    L = SERVE_CHECK_L
+    zre, zim, lo, fest, n_rows, norm = captured["fused"]
+    pst, gain = blocked.warm_state(params, fest, POES_FS, norm)
+    seed, pad0 = blocked.position_seeds(lo, 1)
+    z = (zre[:, :L].contiguous(), zim[:, :L].contiguous())
+    time_pair("fused_demod", "serving batch, int16, time generation",
+              lambda: fused_demod(params, pst, gain, z, None, seed, pad0,
+                                  1.0),
+              lambda: fused_demod_ref(params, pst, gain, z, None, seed, pad0,
+                                      1.0), [int(zre.shape[0]), L], stats)
+    fused_silent = int((n_rows == 0).sum())
+    zre, zim, lo, fest, n_rows, norm = captured[False]
+    pst, _ = blocked.warm_state(params, fest, POES_FS, norm)
+    z = tuple(x[:, :L].to(torch.float32) * (1.0 / 32768.0) for x in
+              (zre, zim))
+    time_pair("pll_scan", "serving batch, int16 planes",
+              lambda: pll_scan_kernel(params.pll, pst, z),
+              lambda: pll_scan_ref(params.pll, pst, *z),
+              [int(zre.shape[0]), L], stats)
+    emit("serving_checks", channels_as_demodulate_many=C - many_differ,
+         of=C, demodulate_many_s=many_s,
+         channels_as_demodulate_blocked_fused=K - blocked_differ, of_fused=K,
+         demodulate_blocked_s=blocked_s, f32_staging_lines_equal=f32_equal,
+         f32_staging_wall_s=wall32, checked_batch_silent_rows={
+             "fused": fused_silent, "False": int((n_rows == 0).sum())},
+         problems=problems, card=card_line())
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches, (re, im), {br: v[:16] for br, v in lines.items()}
+
+
+def write_int16_wav(path: str, re, im, fs: float):
+    """A 2-channel 16-bit PCM WAV holding the int16 planes as they are."""
+    import struct
+    pcm = np.empty((len(re), 2), "<i2")
+    pcm[:, 0], pcm[:, 1] = re, im
+    body = pcm.tobytes()
+    hdr = struct.pack("<4sI4s4sIHHIIHH4sI", b"RIFF", 36 + len(body), b"WAVE",
+                      b"fmt ", 16, 1, 2, int(fs), int(fs) * 4, 4, 16,
+                      b"data", len(body))
+    with open(path, "wb") as f:
+        f.write(hdr + body)
+
+
+def phase_demod_serve(workdir: str, planes, api_lines) -> dict:
+    """The demod_serve CLI on 16 int16 WAVs (the serving phase's first 16
+    channels): --use-pallas fused --batch-blocks 128, then --stage f32 on
+    the scan branch; each output file's lines must be the API run's for
+    that channel."""
+    from project_desert_tortoise_tpu_torch.apps import demod_serve
+
+    re, im = planes
+    wavs = []
+    for ci in range(len(api_lines[False])):
+        wavs.append(os.path.join(workdir, f"serve{ci:02d}.wav"))
+        write_int16_wav(wavs[-1], re[ci % len(re)], im[ci % len(im)],
+                        POES_FS)
+    launches = collections.Counter()
+    for br, flags in (("fused", ["--use-pallas", "fused", "--batch-blocks",
+                                 "128"]),
+                      (False, ["--stage", "f32", "--batch-blocks", "128"])):
+        out = os.path.join(workdir, f"serve_{br}")
+        os.makedirs(out)
+        so = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(so):
+            rc, counts = drive(br, lambda: demod_serve.run(
+                wavs + ["--out-dir", out] + flags))
+        wall = time.time() - t0
+        if rc != 0:
+            raise AssertionError(f"demod_serve {flags} exited {rc}")
+        launches.update(counts)
+        for ci, wav in enumerate(wavs):
+            base = os.path.splitext(os.path.basename(wav))[0]
+            with open(os.path.join(out, f"frames_{ci}_{base}.txt")) as f:
+                got = f.read().splitlines()
+            if got != api_lines[br][ci]:
+                raise AssertionError(f"demod_serve {flags}: channel {ci}'s "
+                                     "file differs from the API run's lines")
+        emit("demod_serve", flags=flags, channels=len(wavs), wall_s=wall,
+             launches=counts, files_equal_api=len(wavs),
+             stdout_tail=so.getvalue()[-200:], card=card_line())
+    for wav in wavs:
+        os.remove(wav)
+    return launches
+
+
+class PacedStdin:
+    """A stand-in for sys.stdin whose .buffer gives `data` (interleaved
+    float32 IQ) at `pace` times the real-time byte rate of `fs`."""
+
+    def __init__(self, data: bytes, fs: float, pace: float):
+        self.buffer = self
+        self._data, self._pos = data, 0
+        self._rate = fs * 8 * pace
+        self._t0 = None
+
+    def read(self, n: int) -> bytes:
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
+        due = self._t0 + self._pos / self._rate
+        time.sleep(max(0.0, due - time.perf_counter()))
+        out = self._data[self._pos:self._pos + n]
+        self._pos += len(out)
+        return out
+
+
+def realtime_cli(argv, stdin=None):
+    """demod_realtime.run(argv) in this process (stdin replaced by
+    `stdin`), its stdout and stderr captured; the SIGINT handler it sets
+    is put back afterwards.  Returns (rc, stdout, stderr)."""
+    import signal
+    from project_desert_tortoise_tpu_torch.apps import demod_realtime
+
+    so, se = io.StringIO(), io.StringIO()
+    saved = signal.getsignal(signal.SIGINT)
+    try:
+        with contextlib.ExitStack() as stack:
+            if stdin is not None:
+                stack.enter_context(patched(sys, "stdin", stdin))
+            stack.enter_context(contextlib.redirect_stdout(so))
+            stack.enter_context(contextlib.redirect_stderr(se))
+            rc = demod_realtime.run(argv)
+    finally:
+        signal.signal(signal.SIGINT, saved)
+    m = re.search(r"\((\d+) overrun samples\)", so.getvalue())
+    if rc != 0 or m is None or int(m.group(1)):
+        raise AssertionError(f"demod_realtime {argv}: rc {rc}, "
+                             f"{so.getvalue()[-300:]}")
+    return so.getvalue(), se.getvalue()
+
+
+def phase_realtime(workdir: str) -> dict:
+    """demod_realtime on the card with 60 s of poes_tip_realtime at 48 kHz:
+    from stdin, the exact chain (lines equal an offline DemodSession with
+    quirks off over the same samples) and --fast (lines equal
+    demodulate_many on them, what a one-channel ChannelBank gives);
+    --fast --source follow:PATH on a RAW file written while it runs, until
+    SIGINT (Ctrl-C), its lines those of --fast from stdin.  Then a
+    checkpoint: the exact session stopped halfway, saved, loaded and
+    continued, its lines those of the run without the stop."""
+    import signal
+    import threading
+    from project_desert_tortoise_tpu_torch.models import streaming
+    from project_desert_tortoise_tpu_torch.models.demodulator import (
+        DemodSession)
+    from project_desert_tortoise_tpu_torch.parallel import blocked
+    from project_desert_tortoise_tpu_torch.utils import checkpoint
+    from project_desert_tortoise_tpu_torch.utils import synth, wav as W
+    from project_desert_tortoise_tpu_torch.utils.config import (
+        POES_TIP_REALTIME)
+
+    mode = POES_TIP_REALTIME
+    iq, frames = synth.make_poes_recording(n_frames=RT_FRAMES, fs=RT_FS,
+                                           carrier_hz=-2000.0,
+                                           rng=np.random.default_rng(48))
+    n = len(iq) // mode.chunk_size * mode.chunk_size
+    iq = (iq[:n] / (np.abs(iq[:n]).max() * 1.2)).astype(np.complex64)
+    x = np.empty((n, 2), "<f4")
+    x[:, 0], x[:, 1] = iq.real, iq.imag
+    stdin_bytes = x.tobytes()
+    t = W.time_axis(n, RT_FS, np.float32)
+    want = {bytes(f) for f in frames}
+    launches = collections.Counter()
+
+    def lines_of(path):
+        with open(path) as f:
+            return f.read().splitlines()
+
+    out = os.path.join(workdir, "rt_exact.txt")
+    t0 = time.time()
+    (so, se), counts = drive("exact", lambda: realtime_cli(
+        ["--out", out], PacedStdin(stdin_bytes, RT_FS, RT_PACE["exact"])))
+    exact_wall = time.time() - t0
+    launches.update(counts)
+    got = lines_of(out)
+
+    def offline():
+        s = DemodSession(mode, RT_FS, quirks=False, device="cuda")
+        return s, s.run(iq, t)
+    t0 = time.time()
+    (sess, res), counts = drive("exact", offline)
+    offline_s = time.time() - t0
+    launches.update(counts)
+    if got != frame_lines(res.frames):
+        raise AssertionError(f"demod_realtime (exact): {len(got)} lines "
+                             f"against the session's {len(res.frames)}")
+    decoded = sum(bytes(f.data) in want for f in res.frames)
+    emit("realtime", source="stdin", chain="exact",
+         seconds_of_signal=n / RT_FS,
+         pace=RT_PACE["exact"], wall_s=exact_wall, lines=len(got),
+         payloads_decoded=decoded, of=len(want), offline_session_s=offline_s,
+         equal_offline_session=True, launches=counts,
+         status_line=re.sub(r"\x1b\[[0-9;]*m", "", se.rsplit("\r", 1)[-1])
+         .strip()[:120], card=card_line())
+    if decoded < len(want) - 2:
+        raise AssertionError(f"demod_realtime (exact): {decoded} of "
+                             f"{len(want)} payloads")
+
+    # a checkpoint halfway through the same samples
+    half = n // 2 // mode.chunk_size * mode.chunk_size
+    ck = os.path.join(workdir, "session.npz")
+
+    def resumed():
+        ts = np.float32(1.0) / np.float32(RT_FS)
+        t_ext = np.concatenate([t, [np.float32(t[-1] + ts)]])
+        a = DemodSession(mode, RT_FS, quirks=False, device="cuda")
+        got = []
+        for lo in range(0, half, mode.chunk_size):
+            got += a.process(iq[lo:lo + mode.chunk_size],
+                             t[lo:lo + mode.chunk_size],
+                             t_ext[lo + 1:lo + mode.chunk_size + 1])
+        checkpoint.save_session(a, ck)
+        b = checkpoint.load_session(ck, device="cuda")
+        for lo in range(half, n, mode.chunk_size):
+            got += b.process(iq[lo:lo + mode.chunk_size],
+                             t[lo:lo + mode.chunk_size],
+                             t_ext[lo + 1:lo + mode.chunk_size + 1])
+        tail = b.framer.flush()
+        return got + ([tail] if tail is not None else [])
+    t0 = time.time()
+    got_ck, counts = drive("exact", resumed)
+    launches.update(counts)
+    if frame_lines(got_ck) != frame_lines(res.frames):
+        raise AssertionError("checkpoint: the resumed session's lines differ "
+                             "from the run without the stop")
+    emit("checkpoint", mode=mode.name, stopped_at_sample=half,
+         lines=len(got_ck), equal_continuous=True,
+         npz_bytes=os.path.getsize(ck), wall_s=time.time() - t0,
+         launches=counts, card=card_line())
+
+    out = os.path.join(workdir, "rt_fast.txt")
+    t0 = time.time()
+    (so, se), counts = drive(False, lambda: realtime_cli(
+        ["--fast", "--out", out],
+        PacedStdin(stdin_bytes, RT_FS, RT_PACE["fast"])))
+    fast_wall = time.time() - t0
+    launches.update(counts)
+    fast = lines_of(out)
+    many, counts = drive(False, lambda: blocked.demodulate_many(
+        iq[None], t, RT_FS, mode, batch_blocks=16, device="cuda"))
+    launches.update(counts)
+    if fast != frame_lines(many[0]):
+        raise AssertionError(f"demod_realtime --fast: {len(fast)} lines "
+                             f"against demodulate_many's {len(many[0])}")
+    emit("realtime", source="stdin", chain="fast",
+         seconds_of_signal=n / RT_FS,
+         pace=RT_PACE["fast"], wall_s=fast_wall, lines=len(fast),
+         payloads_decoded=sum(bytes.fromhex(ln.split(" ", 1)[1]) in want
+                              for ln in fast),
+         equal_demodulate_many=True, launches=counts, card=card_line())
+
+    # --source follow:PATH on a RAW file written while the CLI runs; SIGINT
+    # once the follower has pushed every sample
+    raw = os.path.join(workdir, "live.raw")
+    open(raw, "wb").close()
+    pushed = [0]
+    real_follow = streaming.follow_raw_file
+
+    class CountingRing:
+        def __init__(self, ring):
+            self.ring = ring
+
+        def push(self, a, b):
+            pushed[0] += len(a)
+            return self.ring.push(a, b)
+
+    def follow(ring, path, stop, **kw):
+        return real_follow(CountingRing(ring), path, stop, **kw)
+
+    def writer():
+        second = int(RT_FS) * 8                # bytes of 1 s of signal
+        with open(raw, "ab") as f:
+            for lo in range(0, len(stdin_bytes), second):
+                f.write(stdin_bytes[lo:lo + second])
+                f.flush()
+                time.sleep(1.0 / RT_PACE["fast"])
+        while pushed[0] < n:
+            time.sleep(0.01)
+        os.kill(os.getpid(), signal.SIGINT)
+    out = os.path.join(workdir, "rt_follow.txt")
+    th = threading.Thread(target=writer, daemon=True)
+    t0 = time.time()
+    with patched(streaming, "follow_raw_file", follow):
+        th.start()
+        (so, se), counts = drive(False, lambda: realtime_cli(
+            ["--fast", "--source", f"follow:{raw}", "--out", out]))
+    th.join(timeout=30)
+    launches.update(counts)
+    if lines_of(out) != fast:
+        raise AssertionError("demod_realtime --source follow: lines differ "
+                             "from --fast from stdin")
+    emit("realtime", source="follow", chain="fast", wall_s=time.time() - t0,
+         lines=len(fast), samples_followed=pushed[0], stopped_by="SIGINT",
+         equal_stdin=True, launches=counts, card=card_line())
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2055,6 +2661,13 @@ def main() -> int:
                                   workdir)
                 phase_exact_fallback(staged[mode_name], stats["poes"])
             os.remove(wav)
+    with tempfile.TemporaryDirectory() as workdir:
+        counts, planes, api_lines = phase_serving(stats["poes"])
+        launches["poes"].update(counts)
+        launches["poes"].update(phase_demod_serve(workdir, planes,
+                                                  api_lines))
+        del planes
+        launches["poes"].update(phase_realtime(workdir))
     ablation_launches = phase_ablation(stats["poes"])
     phase_slice("poes")
     phase_slice("argos")

@@ -1,7 +1,10 @@
 """Project Desert Tortoise, PyTorch/CUDA port.
 
-The block-parallel POES and ARGOS demodulator and the exact chunked chain
-(``DemodSession``, the CLIs without ``--fast``, float32 modes) of
+The block-parallel POES and ARGOS demodulator, the exact chunked chain
+(``DemodSession``, the CLIs without ``--fast``, float32 modes), and
+streaming and multi-channel serving (``models/streaming.py``,
+``parallel/serving.py::ChannelBank``, ``demod_realtime``, ``demod_serve``,
+the native IQ ring in ``native/``) of
 ``project_desert_tortoise_tpu`` (the JAX reference, which stays in the
 repository unchanged) rebuilt on PyTorch, with the chain's per-lane
 recurrences as hand-written CUDA kernels for Hopper (``csrc/``): the fused

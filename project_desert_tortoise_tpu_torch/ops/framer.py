@@ -208,7 +208,7 @@ def frame_extract(bits, times, n_bits, cfg, max_frames: int) -> FrameBatch:
     return FrameBatch(times=f_times, inverted=inv, data=data, count=count)
 
 
-def stitch_frames(fb: FrameBatch, bounds, cap: int):
+def stitch_frames(fb: FrameBatch, bounds, cap: int, chan=None):
     """Keep frames whose sync time falls inside their block's core interval
     ``[bounds[b,0], bounds[b,1])`` (exact and dedup-free: cores tile the
     recording and sync times are values of the shared time axis) and pack
@@ -216,7 +216,10 @@ def stitch_frames(fb: FrameBatch, bounds, cap: int):
 
     fb: times/inverted (B, F), data (B, F, nbytes), count (B,); bounds
     (B, 2).  Returns (times (cap,), inverted (cap,), data (cap, nbytes), n)
-    with the first ``n`` entries valid, in stream order.
+    with the first ``n`` entries valid, in stream order.  When ``chan``
+    (B,) channel ids are given the batch may mix channels: the sort is by
+    (channel, time), two stable sorts where JAX has ``lexsort``, and a
+    fifth array of per-frame channel ids is returned.
     """
     times = fb.times
     B, nf = times.shape
@@ -224,10 +227,19 @@ def stitch_frames(fb: FrameBatch, bounds, cap: int):
     b = bounds.to(times.dtype)
     keep = valid & (times >= b[:, :1]) & (times < b[:, 1:2])
     tflat = torch.where(keep, times, torch.inf).reshape(-1)
-    order = torch.argsort(tflat, stable=True)[:cap]
+    order = torch.argsort(tflat, stable=True)
+    if chan is not None:
+        cflat = chan.to(torch.int32)[:, None].expand(B, nf).reshape(-1)
+        cflat = torch.where(keep.reshape(-1), cflat,
+                            torch.iinfo(torch.int32).max)
+        order = order[torch.argsort(cflat[order], stable=True)]
+    order = order[:cap]
     n = torch.clamp(keep.sum(), max=cap)
     data = fb.data.reshape((B * nf,) + tuple(fb.data.shape[2:]))
-    return tflat[order], fb.inverted.reshape(-1)[order], data[order], n
+    out = (tflat[order], fb.inverted.reshape(-1)[order], data[order], n)
+    if chan is not None:
+        out = out + (cflat[order],)
+    return out
 
 
 def _shifted_sum(x, weights, pad):

@@ -34,6 +34,7 @@ either way.
 
 from __future__ import annotations
 
+import itertools
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -251,14 +252,17 @@ def demod_blocks(params: chain_lib.ChainParams, total: int, blocks_re,
     return bits_c, times_c, n_bits, pll_state.avg_phase
 
 
-def sample_positions(lo, n: int, total: int, shift: int):
+def sample_positions(lo, n, total: int, shift: int):
     """The kernel's time plane for blocks whose first samples have global
     indices `lo` (B,): at step i the block-local position i + shift of the
     sample whose time the chain reports (LowPassFilter.c:68 reports sample
     i+1 for interpolating modes), exact in float32; -1 where the window lies
-    outside the recording's n samples."""
+    outside the recording's n samples (an int, or a (B,) tensor of each
+    block's stream length where the blocks come from several streams)."""
     i = torch.arange(total, device=lo.device)
     g = lo[:, None] + i[None, :]
+    if torch.is_tensor(n):
+        n = n[:, None]
     local = (i + shift).to(torch.float32).expand(len(lo), total)
     return torch.where((g >= 0) & (g < n), local, -1.0)
 
@@ -277,16 +281,22 @@ def position_seeds(lo, shift: int):
 
 
 def demod_frames(params: chain_lib.ChainParams, plan: BlockPlan, framer_cfg,
-                 fs: float, blocks_re, blocks_im, lo, n: int, freq_est,
-                 norm_gain: float, window: int = 4096, use_pallas="fused"):
+                 fs: float, blocks_re, blocks_im, lo, n, freq_est,
+                 norm_gain: float, window: int = 4096, use_pallas="fused",
+                 chan=None):
     """demod_blocks + frame extraction + stitching on sample positions.
 
     lo: (B,) int64 global index of each block's first sample; n: samples in
-    the recording.  The fused branch generates the positions in its kernel
-    (:func:`position_seeds`); the others read the staged plane.  Returns
-    packed (positions float64, inverted, data, count) on the blocks'
-    device: the global sample position of each kept frame's sync, in
-    stream order (:func:`_fetch_frames` labels them)."""
+    the recording, or a (B,) int64 tensor of each block's stream length
+    (the blocks of several streams in one batch).  The fused branch
+    generates the positions in its kernel (:func:`position_seeds`); the
+    others read the staged plane.  Returns packed (positions float64,
+    inverted, data, count) on the blocks' device: the global sample
+    position of each kept frame's sync, in stream order
+    (:func:`_fetch_frames` labels them).  With ``chan`` (B,) channel ids
+    (JAX's ``extract_stitch_chan``) the blocks may mix channels: the
+    frames come sorted by (channel, position), with a fifth array of
+    channel ids."""
     shift = 1 if params.interp > 1 else 0
     if branch(use_pallas) == "fused":
         pos, (seed, pad0) = None, position_seeds(lo, shift)
@@ -301,7 +311,7 @@ def demod_frames(params: chain_lib.ChainParams, plan: BlockPlan, framer_cfg,
     fb = fb._replace(times=fb.times.to(torch.float64) + lo[:, None])
     cs = lo + plan.head
     bounds = torch.stack([cs, torch.clamp(cs + plan.core, max=n)], 1)
-    return framer_ops.stitch_frames(fb, bounds, B * plan.max_frames)
+    return framer_ops.stitch_frames(fb, bounds, B * plan.max_frames, chan)
 
 
 def _fetch_frames(stitched, t_ext) -> List[Frame]:
@@ -403,3 +413,90 @@ def demodulate_blocked(iq, t, fs, mode_cfg, norm_factor: Optional[float] = None,
         pending = stitched
     frames.extend(_fetch_frames(pending, t_ext))
     return frames                     # batches and stitching keep order
+
+
+def fetch_channel_frames(stitched, label) -> List[tuple]:
+    """Host (channel, Frame) pairs from a channel-aware stitch, in
+    (channel, position) order; ``label(ci, p)`` is the time of channel
+    ci's sample p (its float32 accumulated axis)."""
+    pos, inv, data, n, chan = (x.cpu().numpy() for x in stitched)
+    n = int(n)
+    pos = pos[:n].astype(np.int64)
+    out = []
+    for j in range(n):
+        ci = int(chan[j])
+        out.append((ci, Frame(float(label(ci, pos[j])), bool(inv[j]),
+                              data[j].copy())))
+    return out
+
+
+def demodulate_many(iqs, t, fs, mode_cfg, norm_factor: Optional[float] = None,
+                    plan: Optional[BlockPlan] = None,
+                    batch_blocks: int = 64, dtype=np.float32,
+                    *, device="cuda") -> List[List[Frame]]:
+    """Multi-channel fast path: demodulate C recordings together (JAX
+    ``demodulate_many``, ``blocked.py:712-789``).
+
+    iqs: (C, N) complex (or a list of equal-length recordings) sharing the
+    time axis `t`; all channels' blocks are staged into the same batches
+    of `batch_blocks` lanes, channel-major, so small recordings still fill
+    the lanes (the serving configuration: many satellites or frequencies
+    on one card).  Runs JAX's defaults: the scan branch
+    (``use_pallas=False``) with 4,096-sample Gardner windows, the norm
+    probe on channel 0's first chunk.  Returns a list of per-channel frame
+    lists in stream order.
+    """
+    dev = resolve_device(device)
+    dt = np.dtype(dtype)
+    if dt != np.float32:
+        raise ValueError(f"dtype {dt}: the port's fast path runs float32")
+    iqs = np.asarray(iqs)
+    C, n = iqs.shape
+    params = chain_lib.make_params(mode_cfg, fs)
+    plan = plan or default_plan(mode_cfg, fs)
+    if norm_factor is None:
+        norm_factor = agc_ops.static_gain(iqs[0, :min(n, mode_cfg.chunk_size)],
+                                          mode_cfg.static_gain_level, dt)
+    ts = dt.type(1.0) / dt.type(fs)
+    t_ext = np.concatenate([np.asarray(t, dt), [dt.type(t[-1] + ts)]])
+    n_blocks = max(1, -(-n // plan.core))
+    res_planes = [np.ascontiguousarray(np.real(ch), dt) for ch in iqs]
+    ims_planes = [np.ascontiguousarray(np.imag(ch), dt) for ch in iqs]
+
+    work = [(c, b) for c in range(C) for b in range(n_blocks)]
+    res: List[List[Frame]] = [[] for _ in range(C)]
+    pending = None
+
+    def drain(stitched):
+        for ci, fr in fetch_channel_frames(stitched, lambda ci, p: t_ext[p]):
+            res[ci].append(fr)
+
+    for w0 in range(0, len(work), batch_blocks):
+        batch = work[w0:w0 + batch_blocks]
+        bn = len(batch)
+        brs = np.empty((bn, plan.total), dt)
+        bis = np.empty((bn, plan.total), dt)
+        lo = np.empty(bn, np.int64)
+        chan = np.empty(bn, np.int32)
+        k = 0
+        # one vectorized stage_blocks call per contiguous channel run
+        for c, grp in itertools.groupby(batch, key=lambda w: w[0]):
+            bs = [b for _, b in grp]
+            m = len(bs)
+            brs[k:k + m], bis[k:k + m], lo[k:k + m] = stage_blocks(
+                res_planes[c], ims_planes[c], plan, bs[0], m, dt)
+            chan[k:k + m] = c
+            k += m
+        jre = torch.from_numpy(brs).to(dev)
+        jim = torch.from_numpy(bis).to(dev)
+        fest = coarse_carrier_est(jre, jim, float(fs),
+                                  mode_cfg.gardner.baud / 2.0)
+        stitched = demod_frames(params, plan, mode_cfg.framer, float(fs),
+                                jre, jim, torch.from_numpy(lo).to(dev), n,
+                                fest, float(norm_factor), 4096, False,
+                                torch.from_numpy(chan).to(dev))
+        if pending is not None:
+            drain(pending)            # fetch batch k-1 after dispatching k
+        pending = stitched
+    drain(pending)
+    return res

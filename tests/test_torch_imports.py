@@ -47,7 +47,11 @@ def test_port_imports_with_jax_blocked():
                               "tools.ablate_kernel", "tools.ablate_fused",
                               "ops.kernels.fused_kernel",
                               "models.demodulator", "models.poes",
-                              "utils.metrics")} <= mods
+                              "utils.metrics", "native.wavio",
+                              "parallel.serving", "models.streaming",
+                              "utils.checkpoint", "utils.audio",
+                              "utils.profiling", "apps.demod_realtime",
+                              "apps.demod_serve")} <= mods
 
 
 def test_no_port_file_imports_jax():
