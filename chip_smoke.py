@@ -679,9 +679,12 @@ def frame_parity(a, b, fs: float) -> dict:
                 time_shifted=shifted)
 
 
-def phase_slice(mode_name: str):
-    """The slice on the CPU (plain versions) against the card (kernels),
-    on each branch: POES 40 frames, ARGOS 6 packets, small plans."""
+SLICE_BRANCHES = ("fused", "front", False)
+
+
+def slice_run(mode_name: str, br, device: str):
+    """demodulate_blocked on the slice's recording (POES 40 frames, ARGOS
+    6 packets, small plans) on branch br.  Returns (frames, seconds)."""
     from project_desert_tortoise_tpu_torch.parallel.blocked import (
         BlockPlan, demodulate_blocked)
     from project_desert_tortoise_tpu_torch.utils import synth, wav as W
@@ -694,16 +697,33 @@ def phase_slice(mode_name: str):
         iq, _ = synth.make_argos_recording(n_packets=6, fs=fs)
         plan = BlockPlan(*ARGOS_SMALL_PLAN)
     t = W.time_axis(len(iq), fs, mode.np_dtype())
-    for br in ("fused", "front", False):
-        t0 = time.time()
-        cpu = demodulate_blocked(iq, t, fs, mode, plan=plan, use_pallas=br,
-                                 device="cpu")
-        t1 = time.time()
-        gpu = demodulate_blocked(iq, t, fs, mode, plan=plan, use_pallas=br,
-                                 device="cuda")
-        t2 = time.time()
+    t0 = time.time()
+    frames = demodulate_blocked(iq, t, fs, mode, plan=plan, use_pallas=br,
+                                device=device)
+    return frames, time.time() - t0
+
+
+def cpu_slice() -> dict:
+    """The slice on the CPU (the plain versions) on every branch of both
+    modes, run in the CPU worker (cpu_worker): {(mode, branch): (frames,
+    seconds)}."""
+    import torch
+    torch.set_num_threads(2)
+    return {(m, br): slice_run(m, br, "cpu") for m in ("poes", "argos")
+            for br in SLICE_BRANCHES}
+
+
+def phase_slice(mode_name: str, cpu: dict):
+    """The slice on the CPU (plain versions, `cpu` from cpu_slice) against
+    the card (kernels), on each branch: POES 40 frames, ARGOS 6 packets,
+    small plans."""
+    mode, fs = modes()[mode_name]
+    for br in SLICE_BRANCHES:
+        cpu_frames, cpu_s = cpu[(mode_name, br)]
+        gpu, card_s = slice_run(mode_name, br, "cuda")
         emit("slice_cpu_vs_card", mode=mode_name, use_pallas=br,
-             cpu_s=t1 - t0, card_s=t2 - t1, **frame_parity(cpu, gpu, fs))
+             cpu_s=cpu_s, card_s=card_s,
+             **frame_parity(cpu_frames, gpu, fs))
 
 
 def synth_pass(mode_name: str, workdir: str):
@@ -1732,14 +1752,13 @@ def state_diff(card, cpu, what: str) -> dict:
     return diffs
 
 
-def phase_exact_small():
-    """DemodSession on a 0.8 s synthetic POES clip (4 frames, acquisition
-    included), for poes_tip with quirks on and off and poes_tip_realtime:
-    on the card against the CPU (the plain versions, whose sin/cos round
-    otherwise than the card's), frames under the docs/DESIGN.md §4b
-    contract and the final state within STATE_LIMITS; and on the card
-    against the same session with the plain versions on the card
-    (launches not counted), frames and final state bit for bit."""
+EXACT_SMALL_MODES = ("poes_tip", "poes_tip no quirks", "poes_tip_realtime")
+
+
+def exact_small_session(name: str, device: str):
+    """DemodSession on exact_small's 0.8 s synthetic POES clip (4 frames,
+    acquisition included) in the case `name` (EXACT_SMALL_MODES).
+    Returns (final state, frames, seconds)."""
     from project_desert_tortoise_tpu_torch.models.demodulator import (
         DemodSession)
     from project_desert_tortoise_tpu_torch.utils import synth, wav as W
@@ -1749,25 +1768,40 @@ def phase_exact_small():
     iq, _ = synth.make_poes_recording(n_frames=4, fs=POES_FS)
     iq = (iq / (np.abs(iq).max() * 1.2)).astype(np.complex64)
     t = W.time_axis(len(iq), POES_FS, np.float32)
+    mode = POES_TIP_REALTIME if name == "poes_tip_realtime" else POES_TIP
+    t0 = time.time()
+    s = DemodSession(mode, POES_FS, quirks=name != "poes_tip no quirks",
+                     device=device)
+    res = s.run(iq, t)
+    return s.state, res.frames, time.time() - t0
 
-    def session(mode, quirks, device):
-        t0 = time.time()
-        s = DemodSession(mode, POES_FS, quirks=quirks, device=device)
-        return s, s.run(iq, t), time.time() - t0
 
-    def frames(res):
-        return [(f.time, f.inverted, bytes(f.data), f.complete)
-                for f in res.frames]
-    for name, mode, quirks in (("poes_tip", POES_TIP, True),
-                               ("poes_tip no quirks", POES_TIP, False),
-                               ("poes_tip_realtime", POES_TIP_REALTIME,
-                                True)):
-        cpu_s, cpu, cpu_wall = session(mode, quirks, "cpu")
-        card_s, card, card_wall = session(mode, quirks, "cuda")
-        diffs = state_diff(card_s.state, cpu_s.state, f"exact chain {name}")
+def cpu_exact_small() -> dict:
+    """exact_small's sessions on the CPU (the plain versions), run in the
+    CPU worker (cpu_worker): {case: (final state, frames, seconds)}."""
+    import torch
+    torch.set_num_threads(2)
+    return {name: exact_small_session(name, "cpu")
+            for name in EXACT_SMALL_MODES}
+
+
+def phase_exact_small(cpu_sessions: dict):
+    """DemodSession on a 0.8 s synthetic POES clip (4 frames, acquisition
+    included), for poes_tip with quirks on and off and poes_tip_realtime:
+    on the card against the CPU (the plain versions, whose sin/cos round
+    otherwise than the card's; `cpu_sessions` from cpu_exact_small),
+    frames under the docs/DESIGN.md §4b contract and the final state
+    within STATE_LIMITS; and on the card against the same session with
+    the plain versions on the card (launches not counted), frames and
+    final state bit for bit."""
+    def frames(fr):
+        return [(f.time, f.inverted, bytes(f.data), f.complete) for f in fr]
+    for name in EXACT_SMALL_MODES:
+        cpu_state, a, cpu_wall = cpu_sessions[name]
+        card_state, b, card_wall = exact_small_session(name, "cuda")
+        diffs = state_diff(card_state, cpu_state, f"exact chain {name}")
         # docs/DESIGN.md §4b on a few frames: payloads identical, at most
         # one timestamp a sample period off
-        a, b = cpu.frames, card.frames
         shifted = sum(x.time != y.time for x, y in zip(a, b))
         if (len(a) != len(b) or len(a) < 2 or shifted > 1
                 or any(x.inverted != y.inverted
@@ -1778,12 +1812,13 @@ def phase_exact_small():
                                  f"{len(b)} frames against the CPU's "
                                  f"{len(a)}, {shifted} timestamps shifted")
         with exact_kernels_replaced(lambda name, kern, plain: plain):
-            plain_s, plain, plain_wall = session(mode, quirks, "cuda")
-        if frames(card) != frames(plain):
+            plain_state, plain, plain_wall = exact_small_session(name,
+                                                                 "cuda")
+        if frames(b) != frames(plain):
             raise AssertionError(f"exact chain {name}: the kernels' frames "
                                  "differ from the plain versions'")
-        check_equal(tuple(state_tensors(card_s.state)),
-                    tuple(state_tensors(plain_s.state)),
+        check_equal(tuple(state_tensors(card_state)),
+                    tuple(state_tensors(plain_state)),
                     f"exact chain {name} final state")
         emit("exact_small", card=card_line(), mode=name, cpu_s=cpu_wall,
              card_s=card_wall, plain_on_card_s=plain_wall, frames=len(b),
@@ -2047,9 +2082,39 @@ SERVE_FRAMES = 242                        # 24.6 s of minor frames
 # (0.3 s of noise, then the lead-in at 0.3-0.4 s; fault (e)): a corrupted
 # lead-in, or a sync found in the noise before it
 SERVE_LEAD_END_S = 0.4
+# what the JAX package misses of each recording's payloads, by recording:
+# the carriers within ~250-700 Hz lose the first block's frames (fault
+# (h)); the same on its fast path's XLA branch (demodulate_many, the
+# default plan) and its fused branch (its ChannelBank, use_pallas="fused",
+# 128-lane batches).  And what else each branch decodes after the lead-in
+# (from SERVE_LEAD_END_S on), by payload_digest.  Every channel of the
+# bank is held to its recording's entries, each branch to JAX's same
+# branch; tests/test_torch_serving_pass.py recomputes them
+SERVE_REFERENCE_MISSED = {
+    12: (0,),
+    13: (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11),
+    14: (0, 1, 2),
+    17: (0, 1, 2),
+    18: (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11),
+    19: (0,),
+}
+SERVE_REFERENCE_LATE = {
+    False: {
+        12: ("078b8d50bb9c5881", "6ecba145fd2091de"),
+        14: ("f0323dc895f264c9",),
+        18: ("2bf9a21b606b8d1f",),
+        19: ("645f155aa9ddc47c",),
+    },
+    "fused": {
+        10: ("35b2ff8ca1920336",),
+        12: ("5f853717fa65932f", "90cb6fec7e47e896"),
+        14: ("f0323dc895f264c9",),
+        18: ("e858175aa5e44205",),
+        19: ("645f155aa9ddc47c",),
+    },
+}
 SERVE_CHUNK = 25_000
 SERVE_PRODUCERS = 4
-SERVE_CHECK_L = 4096
 SERVE_ENTRY = {"fused_demod": "pdt_fused_demod", "pll_scan": "pdt_pll_scan",
                "agc_scan": "pdt_agc_scan",
                "gardner_manchester": "pdt_gardner_manchester"}
@@ -2061,14 +2126,12 @@ RT_PACE = {"exact": 4.0, "fast": 8.0}
 
 
 def serve_carrier_hz(r: int) -> float:
-    """Recording r's carrier: half the recordings spread over -3..-1 kHz,
-    half over +1..+3 kHz.  Offsets of ~250-700 Hz are left out: there the
-    fast path's carrier warm start (coarse_carrier_est) loses up to the
-    first 1.2 s of frames in the JAX package as in the port (ROADMAP
-    fault (h))."""
-    half = SERVE_RECORDINGS // 2
-    side = -1.0 if r < half else 1.0
-    return side * (1000.0 + 2000.0 * (r % half) / max(half - 1, 1))
+    """Recording r's carrier offset: the recordings spread evenly over
+    -3..+3 kHz.  At offsets of ~250-700 Hz either way the fast path's
+    carrier warm start (coarse_carrier_est) fails and loses up to the
+    first 1.2 s of frames, in the JAX package as in the port (ROADMAP
+    fault (h)); SERVE_REFERENCE_MISSED holds what JAX misses."""
+    return -3000.0 + 6000.0 * r / (SERVE_RECORDINGS - 1)
 
 
 def serving_recordings():
@@ -2096,9 +2159,9 @@ def serving_recordings():
     return re, im, want, lead
 
 
-def bank_run(planes, br, n_channels, stage_dtype, on_batch=None):
+def bank_run(planes, br, recs, stage_dtype):
     """A ChannelBank on the card fed by SERVE_PRODUCERS threads in
-    SERVE_CHUNK pushes (channel ci from recording ci % R; int16 pushed
+    SERVE_CHUNK pushes (channel ci from recording recs[ci]; int16 pushed
     raw, or as float32 PCM values), pumped on this thread until every
     producer is done, then drained.  Returns (bank, wall seconds)."""
     from project_desert_tortoise_tpu_torch.parallel.serving import ChannelBank
@@ -2106,7 +2169,7 @@ def bank_run(planes, br, n_channels, stage_dtype, on_batch=None):
     import threading
 
     re, im = planes
-    R = len(re)
+    n_channels = len(recs)
     bank = ChannelBank(POES_TIP, POES_FS, n_channels, batch_blocks=128,
                        use_pallas=br, stage_dtype=stage_dtype,
                        device="cuda")
@@ -2117,7 +2180,7 @@ def bank_run(planes, br, n_channels, stage_dtype, on_batch=None):
         mine = range(k, n_channels, SERVE_PRODUCERS)
         for lo in range(0, SERVE_SAMPLES, SERVE_CHUNK):
             for ci in mine:
-                r = ci % R
+                r = recs[ci]
                 bank.push(ci, cast(re[r, lo:lo + SERVE_CHUNK]),
                           cast(im[r, lo:lo + SERVE_CHUNK]))
         for ci in mine:
@@ -2160,33 +2223,96 @@ def serving_bound(name: str, params, B: int, L: int, in_bytes: int) -> dict:
     return bound(n_sym * 12.0 + n_sym * 6.0, n_sym * 30.0)
 
 
+def payload_digest(payload: bytes) -> str:
+    """A frame's payload as SERVE_REFERENCE_LATE pins it."""
+    import hashlib
+    return hashlib.sha256(payload).hexdigest()[:16]
+
+
+def serving_channel_check(frames, want, lead, r, br):
+    """One channel's frames on branch br against its recording r: each
+    payload once but those JAX misses (SERVE_REFERENCE_MISSED), and past
+    the lead-in (SERVE_LEAD_END_S) nothing else but what JAX's same branch
+    decodes there (SERVE_REFERENCE_LATE).  Returns (missed, repeated, late
+    extras' digests, the channel's extra frames' times, whether it
+    holds)."""
+    got = [bytes(f.data) for f in frames]
+    missed, _, repeated = payload_diff(got, want, lead)
+    known = set(want) | {lead}
+    odd = [f for f in frames if bytes(f.data) not in known]
+    late = sorted(payload_digest(bytes(f.data)) for f in odd
+                  if f.time >= SERVE_LEAD_END_S)
+    ok = (tuple(missed) == SERVE_REFERENCE_MISSED.get(r, ()) and
+          not repeated and
+          tuple(late) == SERVE_REFERENCE_LATE[br].get(r, ()))
+    return missed, repeated, late, [f"{f.time:.5f}" for f in odd], ok
+
+
+def serving_check_channels():
+    """The channels the finer checks take (float32 staging, the fused
+    branch against demodulate_blocked): the first four, and the first
+    channel of each of the four recordings JAX misses most of (channel r
+    carries recording r for r < SERVE_RECORDINGS)."""
+    worst = sorted(SERVE_REFERENCE_MISSED,
+                   key=lambda r: -len(SERVE_REFERENCE_MISSED[r]))[:4]
+    return [0, 1, 2, 3] + sorted(worst)
+
+
+def padded_batch(silent, batch):
+    """The batch a bank run kept (demod_frames' planes, lo, stream
+    lengths, estimate and norm; `silent` of its rows silent): as it is
+    where it has silent rows, else with its last 32 rows made silent as
+    _stage makes them (zero samples, lo 0, length 0) and the estimate
+    taken anew."""
+    from project_desert_tortoise_tpu_torch.parallel import blocked
+    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
+
+    if silent:
+        return batch
+    zre, zim, lo, n, fest, norm = batch
+    zre, zim, lo, n = (x.clone() for x in (zre, zim, lo, n))
+    for x in (zre, zim, lo, n):
+        x[-32:] = 0
+    fest = blocked.coarse_carrier_est(zre, zim, POES_FS,
+                                      POES_TIP.gardner.baud / 2.0)
+    return zre, zim, lo, n, fest, norm
+
+
 def phase_serving(stats: dict):
     """ChannelBank at full width: SERVE_CHANNELS channels of SERVE_SAMPLES
     int16 samples, 128-lane batches, producer threads pushing while this
     thread pumps; once on the fused branch and once on the scan branch
-    (False).  Every channel recovers each payload of its recording once
-    (the lead-in apart), with no other frame after the lead-in
-    (SERVE_LEAD_END_S), on both; on the scan branch every channel's lines
-    are demodulate_many's over the same planes; on the fused branch the
-    first 8 channels' are demodulate_blocked's (fused, the bank's norm);
-    int16 and float32 staging give the same lines on 8 channels.  Each
-    kernel launch of the bank runs is bracketed by CUDA events
-    (common.launch_events).  Returns ({kernel: launches}, the planes, the
+    (False).  Every channel is held to its recording's reference
+    (serving_channel_check) on both; on the scan branch every channel's
+    lines are demodulate_many's over the same planes; on the fused branch
+    the check channels' (serving_check_channels) are demodulate_blocked's
+    (fused, the bank's norm); int16 and float32 staging give the same
+    lines on the check channels.  Each kernel launch of the bank runs is
+    bracketed by CUDA events (common.launch_events).  Then each branch's
+    kernels against their plain versions, bit for bit, on the first
+    MAIN_CHECK_L samples of the batch the bank staged that mixes blocks
+    and silent rows most evenly (padded_batch), with the inputs
+    demod_blocks gives them.  Returns ({kernel: launches}, the planes, the
     scan branch's lines of the first 16 channels, the fused branch's)."""
     import torch
     from project_desert_tortoise_tpu_torch import chain
+    from project_desert_tortoise_tpu_torch.ops import agc, clock, fir
+    from project_desert_tortoise_tpu_torch.ops import manchester as man
     from project_desert_tortoise_tpu_torch.ops.kernels import common
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
     from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
         fused_demod, fused_demod_ref)
     from project_desert_tortoise_tpu_torch.ops.pll import pll_scan_ref
     from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
         pll_scan_kernel)
     from project_desert_tortoise_tpu_torch.parallel import blocked
+    from project_desert_tortoise_tpu_torch.parallel.serving import ChannelBank
     from project_desert_tortoise_tpu_torch.utils import wav as W
     from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
 
     re, im, want, lead = serving_recordings()
     R, C = SERVE_RECORDINGS, SERVE_CHANNELS
+    recs = [ci % R for ci in range(C)]
     params = chain.make_params(POES_TIP, POES_FS)
     plan = blocked.default_plan(POES_TIP, POES_FS)
     launches = collections.Counter()
@@ -2194,48 +2320,52 @@ def phase_serving(stats: dict):
     captured = {}
     problems = []
     real_demod_frames = blocked.demod_frames
+    real_stage = ChannelBank._stage
+    staged_rows = []
+
+    def stage(bank, rows):
+        staged_rows.append(len(rows))
+        return real_stage(bank, rows)
 
     def capture(*a, **k):
-        # keep the last batch of each branch (its planes, lo, estimate,
-        # stream lengths, norm): the drain's, padded with silent rows
-        # unless it filled all 128
-        captured[a[11]] = (a[4], a[5], a[6], a[8], a[7], a[9])
+        # keep the batch that mixes blocks and silent rows most evenly (its
+        # planes, lo, stream lengths, estimate and norm), its rows counted
+        # on the host, so that the run does not wait for it
+        silent = a[4].shape[0] - staged_rows[-1]
+        mix = min(silent, staged_rows[-1])
+        if a[11] not in captured or mix > captured[a[11]][0]:
+            captured[a[11]] = (mix, silent,
+                               (a[4], a[5], a[6], a[7], a[8], a[9]))
         return real_demod_frames(*a, **k)
 
     for br in ("fused", False):
         events = {}
         with patched(common, "launch_events", events), \
-                patched(blocked, "demod_frames", capture):
+                patched(blocked, "demod_frames", capture), \
+                patched(ChannelBank, "_stage", stage):
             (bank, wall), counts = drive(
-                br, lambda: bank_run((re, im), br, C, np.int16))
+                br, lambda: bank_run((re, im), br, recs, np.int16))
         launches.update(counts)
         torch.cuda.synchronize()
-        got = [frame_lines(f) for f in bank.frames]
-        lines[br] = got
-        missed, extra, repeated = collections.Counter(), {}, 0
-        missed_on, late = [], {}
+        lines[br] = [frame_lines(f) for f in bank.frames]
+        missed, repeated, bad, extra = collections.Counter(), 0, {}, {}
+        as_reference = 0
         for ci in range(C):
-            r = ci % R
-            m, e, rep = payload_diff([bytes(f.data) for f in bank.frames[ci]],
-                                     want[r], lead[r])
+            m, rep, late, odd, ok = serving_channel_check(
+                bank.frames[ci], want[recs[ci]], lead[recs[ci]], recs[ci],
+                br)
             missed.update(m)
             repeated += len(rep)
-            if m:
-                missed_on.append(ci)
-            known = set(want[r]) | {lead[r]}
-            odd = [f"{f.time:.5f}" for f in bank.frames[ci]
-                   if bytes(f.data) not in known]
+            as_reference += ok
             if odd:
                 extra[ci] = odd
-            if any(float(x) >= SERVE_LEAD_END_S for x in odd):
-                late[ci] = odd
-        if missed or repeated or late:
-            problems.append(f"serving {br}: payloads missed (index: "
-                            f"channels) {dict(missed.most_common(10))}, on "
-                            f"channels {missed_on[:12]}, {repeated} "
-                            f"repeated, extra frames after the lead-in on "
-                            f"{len(late)} channels "
-                            f"{dict(list(late.items())[:4])}")
+            if not ok:
+                bad[ci] = dict(recording=recs[ci], missed=m[:16],
+                               repeated=rep[:8], late_extra=late[:4])
+        if bad:
+            problems.append(f"serving {br}: {len(bad)} channels unlike "
+                            "their recording's reference "
+                            f"{dict(list(bad.items())[:6])}")
         ms = sorted(bank.batch_ms)
         kernel_ms = {}
         for k in PATH_KERNELS[br]:
@@ -2262,8 +2392,12 @@ def phase_serving(stats: dict):
              frames=sum(map(len, bank.frames)), payloads_once=C * (
                  SERVE_FRAMES - 1) - sum(missed.values()) - repeated,
              of=C * (SERVE_FRAMES - 1),
-             lead_in_extras={ci: v for ci, v in list(extra.items())[:8]},
-             channels_with_lead_in_extras=len(extra),
+             payloads_missed=sum(missed.values()),
+             reference_missed=sum(len(SERVE_REFERENCE_MISSED.get(r, ()))
+                                  for r in recs),
+             channels_as_reference=as_reference,
+             extra_frames={ci: v for ci, v in list(extra.items())[:8]},
+             channels_with_extra_frames=len(extra),
              launches=counts, norm=bank.norm,
              card=card_line())
         if br == "fused":
@@ -2275,8 +2409,8 @@ def phase_serving(stats: dict):
     s = np.float32(1.0 / 32768.0)
     iqs = np.empty((C, SERVE_SAMPLES), np.complex64)
     for ci in range(C):
-        iqs[ci].real = re[ci % R] * s
-        iqs[ci].imag = im[ci % R] * s
+        iqs[ci].real = re[recs[ci]] * s
+        iqs[ci].imag = im[recs[ci]] * s
     t0 = time.time()
     many, counts = drive(False, lambda: blocked.demodulate_many(
         iqs, t, POES_FS, POES_TIP, batch_blocks=128, device="cuda"))
@@ -2295,63 +2429,96 @@ def phase_serving(stats: dict):
                         "only demodulate_many's "
                         f"{sorted(set(a) - set(b))[:2]}")
     del many
-    # the fused branch's first 8 channels against demodulate_blocked
+    # the fused branch's check channels against demodulate_blocked
+    check = serving_check_channels()
     t0 = time.time()
-    K = min(8, C)
     offline, counts = drive("fused", lambda: [blocked.demodulate_blocked(
         iqs[ci], t, POES_FS, POES_TIP, norm_factor=fused_norm,
-        use_pallas="fused", device="cuda") for ci in range(K)])
+        use_pallas="fused", device="cuda") for ci in check])
     blocked_s = time.time() - t0
     launches.update(counts)
-    differ = [ci for ci in range(K)
-              if frame_lines(offline[ci]) != lines["fused"][ci]]
-    blocked_differ = len(differ)
+    differ = [ci for ci, f in zip(check, offline)
+              if frame_lines(f) != lines["fused"][ci]]
     if differ:
         ci = differ[0]
-        a, b = frame_lines(offline[ci]), lines["fused"][ci]
+        a = frame_lines(offline[check.index(ci)])
+        b = lines["fused"][ci]
         problems.append(f"serving fused: channels {differ} differ from "
                         f"demodulate_blocked's lines; channel {ci}: {len(b)} "
                         f"lines against {len(a)}, only the bank's "
                         f"{sorted(set(b) - set(a))[:2]}, only "
                         f"demodulate_blocked's {sorted(set(a) - set(b))[:2]}")
     del iqs
-    # float32 staging of the first 8 channels against int16's
+    # float32 staging of the check channels against int16's
     (bank32, wall32), counts = drive(
-        False, lambda: bank_run((re, im), False, K, np.float32))
+        False, lambda: bank_run((re, im), False, [recs[ci] for ci in check],
+                                np.float32))
     launches.update(counts)
-    f32_equal = [frame_lines(f) for f in bank32.frames] == lines[False][:K]
+    f32_equal = ([frame_lines(f) for f in bank32.frames] ==
+                 [lines[False][ci] for ci in check])
     if not f32_equal:
         problems.append("serving: float32 staging's lines differ from "
                         "int16 staging's")
 
-    # the kernels on a captured serving batch against their plain versions
-    # (its first SERVE_CHECK_L samples; silent rows where the run had some)
-    L = SERVE_CHECK_L
-    zre, zim, lo, fest, n_rows, norm = captured["fused"]
-    pst, gain = blocked.warm_state(params, fest, POES_FS, norm)
-    seed, pad0 = blocked.position_seeds(lo, 1)
+    # each branch's kernels on a batch the bank staged, silent rows in it
+    L = MAIN_CHECK_L
+    shift = 1 if params.interp > 1 else 0
+    zre, zim, lo, n_rows, fest, norm = padded_batch(*captured["fused"][1:])
+    B = int(zre.shape[0])
+    silent = {"fused": int((n_rows == 0).sum())}
+    pst, gain0 = blocked.warm_state(params, fest, POES_FS, norm)
+    seed, pad0 = blocked.position_seeds(lo, shift)
     z = (zre[:, :L].contiguous(), zim[:, :L].contiguous())
-    time_pair("fused_demod", "serving batch, int16, time generation",
-              lambda: fused_demod(params, pst, gain, z, None, seed, pad0,
+    time_pair("fused_demod", "serving batch, int16, time generation, "
+              f"{silent['fused']} silent rows",
+              lambda: fused_demod(params, pst, gain0, z, None, seed, pad0,
                                   1.0),
-              lambda: fused_demod_ref(params, pst, gain, z, None, seed, pad0,
-                                      1.0), [int(zre.shape[0]), L], stats)
-    fused_silent = int((n_rows == 0).sum())
-    zre, zim, lo, fest, n_rows, norm = captured[False]
-    pst, _ = blocked.warm_state(params, fest, POES_FS, norm)
+              lambda: fused_demod_ref(params, pst, gain0, z, None, seed,
+                                      pad0, 1.0), [B, L], stats)
+    zre, zim, lo, n_rows, fest, norm = padded_batch(*captured[False][1:])
+    del captured
+    B = int(zre.shape[0])
+    silent["False"] = int((n_rows == 0).sum())
+    case = f"serving batch, int16 planes, {silent['False']} silent rows"
+    pst, gain0 = blocked.warm_state(params, fest, POES_FS, norm)
     z = tuple(x[:, :L].to(torch.float32) * (1.0 / 32768.0) for x in
               (zre, zim))
-    time_pair("pll_scan", "serving batch, int16 planes",
+    time_pair("pll_scan", case,
               lambda: pll_scan_kernel(params.pll, pst, z),
-              lambda: pll_scan_ref(params.pll, pst, *z),
-              [int(zre.shape[0]), L], stats)
+              lambda: pll_scan_ref(params.pll, pst, *z), [B, L], stats)
+    # the AGC's and Gardner's inputs as demod_blocks makes them
+    _, soft, lock = pll_scan_kernel(params.pll, pst, z)
+    if params.squelch_position == "after_pll":
+        soft = agc.squelch(soft, torch.abs(lock), params.squelch_threshold)
+    x = fir.fir_interp(soft, params.taps, params.interp)
+    ap = sk.AGCParams(params.agc_attack, params.agc_decay)
+    time_pair("agc_scan", case, lambda: sk.agc_scan(gain0, x, ap),
+              lambda: sk.agc_scan_ref(gain0, x, ap), list(x.shape), stats)
+    _, y = sk.agc_scan(gain0, x, ap)
+    if params.squelch_position == "after_agc":
+        y = agc.squelch(y, torch.abs(lock), params.squelch_threshold)
+    pos = blocked.sample_positions(lo, n_rows, plan.total, shift)[:, :L]
+    t_out = (fir.fir_out_times(pos, params.interp) if params.interp > 1
+             else pos.contiguous())
+    cap = L * params.interp
+    gp = sk.GardnerParams(params.step_size, params.gardner_err_limit,
+                          params.gardner_gain, params.resync_threshold)
+    lay = sk.layout(cap, 4096 * params.interp, params.step_size,
+                    params.gardner_err_limit)
+    g0 = clock.gardner_init((B,), device=zre.device)
+    m0 = man.manchester_init((B,), device=zre.device)
+    args = ((*g0, m0.cur, m0.prev, m0.prevprev), (m0.clockmod, m0.evenodd),
+            y, t_out, torch.full((B,), cap, dtype=torch.int32,
+                                 device=zre.device), gp, lay)
+    time_pair("gardner_manchester", f"{case}, {lay.n_win} windows of "
+              f"{lay.window}", lambda: sk.gardner_manchester(*args),
+              lambda: sk.gardner_manchester_ref(*args), [B, cap], stats)
     emit("serving_checks", channels_as_demodulate_many=C - many_differ,
-         of=C, demodulate_many_s=many_s,
-         channels_as_demodulate_blocked_fused=K - blocked_differ, of_fused=K,
+         of=C, demodulate_many_s=many_s, check_channels=check,
+         check_channels_as_demodulate_blocked_fused=len(check) - len(differ),
          demodulate_blocked_s=blocked_s, f32_staging_lines_equal=f32_equal,
-         f32_staging_wall_s=wall32, checked_batch_silent_rows={
-             "fused": fused_silent, "False": int((n_rows == 0).sum())},
-         problems=problems, card=card_line())
+         f32_staging_wall_s=wall32, checked_batch_silent_rows=silent,
+         checked_samples=L, problems=problems, card=card_line())
     if problems:
         raise AssertionError("; ".join(problems))
     return launches, (re, im), {br: v[:16] for br, v in lines.items()}
@@ -2632,13 +2799,37 @@ def main() -> int:
     sys.path.insert(0, REPO)
     phase_toolchain()
     phase_build()
+    with cpu_worker() as worker:
+        return drive_all(worker.submit(cpu_exact_small),
+                         worker.submit(cpu_slice))
+
+
+@contextlib.contextmanager
+def cpu_worker():
+    """One worker process (spawned: it touches no card) for the plain
+    versions' runs on the CPU, so that they go on beside the card phases;
+    shut down, its process ended, on the way out."""
+    import concurrent.futures
+    import multiprocessing
+    ex = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        yield ex
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+
+
+def drive_all(exact_cpu, slice_cpu) -> int:
+    """Every phase after the build; exact_cpu and slice_cpu are the CPU
+    worker's futures of cpu_exact_small and cpu_slice."""
+    import torch
     stats = {"poes": {}, "argos": {}}
     phase_kernel()
     phase_tgen_small(stats)
     phase_new_kernels(stats["poes"])
     phase_exact_kernels(stats["poes"])
     phase_argos_kernels(stats["argos"])
-    phase_exact_small()
+    phase_exact_small(exact_cpu.result())
     launches = {"poes": collections.Counter(), "argos": collections.Counter()}
     staged = {}
     walls = {}
@@ -2669,8 +2860,9 @@ def main() -> int:
         del planes
         launches["poes"].update(phase_realtime(workdir))
     ablation_launches = phase_ablation(stats["poes"])
-    phase_slice("poes")
-    phase_slice("argos")
+    slice_frames = slice_cpu.result()
+    phase_slice("poes", slice_frames)
+    phase_slice("argos", slice_frames)
     for mode_name in ("poes", "argos"):
         st = stats[mode_name]
         phase_fused_at_main_shape(mode_name, staged[mode_name],

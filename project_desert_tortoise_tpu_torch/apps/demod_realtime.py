@@ -128,6 +128,9 @@ def run(argv=None, default_mode="poes_tip_realtime", prefix="minorFrames"):
     finally:
         writer.close()
         stop.set()
+    # the final counts: input that ends at once (a file on stdin) can stop
+    # the status loop before its first line
+    sys.stderr.write("\r" + sd.status_line(color=True) + "   ")
     print(f"\n{len(sd.frames)} frames -> {out_path} "
           f"({sd.overruns} overrun samples)")
     return 0

@@ -27,6 +27,15 @@ from project_desert_tortoise_tpu_torch.models.demodulator import DemodSession
 from project_desert_tortoise_tpu_torch.ops.framer import Frame
 from project_desert_tortoise_tpu_torch.utils import metrics
 
+# JAX's defaults: the rings' capacities in samples, and the fast
+# streamer's bank (16-block batches, the scan branch, 4,096-sample Gardner
+# windows) and its pops of at most 8,192 samples
+EXACT_RING_CAPACITY = 1 << 18
+FAST_RING_CAPACITY = 1 << 20
+FAST_BATCH_BLOCKS = 16
+FAST_WINDOW = 4096
+FAST_GRANULE = 8192
+
 
 def _default_ring(ring, capacity: int):
     if ring is not None:
@@ -42,12 +51,12 @@ class StreamingDemodulator:
     def __init__(self, mode_cfg, fs: float, ring=None,
                  chunk_size: Optional[int] = None,
                  norm_factor: Optional[float] = None,
-                 on_frame: Optional[Callable[[Frame], None]] = None,
-                 ring_capacity: int = 1 << 18, *, device="cuda"):
+                 on_frame: Optional[Callable[[Frame], None]] = None, *,
+                 device="cuda"):
         self.session = DemodSession(mode_cfg, fs, chunk_size=chunk_size,
                                     norm_factor=norm_factor, quirks=False,
                                     device=device)
-        self.ring = _default_ring(ring, ring_capacity)
+        self.ring = _default_ring(ring, EXACT_RING_CAPACITY)
         self.fs = float(fs)
         self.chunk = self.session.chunk_size
         self.on_frame = on_frame
@@ -129,22 +138,19 @@ class FastStreamingDemodulator:
     def __init__(self, mode_cfg, fs: float, ring=None,
                  norm_factor: Optional[float] = None,
                  on_frame: Optional[Callable[[Frame], None]] = None,
-                 plan=None, batch_blocks: int = 16,
-                 window: int = 4096, use_pallas=False,
-                 ring_capacity: int = 1 << 20, *, device="cuda"):
+                 plan=None, *, device="cuda"):
         from project_desert_tortoise_tpu_torch.parallel.serving import (
             ChannelBank)
         self.bank = ChannelBank(
-            mode_cfg, fs, 1, plan=plan, batch_blocks=batch_blocks,
-            window=window, use_pallas=use_pallas, norm_factor=norm_factor,
+            mode_cfg, fs, 1, plan=plan, batch_blocks=FAST_BATCH_BLOCKS,
+            window=FAST_WINDOW, use_pallas=False, norm_factor=norm_factor,
             on_frame=self._collect, device=device)
-        self.ring = _default_ring(ring, ring_capacity)
+        self.ring = _default_ring(ring, FAST_RING_CAPACITY)
         self.fs = float(fs)
         self.frames: List[Frame] = []
         self._user_on_frame = on_frame
         self._stop = threading.Event()
         self._sample_pos = 0
-        self._granule = 8192
 
     def _collect(self, ci: int, f: Frame):
         self.frames.append(f)
@@ -161,7 +167,7 @@ class FastStreamingDemodulator:
     def run(self, poll_s: float = 0.02):
         """Consume until stop(); drains the ring, then the bank."""
         while True:
-            n = min(self.ring.available, self._granule)
+            n = min(self.ring.available, FAST_GRANULE)
             if n == 0:
                 if self._stop.is_set():
                     break
