@@ -4,7 +4,7 @@
 Builds the kernels from the sources of this checkout (one library, one
 nvcc per source in parallel) and holds each against its plain PyTorch
 version on the card, bit for bit: at small shapes, then on the blocks the
-main paths stage (their first 16,384 or 8,192 samples).  It checks the
+main paths stage (their first 8,192 samples).  It checks the
 block-parallel slice on the CPU against the card on each of its three
 branches (``use_pallas`` "fused", "front", False), for POES and for ARGOS,
 and drives the port's three entry points:
@@ -21,7 +21,14 @@ and drives the port's three entry points:
   and ``gardner_manchester_scan``), whose payloads must be the JAX exact
   chain's and each one the fast path's (``exact_cli``: the wall split
   into chunk steps, fetches, framer and writer; each kernel's ms a
-  chunk);
+  chunk), and the telemetry explorer on the fast CLI's frames file
+  (``products``: the files JAX's explorer writes, the summary's
+  error-free count ``check_parity``'s);
+- the same ARGOS pass through ``demod_argos`` without ``--fast``, the
+  float64 ``argos`` mode's exact chain (9,601 chunks of 2,400 samples on
+  the double instances ``pll_scan_f64``, ``agc_scan_f64`` and
+  ``gardner_manchester_scan_f64``), whose payloads must be the JAX float64
+  exact chain's (``argos_exact_cli``, split as ``exact_cli``);
 - the two ablation tools (``project_desert_tortoise_tpu_torch/tools``),
   every variant at 128 and at 4,224 lanes (``ablation`` lines);
 - multi-channel serving (``serving``): a ``ChannelBank`` of 256 POES
@@ -34,7 +41,7 @@ and drives the port's three entry points:
   Msamples/s, per-batch dispatch-to-collect ms and each kernel's ms a
   batch (CUDA events); then ``demod_serve`` on 16 of those channels as
   WAVs, its files the API run's lines;
-- ``demod_realtime`` on 60 s of ``poes_tip_realtime`` fed on stdin (the
+- ``demod_realtime`` on 30 s of ``poes_tip_realtime`` fed on stdin (the
   exact chain: an offline ``DemodSession``'s lines; ``--fast``:
   ``demodulate_many``'s), and ``--fast --source follow:PATH`` on a RAW
   file written while it runs, stopped by SIGINT; a checkpoint of the
@@ -48,8 +55,13 @@ pointers), ``gardner_manchester_scan`` also at 352 lanes on the
 unwindowed layout of the POES blocks, each time against its serial twin
 ``gardner_manchester_scan_serial`` too (timed in the same run; a
 ``design`` line each), and ``DemodSession`` on a short clip on the card
-against the CPU and against its plain versions on the card
-(``exact_small``).
+against the CPU and, on the clip's first 25,000 samples, against its
+plain versions on the card (``exact_small``).  The float64 kernels are
+held to their plain versions at one lane from an unlocked start, over a
+2,400-sample chunk and a final one of 1,234, on quirks images with stale
+mid-bit pointers and on the chunk-invariant image
+(``argos_exact_kernels``: ``kernel_vs_plain`` lines and a ``design``
+line).
 
 It holds the decoupled ``fused_demod``, ``pll_fir_agc``, ``pll_scan`` and
 ``agc_scan`` and the windowed ``gardner_manchester`` to their serial twins
@@ -73,6 +85,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -111,19 +124,26 @@ ARGOS_REFERENCE_EXTRA = ("250e9fffffffff", "77b73fffffffff")
 # tests/test_torch_exact_pass.py recomputes them on the CPU.
 EXACT_REFERENCE_MISSED = ()
 EXACT_REFERENCE_EXTRA = ()
+# what the JAX package's float64 exact chain (DemodSession, ARGOS under
+# x64, quirks on, 2,400-sample chunks) misses on the ARGOS pass, and what
+# else it decodes (in hex).  The argos_exact_cli phase holds the port's
+# float64 exact chain to both; tests/test_torch_argos_exact_pass.py
+# recomputes them on the CPU.
+ARGOS_EXACT_REFERENCE_MISSED = (
+    0, 10, 11, 12, 20, 24, 37, 86, 105, 109, 115, 170, 174, 175, 178, 201,
+    208, 214, 215, 216, 222, 229, 290, 306, 320, 343, 352, 381, 403, 404,
+    439, 444, 453, 470, 474, 500, 536, 558, 575, 587)
+ARGOS_EXACT_REFERENCE_EXTRA = ("250e9fffffffff", "7da33fffffffff")
 # the exact chain's B=1 checks of pll_scan and agc_scan from an unlocked
 # start: poes_tip's and poes_tip_realtime's chunks and a short final one
 EXACT_CHECK_L = (10000, 2400, 1234)
-# samples per lane of the plain-version checks on the main paths' blocks:
-# 4 of the unfused branches' 4,096-sample Gardner windows (the plain
-# versions are per-sample loops of ~0.1-3.5 ms a step on the card; 8
-# windows until the exact chain's phases joined the run: the plain checks
-# at 16,384 take ~160 s on an H100 at 700 W, so 32,768 would bring the
-# whole run to ~1,030 s of its 1,200); the POES fused kernel on the staged
-# plane, which the CLI no longer runs, and ARGOS's scan-branch kernels
-# (two of its Gardner windows), on the first 8,192
-MAIN_CHECK_L = 16384
-PLANE_CHECK_L = 8192
+# samples per lane of the plain-version checks on the main paths' blocks,
+# the serving batch and the window=0 layout: 2 of the unfused branches'
+# 4,096-sample Gardner windows (the plain versions are per-sample loops of
+# ~0.1-3.5 ms a step on the card, host-bound; 16,384 until the float64
+# exact chain's phases joined the run, which then passed the 1,200 s limit
+# on a slower host)
+MAIN_CHECK_L = 8192
 # floats of the forced small ring on which gardner_manchester_scan is
 # also checked (four tiles of 512: recycled, the stale pointer read from
 # device memory)
@@ -132,7 +152,7 @@ SMALL_RING = 2048
 # which every variant is checked against its plain version over
 # (steps, window)
 ABLATION_S = (1, 33)
-ABLATION_CHECK = (1024, 256)
+ABLATION_CHECK = (512, 256)
 CSRC = "project_desert_tortoise_tpu_torch/csrc/"
 JAX = "project_desert_tortoise_tpu/"
 # name: (source, the TPU kernel or XLA scan it replaces)
@@ -165,6 +185,15 @@ KERNELS = {
     "gardner_manchester_scan_serial": (CSRC + "scan_kernels.cu",
                                        JAX + "ops/clock.py:58, " + JAX
                                        + "ops/manchester.py:34"),
+    # the float64 argos exact chain's three: the serial kernels of the
+    # exact chain's kernels instantiated in double (JAX runs the same
+    # functions there under x64)
+    "pll_scan_f64": (CSRC + "pll_kernel.cu",
+                     JAX + "ops/pallas/pll_kernel.py:60"),
+    "agc_scan_f64": (CSRC + "scan_kernels.cu", JAX + "ops/agc.py:65"),
+    "gardner_manchester_scan_f64": (CSRC + "scan_kernels.cu",
+                                    JAX + "ops/clock.py:58, " + JAX
+                                    + "ops/manchester.py:34"),
     "ablate_kernel": (CSRC + "ablate_kernel.cu", "tools/ablate_kernel.py:32"),
     "ablate_fused": (CSRC + "ablate_fused.cu", "tools/ablate_fused.py:42"),
 }
@@ -174,11 +203,15 @@ PATH_KERNELS = {"fused": ("fused_demod",),
                 "front": ("pll_fir_agc", "gardner_manchester"),
                 False: ("pll_scan", "agc_scan", "gardner_manchester"),
                 "exact": ("pll_scan", "agc_scan", "gardner_manchester_scan"),
+                "argos_exact": ("pll_scan_f64", "agc_scan_f64",
+                                "gardner_manchester_scan_f64"),
                 "ablate_kernel": ("ablate_kernel",),
                 "ablate_fused": ("ablate_fused",)}
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 flop/s
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 and
+# fp64 (outside the tensor cores) flop/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+FP64_FLOP_S = 34e12
 
 
 def emit(phase: str, **kv):
@@ -200,7 +233,7 @@ def kernel_fns() -> dict:
     from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
         fused_demod, fused_demod_serial)
     from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
-        pll_scan_kernel, pll_scan_serial)
+        pll_scan_f64, pll_scan_kernel, pll_scan_serial)
     from project_desert_tortoise_tpu_torch.tools import (
         ablate_fused, ablate_kernel)
     return {"fused_demod": fused_demod, "pll_fir_agc": pll_fir_agc,
@@ -215,6 +248,10 @@ def kernel_fns() -> dict:
             "gardner_manchester_scan": scan_kernels.gardner_manchester_scan,
             "gardner_manchester_scan_serial":
                 scan_kernels.gardner_manchester_scan_serial,
+            "pll_scan_f64": pll_scan_f64,
+            "agc_scan_f64": scan_kernels.agc_scan_f64,
+            "gardner_manchester_scan_f64":
+                scan_kernels.gardner_manchester_scan_f64,
             "ablate_kernel": ablate_kernel.ablate_kernel,
             "ablate_fused": ablate_fused.ablate_fused}
 
@@ -242,11 +279,12 @@ def drive(path, fn):
     return out, counts
 
 
-def bound(n_bytes: float, flops: float) -> dict:
+def bound(n_bytes: float, flops: float, peak: float = FP32_FLOP_S) -> dict:
     """Least time the card could take: the larger of bytes over the HBM
-    rate and fp32 operations over the fp32 peak."""
+    rate and operations over their type's peak (fp32 unless `peak` says
+    otherwise)."""
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = flops / FP32_FLOP_S * 1e3
+    t_ops = flops / peak * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -276,6 +314,18 @@ def bound(n_bytes: float, flops: float) -> dict:
 CHAIN_CYCLES = 4
 AGC_CHAIN_OPS, PLL_CHAIN_OPS = 10, 12
 GM_SLOT_CHAIN_OPS, E_SYMBOL_CHAIN_OPS = 17, 16
+# The float64 kernels (the serial kernels in double) compute the same
+# operations in double.  Their chains: the AGC gain, 10 an output;
+# Gardner's next-sample chain, 17 a slot; the PLL step, whose `locked`
+# flag feeds back through the lock signal and so puts the data arm's
+# sin/cos and q_rsqrt on the chain: the locked phase update's 12 and the
+# lock signal's 6 (two multiplies, two adds, the threshold's compare and
+# the gain select), sin/cos and q_rsqrt not counted, so a lower bound.
+# Each at CHAIN_CYCLES_F64, the latency of a dependent FP64 add, multiply
+# or fused multiply-add: 8 cycles, as microbenchmarks measured it on
+# Volta (Jia et al., 2018); assumed for Hopper, not measured here.
+CHAIN_CYCLES_F64 = 8
+PLL_F64_CHAIN_OPS = PLL_CHAIN_OPS + 6
 
 
 def max_sm_clock_hz() -> float:
@@ -285,10 +335,12 @@ def max_sm_clock_hz() -> float:
     return float(r.stdout.strip().splitlines()[0]) * 1e6
 
 
-def chain_bound_ms(steps: int, ops_per_step: float) -> float:
+def chain_bound_ms(steps: int, ops_per_step: float,
+                   cycles: int = CHAIN_CYCLES) -> float:
     """Least time of `steps` steps of a loop-carried chain of
-    `ops_per_step` dependent operations, at the card's maximum SM clock."""
-    return steps * ops_per_step * CHAIN_CYCLES / max_sm_clock_hz() * 1e3
+    `ops_per_step` dependent operations of `cycles` cycles each, at the
+    card's maximum SM clock."""
+    return steps * ops_per_step * cycles / max_sm_clock_hz() * 1e3
 
 
 def front_chain_ops(interp: int) -> int:
@@ -768,15 +820,18 @@ def payload_check(mode_name: str, got, want, lead_in,
     lead-in apart).  Raises if any repeats, or unless the missed and the
     extra payloads are exactly the reference's: POES's fast path none,
     ARGOS ARGOS_REFERENCE_MISSED and ARGOS_REFERENCE_EXTRA, the exact
-    chain (`exact`) EXACT_REFERENCE_MISSED and EXACT_REFERENCE_EXTRA."""
+    chain (`exact`) EXACT_REFERENCE_MISSED and EXACT_REFERENCE_EXTRA, or
+    for ARGOS ARGOS_EXACT_REFERENCE_MISSED and _EXTRA."""
     counts = collections.Counter(got)
     missed, extra, repeated = payload_diff(got, want, lead_in)
     once = len(want) - len(missed) - len(repeated)
-    argos = mode_name == "argos"
-    ref = (EXACT_REFERENCE_MISSED if exact else
-           ARGOS_REFERENCE_MISSED if argos else ())
-    ref_extra = list(EXACT_REFERENCE_EXTRA if exact else
-                     ARGOS_REFERENCE_EXTRA if argos else ())
+    ref, ref_extra = {
+        ("poes", False): ((), ()),
+        ("argos", False): (ARGOS_REFERENCE_MISSED, ARGOS_REFERENCE_EXTRA),
+        ("poes", True): (EXACT_REFERENCE_MISSED, EXACT_REFERENCE_EXTRA),
+        ("argos", True): (ARGOS_EXACT_REFERENCE_MISSED,
+                          ARGOS_EXACT_REFERENCE_EXTRA)}[mode_name, exact]
+    ref_extra = list(ref_extra)
     differ = sorted(set(missed) ^ set(ref))
     out = dict(frames_written=len(got), recovered_once=once, of=len(want),
                missed=missed, repeated=repeated, extra=len(extra),
@@ -1008,7 +1063,7 @@ def phase_fused_at_main_shape(mode_name: str, staged, cli_wall: float,
     plane on the whole blocks, the two held to each other; then the
     path's mode held bit for bit to the plain version on the blocks' first
     MAIN_CHECK_L samples (block 0's padded head among them), and for POES
-    the staged plane on the first PLANE_CHECK_L."""
+    the staged plane on the same samples."""
     from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
         fused_demod, fused_demod_ref, geometry)
     from project_desert_tortoise_tpu_torch.parallel import blocked
@@ -1045,11 +1100,10 @@ def phase_fused_at_main_shape(mode_name: str, staged, cli_wall: float,
               lambda: gen(zc), lambda: gen(zc, ref=True),
               [B, MAIN_CHECK_L], stats)
     if mode_name == "poes":
-        zc = tuple(x[:, :PLANE_CHECK_L].contiguous() for x in z)
-        pc = pos[:, :PLANE_CHECK_L].contiguous()
+        pc = pos[:, :MAIN_CHECK_L].contiguous()
         time_pair("fused_demod", "poes main blocks, staged plane",
                   lambda: plane(zc, pc), lambda: plane(zc, pc, ref=True),
-                  [B, PLANE_CHECK_L], stats)
+                  [B, MAIN_CHECK_L], stats)
     # float32 re, im in and the merged bit plane and bit time out (no time
     # plane with time generation); operations counted from the source
     # (sinf/cosf one each): PLL ~40 a sample, FIR 2 a tap, AGC 8 an
@@ -1309,11 +1363,9 @@ def phase_new_kernels_at_main_shape(mode_name: str, staged, stats: dict,
     """The kernels of the front and scan branches against their plain
     versions on the inputs demod_blocks gives them on the pass: its lanes,
     warm PLL state and gains, its squelch and its Gardner layout (windows
-    of window * interp), each bit-exact.  pll_fir_agc on the blocks' first
-    MAIN_CHECK_L samples; the rest on the first MAIN_CHECK_L (POES) or
-    PLANE_CHECK_L (ARGOS: two Gardner windows).  Also fir_interp on the
-    card against the float64 sum, which TF32 would miss (its error is
-    reported beside)."""
+    of window * interp), each bit-exact, on the blocks' first MAIN_CHECK_L
+    samples (two Gardner windows).  Also fir_interp on the card against the
+    float64 sum, which TF32 would miss (its error is reported beside)."""
     import torch
     from project_desert_tortoise_tpu_torch.ops import agc, clock, fir, pll
     from project_desert_tortoise_tpu_torch.ops import manchester as man
@@ -1332,9 +1384,6 @@ def phase_new_kernels_at_main_shape(mode_name: str, staged, stats: dict,
     time_pair("pll_fir_agc", case,
               lambda: pll_fir_agc(params, pst, gain0, z),
               lambda: pll_fir_agc_ref(params, pst, gain0, z), [B, L], stats)
-    if mode_name != "poes":
-        L = PLANE_CHECK_L
-        z = tuple(x[:, :L].contiguous() for x in z)
     pos = blocked.sample_positions(lo, n, plan.total, 1 if interp > 1 else 0)
     pos = pos[:, :L].contiguous()
     time_pair("pll_scan", case, lambda: pll_scan_kernel(params.pll, pst, z),
@@ -1648,12 +1697,167 @@ def phase_exact_kernels(stats: dict):
         ms=ms, serial_ms=ms_old, shape=[1, cap])
 
 
+ARGOS_EXACT_CHECK_L = (2400, 1234)   # the argos chunk, a short final one
+
+
+def phase_argos_exact_kernels(stats: dict):
+    """The float64 argos exact chain's three kernels at one lane against
+    their plain versions on the card, bit for bit (max abs error 0): from
+    an unlocked start where the first packet's signal begins (the
+    acquisition sweep), over a 2,400-sample chunk and a short final chunk
+    of 1,234: pll_scan_f64, agc_scan_f64 on its filtered output, and
+    gardner_manchester_scan_f64 on the squelched AGC output, as the quirks
+    image (over the previous chunk's image, the mid-bit pointer carried
+    stale inside the image, past the valid length, past the image and
+    negative) and as the chunk-invariant image (16 carried samples, then
+    the chunk); ms by CUDA events.  One `design` line: the three kernels'
+    ms at the 2,400-sample chunk and their chain bounds (computed from
+    counted operations and an assumed latency, not measured)."""
+    import torch
+    from project_desert_tortoise_tpu_torch import chain
+    from project_desert_tortoise_tpu_torch.ops import agc, fir, pll
+    from project_desert_tortoise_tpu_torch.ops import manchester as man
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+    from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
+        pll_scan_kernel)
+    from project_desert_tortoise_tpu_torch.utils import synth
+    from project_desert_tortoise_tpu_torch.utils.config import ARGOS
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    params = chain.make_params(ARGOS, ARGOS_FS, quirks=True)
+    iq, _ = synth.make_argos_recording(n_packets=2, fs=ARGOS_FS)
+    iq = (iq / (np.abs(iq).max() * 1.2)).astype(np.complex128)
+    start = int(0.4 * ARGOS_FS)           # the first packet's signal
+    cold = pll.init_state(params.pll, (1,), device=dev, dtype=f64)
+    gain = torch.full((1,), agc.static_gain(
+        iq[:ARGOS.chunk_size], ARGOS.static_gain_level, np.float64),
+        dtype=f64, device=dev)
+    ap = sk.AGCParams(params.agc_attack, params.agc_decay)
+    gp = sk.GardnerParams(params.step_size, params.gardner_err_limit,
+                          params.gardner_gain, params.resync_threshold)
+    cap = ARGOS.chunk_size * params.interp
+    msyms = chain.max_symbols(cap, params.step_size)
+    m0 = man.manchester_init((1,), device=dev)
+    istate = (m0.clockmod, m0.evenodd + 1)
+
+    def front(a, L):
+        """The chunk iq[a:a+L] from the cold state: (pll args, agc args,
+        squelched AGC output)."""
+        z = tuple(torch.from_numpy(np.ascontiguousarray(v[a:a + L])[None])
+                  .to(dev) for v in (iq.real, iq.imag))
+        _, soft, lock = pll_scan_kernel(params.pll, cold, z)
+        x = fir.fir_interp(soft, params.taps, params.interp)
+        _, y = sk.agc_scan(gain, x, ap)
+        return z, x, agc.squelch(y, lock, params.squelch_threshold)
+    _, _, prev = front(start - cap, cap)  # the previous chunk's image
+    times = {}
+    for L in ARGOS_EXACT_CHECK_L:
+        z, x, y = front(start, L)
+        times["pll_scan_f64", L] = time_pair(
+            "pll_scan_f64", f"argos exact chain, 1 lane, unlocked start, "
+            f"{L} samples", lambda: pll_scan_kernel(params.pll, cold, z),
+            lambda: pll.pll_scan_ref(params.pll, cold, *z), [1, L], stats)
+        times["agc_scan_f64", L] = time_pair(
+            "agc_scan_f64", f"argos exact chain, 1 lane, {L} samples",
+            lambda: sk.agc_scan(gain, x, ap),
+            lambda: sk.agc_scan_ref(gain, x, ap), list(x.shape), stats)
+        n_i = L * params.interp
+        quirks_img = torch.cat([y, prev[:, n_i:]], dim=-1)
+        times_of = lambda k: (torch.arange(1, k + 1, dtype=f64, device=dev)
+                              / ARGOS_FS)[None].contiguous()
+        t_img = times_of(cap)
+        m = chain.TAIL_MARGIN
+        invariant = (torch.cat([prev[:, -m:], y], dim=-1), times_of(m + n_i))
+        f = lambda v: torch.full((1,), v, dtype=f64, device=dev)
+        for case, img, n_valid, half in (
+                ("quirks, stale inside the image", (quirks_img, t_img),
+                 n_i, cap - 9.6),
+                ("quirks, past the valid length", (quirks_img, t_img), n_i,
+                 n_i + 3.5),
+                ("quirks, past the image", (quirks_img, t_img), n_i,
+                 cap + 7.25),
+                ("quirks, negative", (quirks_img, t_img), n_i, -4.5),
+                ("chunk-invariant image", invariant, m + n_i, m + 3.25)):
+            fstate = (f(7.3), f(half), f(0.4), f(0.9), f(-0.8), f(0.7))
+            n = torch.full((1,), n_valid, dtype=torch.int32, device=dev)
+            args = (fstate, istate, *img, n, gp, msyms)
+            times["gardner_manchester_scan_f64", L, case] = time_pair(
+                "gardner_manchester_scan_f64",
+                f"argos exact chain, 1 lane, {L} samples, {case}",
+                lambda: sk.gardner_manchester_scan(*args),
+                lambda: sk.gardner_manchester_scan_ref(*args),
+                [1, img[0].shape[1]], stats)
+    L = ARGOS.chunk_size
+    emit("design", mode="argos exact chain (float64)", card=card_line(),
+         chain_cycles_f64=CHAIN_CYCLES_F64, ms={
+             "pll_scan_f64": times["pll_scan_f64", L][0],
+             "agc_scan_f64": times["agc_scan_f64", L][0],
+             "gardner_manchester_scan_f64": times[
+                 "gardner_manchester_scan_f64", L,
+                 "quirks, stale inside the image"][0]},
+         chain_bound_ms={
+             "pll_scan_f64 (lower bound)": chain_bound_ms(
+                 L, PLL_F64_CHAIN_OPS, CHAIN_CYCLES_F64),
+             "agc_scan_f64": chain_bound_ms(L * params.interp,
+                                            AGC_CHAIN_OPS, CHAIN_CYCLES_F64),
+             "gardner_manchester_scan_f64": chain_bound_ms(
+                 msyms, GM_SLOT_CHAIN_OPS, CHAIN_CYCLES_F64)},
+         max_syms=msyms)
+
+
+# the files the telemetry explorer writes for the POES pass's frames: how
+# many, and the first 16 hex digits of the sha256 of their sorted names
+# joined by newlines.  tests/test_torch_telemetry.py recomputes both with
+# the JAX package's explorer (the same with the acquisition lead-in frame
+# and without it).
+POES_PASS_PRODUCTS = (70, "99a1cec24886e577")
+
+
+def phase_products(workdir: str, frames_txt: str):
+    """The port's telemetry explorer (what ``--products`` runs) on the POES
+    CLI's output file: it must exit 0, write the files JAX's explorer
+    writes for those frames (POES_PASS_PRODUCTS), and its summary's
+    error-free count must be check_parity's on the file's frames.  Its
+    wall seconds."""
+    from project_desert_tortoise_tpu_torch.apps import telemetry_explorer
+    from project_desert_tortoise_tpu_torch.telemetry.minorframes import (
+        check_parity)
+    from project_desert_tortoise_tpu_torch.utils.output import (
+        parse_frames_file)
+
+    outdir = os.path.join(workdir, "products")
+    so = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(so):
+        rc = telemetry_explorer.run([frames_txt, "--outdir", outdir])
+    wall = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"the telemetry explorer exited {rc}")
+    names = sorted(os.listdir(outdir))
+    digest = hashlib.sha256("\n".join(names).encode()).hexdigest()[:16]
+    if (len(names), digest) != POES_PASS_PRODUCTS:
+        raise AssertionError(f"the explorer wrote {len(names)} files "
+                             f"({digest}), not {POES_PASS_PRODUCTS}")
+    rows = [r[2] for r in parse_frames_file(frames_txt) if len(r[2]) == 104]
+    good, _ = check_parity(np.array(rows, np.uint8))
+    want = f"{int(good.sum())} out of {len(rows)} Error Free Frames"
+    with open(os.path.join(outdir, "summary.txt")) as f:
+        summary = f.read()
+    if summary.splitlines()[0] != want:
+        raise AssertionError(f"summary {summary.splitlines()[0]!r}, "
+                             f"check_parity {want!r}")
+    emit("products", files=len(names), names_sha256=digest, wall_s=wall,
+         frames=len(rows), error_free=int(good.sum()),
+         summary=summary.splitlines(), stdout=so.getvalue().splitlines())
+
+
 def phase_exact_fallback(staged, stats: dict):
     """gardner_manchester_scan at the block-parallel path's lanes: the
     unwindowed layout demod_blocks falls back to (window=0) on the POES
     pass's 352 blocks, the scan branch's y and the interpolated position
-    plane, against its plain version and its serial twin bit for bit, the
-    two kernels timed in this run; one `design` line."""
+    plane, against its serial twin bit for bit on the whole blocks and
+    against its plain version on their first MAIN_CHECK_L samples, the two
+    kernels timed on the whole blocks in this run; one `design` line."""
     import torch
     from project_desert_tortoise_tpu_torch.ops import clock, fir
     from project_desert_tortoise_tpu_torch.ops import manchester as man
@@ -1674,14 +1878,19 @@ def phase_exact_fallback(staged, stats: dict):
     m0 = man.manchester_init((B,), device=dev)
     fstate = (*g0, m0.cur, m0.prev, m0.prevprev)
     istate = (m0.clockmod, m0.evenodd)
-    n_valid = torch.full((B,), n_i, dtype=torch.int32, device=dev)
     gp = sk.GardnerParams(params.step_size, params.gardner_err_limit,
                           params.gardner_gain, params.resync_threshold)
-    args = (fstate, istate, y, t, n_valid, gp, max_syms)
-    ms, plain_ms, err = time_pair(
+    n_c = MAIN_CHECK_L * interp
+    cargs = (fstate, istate, y[:, :n_c].contiguous(),
+             t[:, :n_c].contiguous(),
+             torch.full((B,), n_c, dtype=torch.int32, device=dev), gp,
+             int(n_c / params.step_size * 1.02) + 16)
+    ms_c, plain_ms, err = time_pair(
         "gardner_manchester_scan", f"poes window=0 layout, {B} lanes",
-        lambda: sk.gardner_manchester_scan(*args),
-        lambda: sk.gardner_manchester_scan_ref(*args), [B, n_i], {})
+        lambda: sk.gardner_manchester_scan(*cargs),
+        lambda: sk.gardner_manchester_scan_ref(*cargs), [B, n_c], {})
+    n_valid = torch.full((B,), n_i, dtype=torch.int32, device=dev)
+    args = (fstate, istate, y, t, n_valid, gp, max_syms)
     GS, GSS = sk.gardner_manchester_scan, sk.gardner_manchester_scan_serial
     ms_new, ms_old, got, want = old_new_ms(lambda: GS(*args),
                                            lambda: GSS(*args), reps=5)
@@ -1703,7 +1912,8 @@ def phase_exact_fallback(staged, stats: dict):
                                                     GM_SLOT_CHAIN_OPS)))
     st = stats["gardner_manchester_scan"]
     st["max_abs_err"] = max(st["max_abs_err"], err)
-    st["window0"] = dict(ms=ms, plain_ms=plain_ms, shape=[B, n_i],
+    st["window0"] = dict(ms=ms_new, plain_ms=plain_ms, shape=[B, n_i],
+                         plain_shape=[B, n_c], check_ms=ms_c,
                          max_syms=max_syms, serial_ms=ms_old)
     stats["gardner_manchester_scan_serial"]["window0"] = dict(
         ms=ms_old, shape=[B, n_i], redesigned_ms=ms_new)
@@ -1753,12 +1963,17 @@ def state_diff(card, cpu, what: str) -> dict:
 
 
 EXACT_SMALL_MODES = ("poes_tip", "poes_tip no quirks", "poes_tip_realtime")
+# the first samples of exact_small's clip on which the session with the
+# plain versions on the card runs (~1 ms a sample there, host-bound): two
+# poes_tip chunks and a short final one, ten poes_tip_realtime chunks and a
+# short final one
+EXACT_SMALL_PLAIN_N = 25_000
 
 
-def exact_small_session(name: str, device: str):
+def exact_small_session(name: str, device: str, n=None):
     """DemodSession on exact_small's 0.8 s synthetic POES clip (4 frames,
-    acquisition included) in the case `name` (EXACT_SMALL_MODES).
-    Returns (final state, frames, seconds)."""
+    acquisition included), or its first n samples, in the case `name`
+    (EXACT_SMALL_MODES).  Returns (final state, frames, seconds)."""
     from project_desert_tortoise_tpu_torch.models.demodulator import (
         DemodSession)
     from project_desert_tortoise_tpu_torch.utils import synth, wav as W
@@ -1766,7 +1981,7 @@ def exact_small_session(name: str, device: str):
         POES_TIP, POES_TIP_REALTIME)
 
     iq, _ = synth.make_poes_recording(n_frames=4, fs=POES_FS)
-    iq = (iq / (np.abs(iq).max() * 1.2)).astype(np.complex64)
+    iq = (iq / (np.abs(iq).max() * 1.2)).astype(np.complex64)[:n]
     t = W.time_axis(len(iq), POES_FS, np.float32)
     mode = POES_TIP_REALTIME if name == "poes_tip_realtime" else POES_TIP
     t0 = time.time()
@@ -1791,9 +2006,9 @@ def phase_exact_small(cpu_sessions: dict):
     on the card against the CPU (the plain versions, whose sin/cos round
     otherwise than the card's; `cpu_sessions` from cpu_exact_small),
     frames under the docs/DESIGN.md §4b contract and the final state
-    within STATE_LIMITS; and on the card against the same session with
-    the plain versions on the card (launches not counted), frames and
-    final state bit for bit."""
+    within STATE_LIMITS; and on the clip's first EXACT_SMALL_PLAIN_N
+    samples against the same session with the plain versions on the card
+    (launches not counted), frames and final state bit for bit."""
     def frames(fr):
         return [(f.time, f.inverted, bytes(f.data), f.complete) for f in fr]
     for name in EXACT_SMALL_MODES:
@@ -1811,53 +2026,68 @@ def phase_exact_small(cpu_sessions: dict):
             raise AssertionError(f"exact chain {name}: the card's "
                                  f"{len(b)} frames against the CPU's "
                                  f"{len(a)}, {shifted} timestamps shifted")
+        n = EXACT_SMALL_PLAIN_N
+        kern_state, kern, _ = exact_small_session(name, "cuda", n)
         with exact_kernels_replaced(lambda name, kern, plain: plain):
             plain_state, plain, plain_wall = exact_small_session(name,
-                                                                 "cuda")
-        if frames(b) != frames(plain):
+                                                                 "cuda", n)
+        if frames(kern) != frames(plain):
             raise AssertionError(f"exact chain {name}: the kernels' frames "
                                  "differ from the plain versions'")
-        check_equal(tuple(state_tensors(card_state)),
+        check_equal(tuple(state_tensors(kern_state)),
                     tuple(state_tensors(plain_state)),
                     f"exact chain {name} final state")
         emit("exact_small", card=card_line(), mode=name, cpu_s=cpu_wall,
              card_s=card_wall, plain_on_card_s=plain_wall, frames=len(b),
              time_shifted=shifted, state_max_abs_diff_vs_cpu=diffs,
+             plain_samples=n, plain_frames=len(plain),
              frames_and_state_bit_exact_vs_plain=True)
 
 
-# the library entry point each of the exact chain's kernels launches
-EXACT_ENTRY = {"pll_scan": "pdt_pll_scan", "agc_scan": "pdt_agc_scan",
-               "gardner_manchester_scan": "pdt_gardner_scan"}
+# per mode: the path's name in PATH_KERNELS, and the library entry point
+# each of its exact chain's kernels launches
+EXACT_PATHS = {
+    "poes": ("exact", {"pll_scan": "pdt_pll_scan",
+                       "agc_scan": "pdt_agc_scan",
+                       "gardner_manchester_scan": "pdt_gardner_scan"}),
+    "argos": ("argos_exact", {
+        "pll_scan_f64": "pdt_pll_scan_f64",
+        "agc_scan_f64": "pdt_agc_scan_f64",
+        "gardner_manchester_scan_f64": "pdt_gardner_scan_f64"})}
 
 
-def phase_exact_cli(workdir: str, wav: str, want, lead_in, fast_lines,
-                    stats: dict):
-    """The pass through the port's ``demod_poes`` without ``--fast``: the
-    exact chain on the card (3,603 chunks of up to 10,000 samples).  Its
-    payloads must be the JAX exact chain's (EXACT_REFERENCE_MISSED,
-    _EXTRA) and each one the fast path decoded in this run.  Each launch
-    of the three kernels is bracketed by CUDA events in the run itself
-    (common.launch_events): their sum is the kernels' device time, which
-    also holds the few microseconds a launch takes to reach an idle card.
-    The wall is split on the host clock: the chunk steps' host time
-    (launches are queued), the device-to-host fetch (which waits for the
-    chunk's device work), the framer, the frame writer, the rest (WAV
-    load, static gain); the host's share is the wall outside the fetch.  Fills the three kernels' rows (ms a launch over
-    the run, the bound of the run's mean work a launch); returns the
-    launches."""
+def phase_exact_cli(mode_name: str, workdir: str, wav: str, want, lead_in,
+                    fast_lines, stats: dict):
+    """The pass through the port's CLI without ``--fast``: the exact chain
+    on the card at one lane, ``demod_poes`` (3,603 chunks of up to 10,000
+    samples, float32; ``exact_cli``) or ``demod_argos`` (the float64
+    ``argos`` mode, 9,601 chunks of up to 2,400 samples, the kernels'
+    double instances; ``argos_exact_cli``).  Its payloads must be the JAX
+    exact chain's (EXACT_REFERENCE_* for POES, each one also decoded by
+    the fast path in this run; ARGOS_EXACT_REFERENCE_* for ARGOS).  Each
+    launch of the three kernels is bracketed by CUDA events in the run
+    itself (common.launch_events): their sum is the kernels' device time,
+    which also holds the few microseconds a launch takes to reach an idle
+    card.  The wall is split on the host clock: the chunk steps' host
+    time (launches are queued), the device-to-host fetch (which waits for
+    the chunk's device work), the framer, the frame writer, the rest (WAV
+    load, static gain); the host's share is the wall outside the fetch.
+    Fills the three kernels' rows (ms a launch over the run, the bound of
+    the run's mean work a launch); returns the launches."""
     import torch
     from project_desert_tortoise_tpu_torch import chain
-    from project_desert_tortoise_tpu_torch.apps import demod_poes
+    from project_desert_tortoise_tpu_torch.apps import demod_argos, demod_poes
     from project_desert_tortoise_tpu_torch.models import demodulator
     from project_desert_tortoise_tpu_torch.ops import framer
     from project_desert_tortoise_tpu_torch.ops.kernels import common
     from project_desert_tortoise_tpu_torch.utils import output
-    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
     from project_desert_tortoise_tpu_torch.utils.output import (
         parse_frames_file)
 
-    out = os.path.join(workdir, "poes_exact.txt")
+    path, entries = EXACT_PATHS[mode_name]
+    mode, fs = modes()[mode_name]
+    argos = mode_name == "argos"
+    out = os.path.join(workdir, f"{mode_name}_exact.txt")
     split = collections.Counter()
 
     def clocked(key, fn):
@@ -1868,6 +2098,15 @@ def phase_exact_cli(workdir: str, wav: str, want, lead_in, fast_lines,
             finally:
                 split[key] += time.perf_counter() - t0
         return run
+
+    def cli():
+        if not argos:
+            return demod_poes.run([wav, "--out", out])
+        try:
+            demod_argos.main([wav, "--out", out])
+        except SystemExit as done:
+            return done.code
+        raise AssertionError("demod_argos.main returned without an exit code")
     err, so = io.StringIO(), io.StringIO()
     events = {}
     with contextlib.ExitStack() as stack:
@@ -1882,28 +2121,28 @@ def phase_exact_cli(workdir: str, wav: str, want, lead_in, fast_lines,
         stack.enter_context(contextlib.redirect_stderr(err))
         stack.enter_context(contextlib.redirect_stdout(so))
         t0 = time.time()
-        rc, counts = drive("exact", lambda: demod_poes.run([wav, "--out",
-                                                            out]))
+        rc, counts = drive(path, cli)
         wall = time.time() - t0
     if rc != 0:
-        raise AssertionError(f"demod_poes (exact chain) exited {rc}")
+        raise AssertionError(f"the {mode_name} CLI (exact chain) exited {rc}")
     got = [bytes(b) for _, _, b in parse_frames_file(out)]
-    fast = {b for _, b in fast_lines}
-    not_fast = [g.hex() for g in got if g not in fast]
-    if not_fast:
-        raise AssertionError(f"the exact chain decoded {len(not_fast)} "
-                             f"payloads the fast path did not: "
-                             f"{not_fast[:5]}")
-    check = payload_check("poes", got, want, lead_in, exact=True)
+    if not argos:
+        fast = {b for _, b in fast_lines}
+        not_fast = [g.hex() for g in got if g not in fast]
+        if not_fast:
+            raise AssertionError(f"the exact chain decoded {len(not_fast)} "
+                                 f"payloads the fast path did not: "
+                                 f"{not_fast[:5]}")
+    check = payload_check(mode_name, got, want, lead_in, exact=True)
     torch.cuda.synchronize()
     event_s = {}
-    for k, entry in EXACT_ENTRY.items():
+    for k, entry in entries.items():
         pairs = events.get(entry, [])
         if len(pairs) != counts[k]:
             raise AssertionError(f"{k}: {len(pairs)} timed launches against "
                                  f"{counts[k]} counted")
         event_s[k] = sum(a.elapsed_time(b) for a, b in pairs) / 1e3
-    if set(events) != set(EXACT_ENTRY.values()):
+    if set(events) != set(entries.values()):
         raise AssertionError(f"the exact chain launched {sorted(events)}")
     progress = re.sub(r"\x1b\[[0-9;]*m", "", err.getvalue().rsplit(
         "\r", 1)[-1]).strip()
@@ -1914,35 +2153,38 @@ def phase_exact_cli(workdir: str, wav: str, want, lead_in, fast_lines,
     # the bound of the run's mean work a launch: bytes each input read once
     # and each output written once, operations counted from the sources as
     # in phase_branch_stages (PLL ~40 a sample, AGC 8 an output,
-    # Gardner+Manchester ~30 an active symbol slot)
-    params = chain.make_params(POES_TIP, POES_FS, quirks=True)
-    interp = params.interp
-    slots = chain.max_symbols(POES_TIP.chunk_size * interp, params.step_size)
-    per = {k: 1.0 / counts[k] for k in EXACT_ENTRY}
+    # Gardner+Manchester ~30 an active symbol slot), at the stream type's
+    # peak; a float64 value is 8 bytes
+    params = chain.make_params(mode, fs, quirks=True)
+    interp, w = params.interp, (2.0 if argos else 1.0)
+    peak = FP64_FLOP_S if argos else FP32_FLOP_S
+    slots = chain.max_symbols(mode.chunk_size * interp, params.step_size)
+    pll_k, agc_k, gm_k = entries
+    per = {k: 1.0 / counts[k] for k in entries}
     work = {
-        "pll_scan": bound((n_samples * 16.0 + counts["pll_scan"] * 48.0)
-                          * per["pll_scan"],
-                          n_samples * 40.0 * per["pll_scan"]),
-        "agc_scan": bound(n_samples * interp * 8.0 * per["agc_scan"],
-                          n_samples * interp * 8.0 * per["agc_scan"]),
-        "gardner_manchester_scan": bound(
-            (n_syms * 12.0 * per["gardner_manchester_scan"] + slots * 11.0),
-            n_syms * 30.0 * per["gardner_manchester_scan"])}
-    shapes = {"pll_scan": [1, POES_TIP.chunk_size],
-              "agc_scan": [1, POES_TIP.chunk_size * interp],
-              "gardner_manchester_scan": [1, POES_TIP.chunk_size * interp]}
-    ms = {k: event_s[k] * 1e3 / counts[k] for k in EXACT_ENTRY}
-    for k in EXACT_ENTRY:
+        pll_k: bound((n_samples * 16.0 + counts[pll_k] * 48.0) * w
+                     * per[pll_k], n_samples * 40.0 * per[pll_k], peak),
+        agc_k: bound(n_samples * interp * 8.0 * w * per[agc_k],
+                     n_samples * interp * 8.0 * per[agc_k], peak),
+        gm_k: bound((n_syms * 12.0 * w * per[gm_k] + slots * (11.0 + 8.0
+                                                              * (w - 1))),
+                    n_syms * 30.0 * per[gm_k], peak)}
+    shapes = {pll_k: [1, mode.chunk_size],
+              agc_k: [1, mode.chunk_size * interp],
+              gm_k: [1, mode.chunk_size * interp]}
+    ms = {k: event_s[k] * 1e3 / counts[k] for k in entries}
+    for k in entries:
         row = dict(ms=ms[k], shape=shapes[k], launches_exact_cli=counts[k],
                    **work[k])
-        if k == "gardner_manchester_scan":
+        if argos or k == gm_k:
             stats[k].update(row)
         else:
             stats[k]["exact"].update(row)
     kernels_s = sum(event_s.values())
     split["other"] = wall - sum(split.values())
-    emit("exact_cli", wall_s=wall, launches={k: counts[k] for k in
-                                             PATH_KERNELS["exact"]},
+    cycles = CHAIN_CYCLES_F64 if argos else CHAIN_CYCLES
+    emit("argos_exact_cli" if argos else "exact_cli", wall_s=wall,
+         launches={k: counts[k] for k in PATH_KERNELS[path]},
          split_s=dict(split), kernel_event_s=event_s,
          kernel_event_ms_a_launch=ms, kernels_event_s=kernels_s,
          kernels_event_share_of_wall=kernels_s / wall,
@@ -1950,11 +2192,10 @@ def phase_exact_cli(workdir: str, wav: str, want, lead_in, fast_lines,
          host_share_of_wall=1.0 - split["fetch"] / wall,
          samples=n_samples, symbols=n_syms, bits=n_bits,
          symbol_slots_a_launch=slots,
-         # gardner_manchester_scan's next-sample chain is
-         # gardner_manchester_serial's, 17 counted operations a slot
-         # (computed, not measured)
+         # the Gardner scan's next-sample chain, 17 counted operations a
+         # slot (computed, not measured; float64: at an assumed latency)
          gardner_manchester_scan_chain_bound_ms=chain_bound_ms(
-             slots, GM_SLOT_CHAIN_OPS),
+             slots, GM_SLOT_CHAIN_OPS, cycles),
          framer_bits_per_s=n_bits / split["framer"] if split["framer"]
          else None,
          progress_line=progress, stdout_tail=so.getvalue()[-200:],
@@ -1991,7 +2232,7 @@ def ablation_bound(tool, name: str, steps: int, B: int) -> dict:
 
 def phase_ablation(stats: dict) -> dict:
     """The two ablation tools: every variant's kernel against its plain
-    version bit for bit over 1,024 steps at each lane count of ABLATION_S,
+    version bit for bit over 512 steps at each lane count of ABLATION_S,
     then each tool's CLI (its ``main``) on the card at those lane counts,
     as a main path whose launches are counted; one ``ablation`` line a
     variant and lane count.  Returns {tool: launches}."""
@@ -2119,7 +2360,7 @@ SERVE_ENTRY = {"fused_demod": "pdt_fused_demod", "pll_scan": "pdt_pll_scan",
                "agc_scan": "pdt_agc_scan",
                "gardner_manchester": "pdt_gardner_manchester"}
 RT_FS = 48000.0
-RT_FRAMES = 596                           # 60 s of poes_tip_realtime
+RT_FRAMES = 296                           # 30 s of poes_tip_realtime
 # stdin and the followed file are fed faster than real time, at a pace the
 # consumer keeps up with (the ring holds 5.5 s of exact-chain input)
 RT_PACE = {"exact": 4.0, "fast": 8.0}
@@ -2626,7 +2867,7 @@ def realtime_cli(argv, stdin=None):
 
 
 def phase_realtime(workdir: str) -> dict:
-    """demod_realtime on the card with 60 s of poes_tip_realtime at 48 kHz:
+    """demod_realtime on the card with 30 s of poes_tip_realtime at 48 kHz:
     from stdin, the exact chain (lines equal an offline DemodSession with
     quirks off over the same samples) and --fast (lines equal
     demodulate_many on them, what a one-channel ChannelBank gives);
@@ -2829,6 +3070,7 @@ def drive_all(exact_cpu, slice_cpu) -> int:
     phase_new_kernels(stats["poes"])
     phase_exact_kernels(stats["poes"])
     phase_argos_kernels(stats["argos"])
+    phase_argos_exact_kernels(stats["argos"])
     phase_exact_small(exact_cpu.result())
     launches = {"poes": collections.Counter(), "argos": collections.Counter()}
     staged = {}
@@ -2839,9 +3081,11 @@ def drive_all(exact_cpu, slice_cpu) -> int:
             out, walls[mode_name], counts, lines = phase_cli_path(
                 mode_name, workdir, wav, want, lead_in)
             launches[mode_name].update(counts)
+            launches[mode_name].update(phase_exact_cli(
+                mode_name, workdir, wav, want, lead_in, lines,
+                stats[mode_name]))
             if mode_name == "poes":
-                launches[mode_name].update(phase_exact_cli(
-                    workdir, wav, want, lead_in, lines, stats["poes"]))
+                phase_products(workdir, out)
             for br in ("front", False):
                 launches[mode_name].update(phase_branch_path(
                     mode_name, wav, br, want, lead_in, lines))
@@ -2894,8 +3138,10 @@ def drive_all(exact_cpu, slice_cpu) -> int:
     # ARGOS's in "argos"; launches summed over every main path run
     table = []
     for name, (src, rep) in KERNELS.items():
-        st = stats["poes"][name]
+        st = stats["poes"].get(name)
         argos = stats["argos"].get(name)
+        if st is None:          # the float64 kernels: the argos mode only
+            st, argos = argos, None
         entry = dict(name=name, route="cuda", source=src, replaces=rep,
                      launches=(launches["poes"][name]
                                + launches["argos"][name]

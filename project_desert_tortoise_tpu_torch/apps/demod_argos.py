@@ -4,11 +4,13 @@ Twin of ``project_desert_tortoise_tpu/apps/demod_argos.py`` (the reference
 ``demodARGOS``, ``ARGOSdemod/main.c:121-164``): the flags of the port's
 ``demod_poes`` with the ``argos`` mode and ``packets_*.txt`` output.  The
 reference accepts WAV input only; RAW input (with ``-s``) is accepted with
-a notice.  The time axis loads in float64 (the mode's dtype) and the fast
-path casts it to float32.  ``--mode argos_realtime`` decodes the realtime
-variant (float32, inverse sync), also on the exact chunked chain (no
-``--fast``); the float64 ``argos`` mode's exact chain is not ported yet.
+a notice.  The time axis loads in float64 (the mode's dtype).  Without
+``--fast`` the exact chunked chain runs in float64, as the reference file
+app does (its kernels' double instances on the card); the fast path casts
+to float32.  ``--mode argos_realtime`` decodes the realtime variant
+(float32, inverse sync), on either path.
 
+    python -m project_desert_tortoise_tpu_torch.apps.demod_argos X.wav
     python -m project_desert_tortoise_tpu_torch.apps.demod_argos X.wav --fast
     python -m project_desert_tortoise_tpu_torch.apps.demod_argos X.wav \
         --mode argos_realtime

@@ -4,15 +4,18 @@ Same flags as ``project_desert_tortoise_tpu/apps/demod_poes.py`` (the
 reference ``demodPOES``, ``POESTIPdemod/main.c:185-234``) plus ``--device``
 (default ``cuda``; ``cpu`` runs the kernels' plain PyTorch versions).
 Without ``--fast`` it runs the exact chunked chain
-(``models/demodulator.py::DemodSession``), with its options ``-r``, ``-c``,
-``--no-quirks`` and ``--timebase`` and the reference's stderr progress
-line; ``--fast`` runs the block-parallel path on the fused kernel.
-``apps/demod_argos.py`` runs the same with the ARGOS modes.  Still refused
-(exit 2, with a message): the exact chain of a float64 mode (``argos``),
-``--products``, and the exact chain's options together with ``--fast``.
+(``models/demodulator.py::DemodSession``) in the mode's dtype, with its
+options ``-r``, ``-c``, ``--no-quirks`` and ``--timebase`` and the
+reference's stderr progress line; ``--fast`` runs the block-parallel path
+on the fused kernel.  ``--products DIR`` then runs the telemetry explorer
+(``apps/telemetry_explorer.py``) on the frames file, after either path.
+``apps/demod_argos.py`` runs the same with the ARGOS modes.  Refused (exit
+2, with a message): the exact chain's options together with ``--fast``.
 
     python -m project_desert_tortoise_tpu_torch.apps.demod_poes X.wav
     python -m project_desert_tortoise_tpu_torch.apps.demod_poes X.wav --fast
+    python -m project_desert_tortoise_tpu_torch.apps.demod_poes X.wav \
+        --products products/
 """
 
 from __future__ import annotations
@@ -57,10 +60,6 @@ def build_parser(prog: str, default_mode: str) -> argparse.ArgumentParser:
 
 def run(argv=None, default_mode="poes_tip", prefix="minorFrames"):
     args = build_parser(f"demod_{default_mode}", default_mode).parse_args(argv)
-    if args.products:
-        print("--products (telemetry explorer) is not ported to PyTorch "
-              "yet", file=sys.stderr)
-        return 2
     exact_only = [flag for flag, given in (
         ("-r", args.raw_taps), ("-c", args.chunk_size),
         ("--no-quirks", args.no_quirks),
@@ -74,11 +73,6 @@ def run(argv=None, default_mode="poes_tip", prefix="minorFrames"):
     from project_desert_tortoise_tpu_torch.utils import wav as W
 
     mode = get_mode(args.mode)
-    if not args.fast and mode.np_dtype() != np.float32:
-        print(f"mode {mode.name!r} runs in {mode.dtype}: its exact chunked "
-              "chain is not ported to PyTorch yet (the float32 modes are); "
-              "run with --fast", file=sys.stderr)
-        return 2
     t0 = time.time()
     if args.infile.lower().endswith(".raw"):
         if args.sample_rate_khz < 1:
@@ -110,10 +104,12 @@ def run(argv=None, default_mode="poes_tip", prefix="minorFrames"):
                            inverted_mark=mode.framer.inverted_mark) as w:
             w.write_all(frames)
         print(f"\n{len(frames)} frames -> {out_path}")
-        print(f"That took {time.time()-t0:.2f} seconds!")
-        return 0
-    run_exact(args, mode, iq, t, fs, out_path)
+    else:
+        run_exact(args, mode, iq, t, fs, out_path)
     print(f"That took {time.time()-t0:.2f} seconds!")
+    if args.products:
+        from project_desert_tortoise_tpu_torch.apps import telemetry_explorer
+        telemetry_explorer.run([out_path, "--outdir", args.products])
     return 0
 
 

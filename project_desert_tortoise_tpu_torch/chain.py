@@ -14,9 +14,10 @@ The exact chunked chain is the reference's ``while(!feof)`` driver loop
 on the card: the PLL, AGC and Gardner/Manchester kernels at one lane per
 stream, the FIR a convolution.  With ``quirks=True`` it keeps the
 reference's buffer-image semantics (see ops/clock.py); with
-``quirks=False`` it is chunk-size invariant.  The float32 modes with the
-``"gardner"`` clock are ported; the float64 ``argos`` mode and the other
-clock algorithms are not yet.
+``quirks=False`` it is chunk-size invariant.  The state and the chunk run
+in the mode's dtype: float32, or float64 for the ``argos`` mode (its
+kernels' double instances, as JAX runs that mode under x64).  The
+``"gardner"`` clock is ported; the other clock algorithms are not yet.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from project_desert_tortoise_tpu_torch.ops.kernels import pll_kernel
 class ChainParams(NamedTuple):
     """Static per-stream parameters (derived from ModeConfig + Fs)."""
     pll: pll_ops.PLLParams
-    taps: tuple                 # FIR taps (float32 values as python floats)
+    taps: tuple                 # FIR taps (stream-dtype values as python floats)
     interp: int
     agc_attack: float
     agc_decay: float
@@ -119,20 +120,23 @@ def _check_ported(params: ChainParams) -> None:
 
 
 def init_state(params: ChainParams, initial_gain: float, chunk_cap: int,
-               batch_shape=(), *, device) -> ChainState:
-    """The stream state at its start, float32 on `device`."""
+               batch_shape=(), *, device,
+               dtype=torch.float32) -> ChainState:
+    """The stream state at its start, `dtype` (the mode's: float32, or
+    float64) on `device`."""
     _check_ported(params)
     n_taps = len(params.taps)
     hist_len = -(-(n_taps - 1) // params.interp)
     cap_i = chunk_cap * params.interp
-    zeros = lambda n: torch.zeros(tuple(batch_shape) + (n,),
-                                  dtype=torch.float32, device=device)
+    zeros = lambda n: torch.zeros(tuple(batch_shape) + (n,), dtype=dtype,
+                                  device=device)
+    kw = dict(device=device, dtype=dtype)
     return ChainState(
-        pll=pll_ops.init_state(params.pll, batch_shape, device=device),
+        pll=pll_ops.init_state(params.pll, batch_shape, **kw),
         fir_hist=zeros(hist_len),
-        agc=agc_ops.agc_init(initial_gain, batch_shape, device=device),
-        gardner=clock_ops.gardner_init(batch_shape, device=device),
-        manchester=man_ops.manchester_init(batch_shape, device=device),
+        agc=agc_ops.agc_init(initial_gain, batch_shape, **kw),
+        gardner=clock_ops.gardner_init(batch_shape, **kw),
+        manchester=man_ops.manchester_init(batch_shape, **kw),
         x_img=zeros(cap_i),
         t_img=zeros(cap_i),
     )
@@ -151,18 +155,19 @@ class ChunkOutput(NamedTuple):
 
 
 @functools.lru_cache(maxsize=16)
-def _device_taps(taps: tuple, device: torch.device) -> torch.Tensor:
-    """The FIR taps as a float32 tensor on `device`, copied there once: a
+def _device_taps(taps: tuple, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """The FIR taps as a `dtype` tensor on `device`, copied there once: a
     copy a chunk would wait for the kernels queued before it."""
-    return torch.tensor(taps, dtype=torch.float32, device=device)
+    return torch.tensor(taps, dtype=dtype, device=device)
 
 
 def chunk_step(params: ChainParams, state: ChainState, iq_re, iq_im, t,
                t_next):
     """Advance one chunk (JAX ``chunk_step``, ``chain.py:163-303``).
 
-    iq_re/iq_im/t/t_next: (..., n) float32 on the state's device, n <= the
-    state's chunk capacity; t_next[i] = time of input sample i+1.  The
+    iq_re/iq_im/t/t_next: (..., n) in the state's dtype on its device, n <=
+    the state's chunk capacity; t_next[i] = time of input sample i+1.  The
     leading axes are streams, one kernel lane each.  Returns (state,
     ChunkOutput)."""
     _check_ported(params)
@@ -181,7 +186,8 @@ def chunk_step(params: ChainParams, state: ChainState, iq_re, iq_im, t,
         soft = agc_ops.squelch(soft, locksig, params.squelch_threshold)
 
     fir_hist = rows(state.fir_hist)
-    y = fir_ops.fir_interp(soft, _device_taps(params.taps, soft.device),
+    y = fir_ops.fir_interp(soft, _device_taps(params.taps, soft.dtype,
+                                              soft.device),
                            interp, fir_hist)
     fir_hist = fir_ops.fir_history_update(soft, fir_hist, len(params.taps),
                                           interp)
@@ -263,13 +269,19 @@ def from_jax(obj, device="cpu"):
 
     Parameters are python floats and a taps tuple on both sides and carry
     over field by field; a state's arrays become tensors on `device`:
-    float32, ``locked`` bool, the Manchester ``clockmod``/``evenodd``
-    int32; a chain state's stream states convert so, and its FIR history
-    and buffer images become float32 tensors.  Works by field names, so jax
-    need not be importable here.
+    float64 where the JAX array is float64 (a state of the ``argos`` mode
+    under x64), else float32, ``locked`` bool, the Manchester
+    ``clockmod``/``evenodd`` int32; a chain state's stream states convert
+    so, and its FIR history and buffer images too.  Works by field names,
+    so jax need not be importable here.
     """
+    def arr(v, dtype=None):
+        a = np.asarray(v)
+        if dtype is None:
+            dtype = (torch.float64 if a.dtype == np.float64
+                     else torch.float32)
+        return torch.tensor(a, device=device).to(dtype)
     if getattr(obj, "_fields", None) == ChainState._fields:
-        arr = lambda v: torch.tensor(np.asarray(v, np.float32), device=device)
         return ChainState(
             pll=from_jax(obj.pll, device), fir_hist=arr(obj.fir_hist),
             agc=from_jax(obj.agc, device), gardner=from_jax(obj.gardner, device),
@@ -287,7 +299,6 @@ def from_jax(obj, device="cpu"):
                                        "evenodd": torch.int32}}
     for cls, dtypes in kinds.items():
         if getattr(obj, "_fields", None) == cls._fields:
-            return cls(**{k: torch.tensor(np.asarray(v), device=device).to(
-                dtypes.get(k, torch.float32))
-                for k, v in obj._asdict().items()})
+            return cls(**{k: arr(v, dtypes.get(k))
+                          for k, v in obj._asdict().items()})
     raise TypeError(f"cannot convert {type(obj).__name__}")

@@ -1,11 +1,14 @@
 // Device helpers shared by the kernels of this package: the fast-math
-// primitives of the reference PLL, the Costas PLL step and the AGC step.
+// primitives of the reference PLL, the Costas PLL step and the AGC step,
+// each a template on the stream's scalar type T: float for the float32
+// modes, double for the float64 `argos` mode's exact chain.
 //
 // Numerics follow the plain PyTorch versions operation for operation: the
 // kernels are built with -fmad=false and without fast math, use sinf/cosf
-// (not __sinf), IEEE division, rintf for round-half-to-even and
-// truncating float->int casts; constants are rounded double->float as the
-// host's float32 casts round them.
+// (not __sinf) and libdevice's double sin/cos, IEEE division, rint for
+// round-half-to-even and truncating float->int casts; constants are
+// rounded from double to T as the host's casts to the stream dtype round
+// them.
 
 #pragma once
 
@@ -16,61 +19,106 @@ namespace pdt {
 
 constexpr int kThreads = 32;   // one warp per block: spread lanes over SMs
 
-// Constants rounded from double to float like the host-side float32 casts.
 constexpr double kPiD = 3.14159265358979311600;   // numpy's pi
-constexpr float kPi = static_cast<float>(kPiD);
-constexpr float kTwoPi = static_cast<float>(2.0 * kPiD);
-constexpr float kHalfPi = static_cast<float>(kPiD / 2.0);
 // AGC constants of the kernels' chains (JAX chain_kernel.py:118-119,
 // fused_kernel.py:362-363)
 constexpr float kAgcReference = 1.0f;
 constexpr float kAgcMaxGain = 5000.0f;
 constexpr float kAgcMinGain = static_cast<float>(10e-5);
 
+// The math of a step in the stream's type: float calls the float
+// functions (sinf, fabsf, ...), double the double ones.
+namespace num {
+__device__ __forceinline__ float abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs(double x) { return fabs(x); }
+__device__ __forceinline__ float sin(float x) { return sinf(x); }
+__device__ __forceinline__ double sin(double x) { return ::sin(x); }
+__device__ __forceinline__ float cos(float x) { return cosf(x); }
+__device__ __forceinline__ double cos(double x) { return ::cos(x); }
+__device__ __forceinline__ float min(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double min(double a, double b) {
+  return fmin(a, b);
+}
+__device__ __forceinline__ float max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max(double a, double b) {
+  return fmax(a, b);
+}
+__device__ __forceinline__ float rint(float x) { return rintf(x); }
+__device__ __forceinline__ double rint(double x) { return ::rint(x); }
+__device__ __forceinline__ int to_int_rz(float x) { return __float2int_rz(x); }
+__device__ __forceinline__ int to_int_rz(double x) {
+  return __double2int_rz(x);
+}
+}  // namespace num
+
+// pi and its multiples rounded to T, as the host's casts round them
+template <typename T>
+struct Pi {
+  static constexpr T pi = static_cast<T>(kPiD);
+  static constexpr T two_pi = static_cast<T>(2.0 * kPiD);
+  static constexpr T half_pi = static_cast<T>(kPiD / 2.0);
+};
+
+// T in a parameter that takes no part in deducing T: the float callers
+// pass what converted to float before these became templates.
+template <typename T>
+struct Same {
+  using type = T;
+};
+template <typename T>
+using Arg = typename Same<T>::type;
+
 // Order must match ops/pll.py::PLLParams minus sweep_step (the sweep step
 // is state, not a parameter of the step).
-struct PllParams {
-  float alpha_acq, beta_acq, alpha_track, beta_track, max_freq;
-  float lock_alpha, lock_threshold, sweep_threshold, avg_phase_alpha;
+template <typename T>
+struct PllParamsT {
+  T alpha_acq, beta_acq, alpha_track, beta_track, max_freq;
+  T lock_alpha, lock_threshold, sweep_threshold, avg_phase_alpha;
 };
+using PllParams = PllParamsT<float>;
 
-struct PllState {
-  float phase, freq, locksig, avg_phase, sweep;
+template <typename T>
+struct PllStateT {
+  T phase, freq, locksig, avg_phase, sweep;
   bool locked;
 };
+using PllState = PllStateT<float>;
 
 // st rows: phase, freq, locksig, avg_phase, sweep, locked as 0/1
-__device__ __forceinline__ PllState load_pll(const float* __restrict__ st,
-                                             int B, int b) {
-  PllState s;
+template <typename T>
+__device__ __forceinline__ PllStateT<T> load_pll(const T* __restrict__ st,
+                                                 int B, int b) {
+  PllStateT<T> s;
   s.phase = st[b];
   s.freq = st[B + b];
   s.locksig = st[2 * B + b];
   s.avg_phase = st[3 * B + b];
   s.sweep = st[4 * B + b];
-  s.locked = st[5 * B + b] > 0.5f;
+  s.locked = st[5 * B + b] > T(0.5);
   return s;
 }
 
-__device__ __forceinline__ void store_pll(float* __restrict__ st, int B,
-                                          int b, const PllState& s) {
+template <typename T>
+__device__ __forceinline__ void store_pll(T* __restrict__ st, int B, int b,
+                                          const PllStateT<T>& s) {
   st[b] = s.phase;
   st[B + b] = s.freq;
   st[2 * B + b] = s.locksig;
   st[3 * B + b] = s.avg_phase;
   st[4 * B + b] = s.sweep;
-  st[5 * B + b] = s.locked ? 1.0f : 0.0f;
+  st[5 * B + b] = s.locked ? T(1) : T(0);
 }
 
 // quarter-circle rational atan2 (CarrierTrackingPLL.c:15)
-__device__ __forceinline__ float arctan2_approx(float y, float x) {
-  const float c1 = static_cast<float>(0.78539816339744825);
-  const float c2 = static_cast<float>(2.35619449019234475);
-  const float abs_y = fabsf(y) + static_cast<float>(1e-10);
-  const float r_pos = (x - abs_y) / (x + abs_y);
-  const float r_neg = (x + abs_y) / (abs_y - x);
-  const float angle = x >= 0.0f ? c1 - c1 * r_pos : c2 - c1 * r_neg;
-  return y < 0.0f ? -angle : angle;
+template <typename T>
+__device__ __forceinline__ T arctan2_approx(T y, Arg<T> x) {
+  const T c1 = static_cast<T>(0.78539816339744825);
+  const T c2 = static_cast<T>(2.35619449019234475);
+  const T abs_y = num::abs(y) + static_cast<T>(1e-10);
+  const T r_pos = (x - abs_y) / (x + abs_y);
+  const T r_neg = (x + abs_y) / (abs_y - x);
+  const T angle = x >= T(0) ? c1 - c1 * r_pos : c2 - c1 * r_neg;
+  return y < T(0) ? -angle : angle;
 }
 
 // bit-trick inverse square root, two Newton rounds (CarrierTrackingPLL.c:43)
@@ -85,28 +133,39 @@ __device__ __forceinline__ float q_rsqrt(float x) {
   return g;
 }
 
-__device__ __forceinline__ float sgn(float x) {
-  return (x > 0.0f ? 1.0f : 0.0f) - (x < 0.0f ? 1.0f : 0.0f);
+// the reference applies the float version in double builds too
+// (CarrierTrackingPLL.c:202): the input squeezed through float32
+__device__ __forceinline__ double q_rsqrt(double x) {
+  return static_cast<double>(q_rsqrt(__double2float_rn(x)));
+}
+
+template <typename T>
+__device__ __forceinline__ T sgn(T x) {
+  return (x > T(0) ? T(1) : T(0)) - (x < T(0) ? T(1) : T(0));
 }
 
 // The feed-forward terms of a PLL step: everything that reads the phase
 // before the update and the input sample, but no other carried value.
-struct PllTerms {
-  float out;         // data-arm output
-  float avg_term;    // avg_phase_alpha * |out_phase|, the avg_phase EMA's input
-  float lock_term;   // lock_alpha * carrier projection, the locksig EMA's input
+template <typename T>
+struct PllTermsT {
+  T out;         // data-arm output
+  T avg_term;    // avg_phase_alpha * |out_phase|, the avg_phase EMA's input
+  T lock_term;   // lock_alpha * carrier projection, the locksig EMA's input
 };
+using PllTerms = PllTermsT<float>;
 
-__device__ __forceinline__ PllTerms pll_terms(float phase, const PllParams& p,
-                                              float xre, float xim) {
-  const float t_im = sinf(phase);
-  const float t_re = cosf(phase);
-  PllTerms r;
+template <typename T>
+__device__ __forceinline__ PllTermsT<T> pll_terms(T phase,
+                                                  const PllParamsT<T>& p,
+                                                  Arg<T> xre, Arg<T> xim) {
+  const T t_im = num::sin(phase);
+  const T t_re = num::cos(phase);
+  PllTermsT<T> r;
   r.out = xim * t_re - xre * t_im;
-  const float pll_re = xre * t_re + xim * t_im;
-  const float out_phase = arctan2_approx(r.out, pll_re);
-  r.avg_term = p.avg_phase_alpha * fabsf(out_phase);
-  const float inv = q_rsqrt(xre * xre + xim * xim);
+  const T pll_re = xre * t_re + xim * t_im;
+  const T out_phase = arctan2_approx(r.out, pll_re);
+  r.avg_term = p.avg_phase_alpha * num::abs(out_phase);
+  const T inv = q_rsqrt(xre * xre + xim * xim);
   r.lock_term = p.lock_alpha * ((xre * inv) * t_re + (xim * inv) * t_im);
   return r;
 }
@@ -117,39 +176,42 @@ __device__ __forceinline__ PllTerms pll_terms(float phase, const PllParams& p,
 // step is this alone with the tracking gains: `locked` is sticky and a
 // locked lane never sweeps, and pll_terms and the two EMAs follow from
 // the phases it leaves.
-__device__ __forceinline__ void pll_advance(float& phase, float& freq,
-                                            float sample_phase, float alpha,
-                                            float beta, float max_freq) {
-  float err = sample_phase - phase;
-  err = err > kPi ? err - kTwoPi : (err < -kPi ? err + kTwoPi : err);
-  const float n_freq = freq + beta * err;
-  float n_phase = phase + n_freq + alpha * err;
-  n_phase = n_phase > kTwoPi ? n_phase - kTwoPi : n_phase;
-  phase = n_phase < -kTwoPi ? n_phase + kTwoPi : n_phase;
-  freq = fminf(fmaxf(n_freq, -max_freq), max_freq);
+template <typename T>
+__device__ __forceinline__ void pll_advance(T& phase, T& freq,
+                                            Arg<T> sample_phase,
+                                            Arg<T> alpha, Arg<T> beta,
+                                            Arg<T> max_freq) {
+  constexpr T pi = Pi<T>::pi, two_pi = Pi<T>::two_pi;
+  T err = sample_phase - phase;
+  err = err > pi ? err - two_pi : (err < -pi ? err + two_pi : err);
+  const T n_freq = freq + beta * err;
+  T n_phase = phase + n_freq + alpha * err;
+  n_phase = n_phase > two_pi ? n_phase - two_pi : n_phase;
+  phase = n_phase < -two_pi ? n_phase + two_pi : n_phase;
+  freq = num::min(num::max(n_freq, -max_freq), max_freq);
 }
 
 // One Costas PLL step (ops/pll.py::step_with_terms, JAX ops/pll.py::_step):
 // advances s and returns the data-arm output; *lock gets the new locksig.
 // pll_terms, the EMAs and pll_advance in the reference's operation order.
-__device__ __forceinline__ float pll_step(PllState& s, const PllParams& p,
-                                          float xre, float xim,
-                                          float* lock) {
-  const PllTerms f = pll_terms(s.phase, p, xre, xim);
-  const float n_avg = s.avg_phase * (1.0f - p.avg_phase_alpha) + f.avg_term;
-  float n_phase = s.phase, n_freq = s.freq;
+template <typename T>
+__device__ __forceinline__ T pll_step(PllStateT<T>& s, const PllParamsT<T>& p,
+                                      Arg<T> xre, Arg<T> xim, Arg<T>* lock) {
+  const PllTermsT<T> f = pll_terms(s.phase, p, xre, xim);
+  const T n_avg = s.avg_phase * (T(1) - p.avg_phase_alpha) + f.avg_term;
+  T n_phase = s.phase, n_freq = s.freq;
   pll_advance(n_phase, n_freq, arctan2_approx(xim, xre),
               s.locked ? p.alpha_track : p.alpha_acq,
               s.locked ? p.beta_track : p.beta_acq, p.max_freq);
-  const float n_lock = s.locksig * (1.0f - p.lock_alpha) + f.lock_term;
-  const bool sweeping = fabsf(kHalfPi - n_avg) < p.sweep_threshold
+  const T n_lock = s.locksig * (T(1) - p.lock_alpha) + f.lock_term;
+  const bool sweeping = num::abs(Pi<T>::half_pi - n_avg) < p.sweep_threshold
                         && !s.locked;
-  const float freq_swept = n_freq + s.sweep;
+  const T freq_swept = n_freq + s.sweep;
   const bool at_edge = freq_swept >= p.max_freq
                        || freq_swept <= -p.max_freq;
-  const float sweep_new =
+  const T sweep_new =
       at_edge ? -s.sweep
-              : (freq_swept >= 0.0f ? fabsf(s.sweep) : -fabsf(s.sweep));
+              : (freq_swept >= T(0) ? num::abs(s.sweep) : -num::abs(s.sweep));
   s.freq = sweeping ? freq_swept : n_freq;
   s.sweep = sweeping ? sweep_new : s.sweep;
   s.locked = s.locked || n_lock > p.lock_threshold;
@@ -162,14 +224,15 @@ __device__ __forceinline__ float pll_step(PllState& s, const PllParams& p,
 
 // One AGC step (AGC.c:98-130, JAX ops/agc.py:76-83): returns x * gain and
 // advances gain.
-__device__ __forceinline__ float agc_step(float x, float& gain, float attack,
-                                          float decay, float reference,
-                                          float max_gain, float min_gain) {
-  const float y = x * gain;
-  const float error = fabsf(y) - reference;
-  const float rate = fabsf(error) > gain ? attack : decay;
+template <typename T>
+__device__ __forceinline__ T agc_step(Arg<T> x, T& gain, Arg<T> attack,
+                                      Arg<T> decay, Arg<T> reference,
+                                      Arg<T> max_gain, Arg<T> min_gain) {
+  const T y = x * gain;
+  const T error = num::abs(y) - reference;
+  const T rate = num::abs(error) > gain ? attack : decay;
   gain = gain - error * rate;
-  gain = gain < 0.0f ? min_gain : gain;
+  gain = gain < T(0) ? min_gain : gain;
   gain = gain > max_gain ? max_gain : gain;
   return y;
 }

@@ -8,7 +8,7 @@
 // What bounds it: 8 bytes in and 8 out per sample would take ~0.2 ms at
 // 3.35 TB/s for the 12-minute pass, but each lane is a serial chain, with
 // only 352 lanes at the real size, so it is latency-bound.  It has no
-// geometry: the POES and ARGOS fast paths use it as it is.  Two kernels:
+// geometry: the POES and ARGOS fast paths use it as it is.  Three kernels:
 //
 // pdt_pll_scan, the decoupled kernel (the scan branch's): stages A, B and
 // M of front_stages.cuh alone on lane-major (B, L) planes, one lane a CTA.
@@ -23,6 +23,14 @@
 // whole pll_step of each sample in turn over time-major (L, B) planes.  No
 // path calls it: it is the card-side oracle for whole-pass bit-exactness
 // and the same-run timing baseline.
+//
+// pdt_pll_scan_f64 (pll_scan_f64), the float64 `argos` mode's exact chain
+// (JAX runs pll_scan there under x64): the serial kernel instantiated in
+// double, one thread a lane, one lane at a time on that chain.  2,400
+// samples a chunk move 64 KB, nothing at 3.35 TB/s: the bound is the
+// step's chain of dependent double operations (libdevice sin and cos are
+// tens of them each), latency the one lane cannot hide.  A simple kernel:
+// the chain is host-bound (one device-to-host copy and the framer a chunk).
 //
 // Numerics as in pdt_common.cuh.  Cold state (acquisition sweep) and warm
 // state (tracking, `locked`) run the same code.
@@ -118,30 +126,48 @@ pll_scan_kernel(const float* __restrict__ zre, const float* __restrict__ zim,
 }
 
 // ---------------------------------------------------------------------------
-// The serial kernel: the whole step of a sample in turn, one thread a lane
+// The serial kernel: the whole step of a sample in turn, one thread a lane;
+// T = double is pll_scan_f64, the float64 exact chain's
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-pll_scan_serial_kernel(const float* __restrict__ zre,
-                       const float* __restrict__ zim,
-                       const float* __restrict__ st_in,
-                       float* __restrict__ out, float* __restrict__ lock_out,
-                       float* __restrict__ st_out, int B, int L,
-                       const PllParams p) {
+pll_scan_serial_kernel(const T* __restrict__ zre, const T* __restrict__ zim,
+                       const T* __restrict__ st_in, T* __restrict__ out,
+                       T* __restrict__ lock_out, T* __restrict__ st_out,
+                       int B, int L, const PllParamsT<T> p) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  PllState pll = load_pll(st_in, B, b);
+  PllStateT<T> pll = load_pll(st_in, B, b);
   for (int i = 0; i < L; ++i) {
     const size_t o = static_cast<size_t>(i) * B + b;
-    float lock;
+    T lock;
     out[o] = pll_step(pll, p, zre[o], zim[o], &lock);
     lock_out[o] = lock;
   }
   store_pll(st_out, B, b, pll);
 }
 
+template <typename T>
 bool bad_args(int n_params, int B, int L) {
-  return n_params != static_cast<int>(sizeof(PllParams) / sizeof(float)) ||
+  return n_params != static_cast<int>(sizeof(PllParamsT<T>) / sizeof(T)) ||
          B <= 0 || L <= 0;
+}
+
+// one thread a lane on time-major planes
+template <typename T>
+int launch_serial(const T* zre, const T* zim, const T* st_in, T* out,
+                  T* lock, T* st_out, int B, int L, const T* params,
+                  int n_params, void* stream) {
+  if (bad_args<T>(n_params, B, L)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PllParamsT<T> p;
+  memcpy(&p, params, sizeof(p));
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  pll_scan_serial_kernel<T><<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      zre, zim, st_in, out, lock, st_out, B, L, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -155,7 +181,9 @@ extern "C" int pdt_pll_scan(const float* zre, const float* zim,
                             const float* st_in, float* out, float* lock,
                             float* st_out, int* unlocked, int B, int L,
                             const float* params, int n_params, void* stream) {
-  if (bad_args(n_params, B, L)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args<float>(n_params, B, L)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   PllScanParams p;
   memcpy(&p.pll, params, sizeof(p.pll));
   pll_scan_kernel<<<B, kStageThreads, 0,             // one CTA a lane
@@ -187,12 +215,18 @@ extern "C" int pdt_pll_scan_serial(const float* zre, const float* zim,
                                    float* lock, float* st_out, int B, int L,
                                    const float* params, int n_params,
                                    void* stream) {
-  if (bad_args(n_params, B, L)) return static_cast<int>(cudaErrorInvalidValue);
-  PllParams p;
-  memcpy(&p, params, sizeof(p));
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  pll_scan_serial_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      zre, zim, st_in, out, lock, st_out, B, L, p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_serial(zre, zim, st_in, out, lock, st_out, B, L, params,
+                       n_params, stream);
+}
+
+// pll_scan_f64, the float64 exact chain's PLL: the serial kernel in double
+// (time-major planes, a lane's row where B = 1), params the 9 doubles of
+// PllParamsT<double>.
+extern "C" int pdt_pll_scan_f64(const double* zre, const double* zim,
+                                const double* st_in, double* out,
+                                double* lock, double* st_out, int B, int L,
+                                const double* params, int n_params,
+                                void* stream) {
+  return launch_serial(zre, zim, st_in, out, lock, st_out, B, L, params,
+                       n_params, stream);
 }

@@ -77,6 +77,15 @@
 // memory at each slot and every slot written by the chain thread, is its
 // card-side oracle and timing baseline; no path calls it.
 //
+// pdt_agc_scan_f64 and pdt_gardner_scan_f64 (agc_scan_f64,
+// gardner_manchester_scan_f64): the float64 `argos` mode's exact chain,
+// where JAX runs agc_scan and gardner_scan + manchester_scan under x64.
+// They are the serial kernels above instantiated in double, one thread a
+// lane, one lane on that chain.  A chunk is 2,400 doubles (19 KB) and ~70
+// symbol slots, nothing at 3.35 TB/s: each is bound by its chain of
+// dependent double operations.  Simple kernels on purpose: the chain's
+// wall is the PLL's and the host's.
+//
 // Numerics as in pdt_common.cuh.
 
 #include <algorithm>
@@ -87,12 +96,14 @@ using namespace pdt;
 
 namespace {
 
-struct AgcParams {
-  float attack, decay, reference, max_gain, min_gain;
+template <typename T>
+struct AgcParamsT {
+  T attack, decay, reference, max_gain, min_gain;
 };
+using AgcParams = AgcParamsT<float>;
 
-__device__ __forceinline__ float agc(float x, float& gain,
-                                     const AgcParams& p) {
+template <typename T>
+__device__ __forceinline__ T agc(Arg<T> x, T& gain, const AgcParamsT<T>& p) {
   return agc_step(x, gain, p.attack, p.decay, p.reference, p.max_gain,
                   p.min_gain);
 }
@@ -127,14 +138,15 @@ agc_scan_kernel(const float* __restrict__ x, const float* __restrict__ g_in,
   if (threadIdx.x == 0) g_out[b] = gain;
 }
 
+// T = double is agc_scan_f64, the float64 exact chain's
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-agc_scan_serial_kernel(const float* __restrict__ x,
-                       const float* __restrict__ g_in, float* __restrict__ y,
-                       float* __restrict__ g_out, int B, int n,
-                       const AgcParams p) {
+agc_scan_serial_kernel(const T* __restrict__ x, const T* __restrict__ g_in,
+                       T* __restrict__ y, T* __restrict__ g_out, int B, int n,
+                       const AgcParamsT<T> p) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  float gain = g_in[b];
+  T gain = g_in[b];
   for (int i = 0; i < n; ++i) {
     const size_t o = static_cast<size_t>(i) * B + b;
     y[o] = agc(x[o], gain, p);
@@ -142,25 +154,30 @@ agc_scan_serial_kernel(const float* __restrict__ x,
   g_out[b] = gain;
 }
 
-struct GardnerParams {
-  float step_size, err_limit, kp, resync_threshold;
+template <typename T>
+struct GardnerParamsT {
+  T step_size, err_limit, kp, resync_threshold;
 };
+using GardnerParams = GardnerParamsT<float>;
 
-struct GardnerConsts {
-  float step, half_step, kp, err_limit, neg_limit, thr;
-  __device__ explicit GardnerConsts(const GardnerParams& p)
-      : step(p.step_size), half_step(p.step_size / 2.0f), kp(p.kp),
+template <typename T>
+struct GardnerConstsT {
+  T step, half_step, kp, err_limit, neg_limit, thr;
+  __device__ explicit GardnerConstsT(const GardnerParamsT<T>& p)
+      : step(p.step_size), half_step(p.step_size / T(2)), kp(p.kp),
         err_limit(p.err_limit), neg_limit(-p.err_limit),
         thr(p.resync_threshold) {}
 };
+using GardnerConsts = GardnerConstsT<float>;
 
 // A lane's carried state.  st_f rows: next_sample, half_raw, prev_bit,
 // Manchester cur, prev, prevprev; st_i rows: clockmod, evenodd.
-struct SlotState {
-  float ns, half_raw, prev_bit, m_cur, m_prev, m_prevprev;
+template <typename T>
+struct SlotStateT {
+  T ns, half_raw, prev_bit, m_cur, m_prev, m_prevprev;
   int clockmod, evenodd;
 
-  __device__ void load(const float* f, const int* i, int B, int b) {
+  __device__ void load(const T* f, const int* i, int B, int b) {
     ns = f[b];
     half_raw = f[B + b];
     prev_bit = f[2 * B + b];
@@ -173,13 +190,13 @@ struct SlotState {
 
   // the timing rows, with the chunk rollover of next_sample
   // (clock.py:262); half_raw is kept
-  __device__ void store_timing(float* f, int B, int b, int n) const {
-    f[b] = ns - static_cast<float>(n);
+  __device__ void store_timing(T* f, int B, int b, int n) const {
+    f[b] = ns - static_cast<T>(n);
     f[B + b] = half_raw;
     f[2 * B + b] = prev_bit;
   }
 
-  __device__ void store_manchester(float* f, int* i, int B, int b) const {
+  __device__ void store_manchester(T* f, int* i, int B, int b) const {
     f[3 * B + b] = m_cur;
     f[4 * B + b] = m_prev;
     f[5 * B + b] = m_prevprev;
@@ -187,11 +204,12 @@ struct SlotState {
     i[B + b] = evenodd;
   }
 
-  __device__ void store(float* f, int* i, int B, int b, int n) const {
+  __device__ void store(T* f, int* i, int B, int b, int n) const {
     store_timing(f, B, b, n);
     store_manchester(f, i, B, b);
   }
 };
+using SlotState = SlotStateT<float>;
 
 // The timing half of a symbol slot (clock.py:220-232), for
 // gardner_scan_kernel's chain thread: the error from the slot's on-time
@@ -242,24 +260,25 @@ __device__ __forceinline__ int manchester_slot(SlotState& g, float cur,
 // kernels run them (written out, not composed of the two above, so that
 // their compiled code stays as it was measured).  Returns the slot's bit,
 // plus 2 where it is emitted; an active slot advances the state.
-__device__ __forceinline__ int gardner_slot(SlotState& g, float cur,
-                                            float hval, bool active,
-                                            const GardnerConsts& c) {
-  float err = c.kp * (cur - g.prev_bit) * hval;
-  err = fminf(fmaxf(err, c.neg_limit), c.err_limit);
-  const float ns_adj = g.ns - err;
-  const float half_new = ns_adj + c.half_step;
-  const float ns_new = ns_adj + c.step;
+template <typename T>
+__device__ __forceinline__ int gardner_slot(SlotStateT<T>& g, Arg<T> cur,
+                                            Arg<T> hval, bool active,
+                                            const GardnerConstsT<T>& c) {
+  T err = c.kp * (cur - g.prev_bit) * hval;
+  err = num::min(num::max(err, c.neg_limit), c.err_limit);
+  const T ns_adj = g.ns - err;
+  const T half_new = ns_adj + c.half_step;
+  const T ns_new = ns_adj + c.step;
 
-  const float prevprev = g.m_prev;
-  const float prev = g.m_cur;
-  const bool strong = fabsf(prevprev) > c.thr && fabsf(prev) > c.thr;
+  const T prevprev = g.m_prev;
+  const T prev = g.m_cur;
+  const bool strong = num::abs(prevprev) > c.thr && num::abs(prev) > c.thr;
   const bool resync = g.evenodd != g.clockmod
                       && sgn(prevprev) == sgn(prev) && strong;
   const int cm = resync ? g.evenodd : g.clockmod;
   const bool boundary = g.evenodd == cm;
-  const bool use_prev = fabsf(prev) > fabsf(cur);
-  const int bit = use_prev ? (prev > 0.0f ? 1 : 0) : (cur > 0.0f ? 0 : 1);
+  const bool use_prev = num::abs(prev) > num::abs(cur);
+  const int bit = use_prev ? (prev > T(0) ? 1 : 0) : (cur > T(0) ? 0 : 1);
   if (active) {
     g.ns = ns_new;
     g.half_raw = half_new;
@@ -535,41 +554,42 @@ gardner_manchester_serial_kernel(const float* __restrict__ x,
 // chain carries over (clock.py:11-17) reads the image at its absolute
 // index, anywhere in it.  Each slot's on-time value is its soft symbol and
 // its time the bit's time; inactive slots freeze the state.
+// T = double is gardner_manchester_scan_f64, the float64 exact chain's.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gardner_scan_serial_kernel(const float* __restrict__ x,
-                           const float* __restrict__ t,
+gardner_scan_serial_kernel(const T* __restrict__ x, const T* __restrict__ t,
                            const int* __restrict__ n_valid,
-                           const float* __restrict__ st_f_in,
+                           const T* __restrict__ st_f_in,
                            const int* __restrict__ st_i_in,
-                           float* __restrict__ syms, float* __restrict__ times,
+                           T* __restrict__ syms, T* __restrict__ times,
                            uint8_t* __restrict__ valid,
                            uint8_t* __restrict__ bits,
                            uint8_t* __restrict__ emit,
-                           float* __restrict__ st_f_out,
+                           T* __restrict__ st_f_out,
                            int* __restrict__ st_i_out, int* __restrict__ count,
                            int B, int cap, int max_syms,
-                           const GardnerParams p) {
+                           const GardnerParamsT<T> p) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  SlotState g;
+  SlotStateT<T> g;
   g.load(st_f_in, st_i_in, B, b);
-  const GardnerConsts c(p);
+  const GardnerConstsT<T> c(p);
   const int n = n_valid[b];
-  const float nf = static_cast<float>(n);
-  const float capf = static_cast<float>(cap);
-  const float* xr = x + static_cast<size_t>(b) * cap;
-  const float* tr = t + static_cast<size_t>(b) * cap;
+  const T nf = static_cast<T>(n);
+  const T capf = static_cast<T>(cap);
+  const T* xr = x + static_cast<size_t>(b) * cap;
+  const T* tr = t + static_cast<size_t>(b) * cap;
   const size_t row = static_cast<size_t>(b) * max_syms;
   int active_slots = 0;
   for (int s = 0; s < max_syms; ++s) {
-    const float idxf = rintf(g.ns);
+    const T idxf = num::rint(g.ns);
     const bool active = idxf < nf;                      // clock.py:78
-    const int ii = min(max(__float2int_rz(idxf), 0), cap - 1);
-    const float cur = xr[ii];
-    const float hidxf = rintf(g.half_raw);
-    const bool in_img = hidxf >= 0.0f && hidxf < capf;  // clock.py:83
-    const float hval =
-        in_img ? xr[min(max(__float2int_rz(hidxf), 0), cap - 1)] : 0.0f;
+    const int ii = min(max(num::to_int_rz(idxf), 0), cap - 1);
+    const T cur = xr[ii];
+    const T hidxf = num::rint(g.half_raw);
+    const bool in_img = hidxf >= T(0) && hidxf < capf;  // clock.py:83
+    const T hval =
+        in_img ? xr[min(max(num::to_int_rz(hidxf), 0), cap - 1)] : T(0);
     const int be = gardner_slot(g, cur, hval, active, c);
     const size_t o = row + s;
     syms[o] = cur;
@@ -941,8 +961,9 @@ bool bad_gardner_args(int n_params, int B, int n_win, int window,
          || B <= 0 || n_win <= 0 || bad_layout(window, margin, spw);
 }
 
-GardnerParams gardner_params(const float* params) {
-  GardnerParams p;
+template <typename T>
+GardnerParamsT<T> gardner_params(const T* params) {
+  GardnerParamsT<T> p;
   p.step_size = params[0];
   p.err_limit = params[1];
   p.kp = params[2];
@@ -963,8 +984,9 @@ cudaError_t gm_smem(int window, int margin, int spw, size_t* bytes) {
   return e;
 }
 
+template <typename T>
 bool bad_scan_args(int n_params, int B, int cap, int max_syms) {
-  return n_params != static_cast<int>(sizeof(GardnerParams) / sizeof(float))
+  return n_params != static_cast<int>(sizeof(GardnerParamsT<T>) / sizeof(T))
          || B <= 0 || cap <= 0 || max_syms <= 0;
 }
 
@@ -1033,19 +1055,54 @@ cudaError_t gs_prepare(const ScanGeom& g) {
   return e;
 }
 
+template <typename T>
 bool bad_agc_args(int n_params, int B, int n) {
-  return n_params != static_cast<int>(sizeof(AgcParams) / sizeof(float)) ||
+  return n_params != static_cast<int>(sizeof(AgcParamsT<T>) / sizeof(T)) ||
          B <= 0 || n <= 0;
 }
 
-AgcParams agc_params(const float* params) {
-  AgcParams p;
+template <typename T>
+AgcParamsT<T> agc_params(const T* params) {
+  AgcParamsT<T> p;
   p.attack = params[0];
   p.decay = params[1];
   p.reference = params[2];
   p.max_gain = params[3];
   p.min_gain = params[4];
   return p;
+}
+
+// the serial AGC kernel, one thread a lane on time-major planes
+template <typename T>
+int launch_agc_serial(const T* x, const T* g_in, T* y, T* g_out, int B,
+                      int n, const T* params, int n_params, void* stream) {
+  if (bad_agc_args<T>(n_params, B, n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  agc_scan_serial_kernel<T><<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      x, g_in, y, g_out, B, n, agc_params(params));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the serial whole-image Gardner kernel, one thread a lane
+template <typename T>
+int launch_scan_serial(const T* x, const T* t, const int* n_valid,
+                       const T* st_f_in, const int* st_i_in, T* syms,
+                       T* times, uint8_t* valid, uint8_t* bits,
+                       uint8_t* emit, T* st_f_out, int* st_i_out, int* count,
+                       int B, int cap, int max_syms, const T* params,
+                       int n_params, void* stream) {
+  if (bad_scan_args<T>(n_params, B, cap, max_syms)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  gardner_scan_serial_kernel<T><<<grid, kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
+      st_f_out, st_i_out, count, B, cap, max_syms, gardner_params(params));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1056,7 +1113,7 @@ AgcParams agc_params(const float* params) {
 extern "C" int pdt_agc_scan(const float* x, const float* g_in, float* y,
                             float* g_out, int B, int n, const float* params,
                             int n_params, void* stream) {
-  if (bad_agc_args(n_params, B, n)) {
+  if (bad_agc_args<float>(n_params, B, n)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   agc_scan_kernel<<<B, kStageThreads, 0,              // one CTA a lane
@@ -1087,14 +1144,19 @@ extern "C" int pdt_agc_scan_serial(const float* x, const float* g_in,
                                    float* y, float* g_out, int B, int n,
                                    const float* params, int n_params,
                                    void* stream) {
-  if (bad_agc_args(n_params, B, n)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  agc_scan_serial_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      x, g_in, y, g_out, B, n, agc_params(params));
-  return static_cast<int>(cudaGetLastError());
+  return launch_agc_serial(x, g_in, y, g_out, B, n, params, n_params,
+                           stream);
+}
+
+// agc_scan_f64, the float64 exact chain's AGC: the serial kernel in
+// double, as pdt_agc_scan_serial (time-major planes, a lane's row where
+// B = 1); params the 5 doubles of AgcParamsT<double>.
+extern "C" int pdt_agc_scan_f64(const double* x, const double* g_in,
+                                double* y, double* g_out, int B, int n,
+                                const double* params, int n_params,
+                                void* stream) {
+  return launch_agc_serial(x, g_in, y, g_out, B, n, params, n_params,
+                           stream);
 }
 
 // Gardner + Manchester over lane-major float32 x, t (B, n_win * window),
@@ -1192,7 +1254,7 @@ extern "C" int pdt_gardner_scan(const float* x, const float* t,
                                 int* count, int B, int cap, int max_syms,
                                 int ring_floats, const float* params,
                                 int n_params, void* stream) {
-  if (bad_scan_args(n_params, B, cap, max_syms)) {
+  if (bad_scan_args<float>(n_params, B, cap, max_syms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ScanGeom g = scan_geom(B, cap, ring_floats);
@@ -1262,13 +1324,22 @@ extern "C" int pdt_gardner_scan_serial(
     uint8_t* bits, uint8_t* emit, float* st_f_out, int* st_i_out, int* count,
     int B, int cap, int max_syms, const float* params, int n_params,
     void* stream) {
-  if (bad_scan_args(n_params, B, cap, max_syms)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  gardner_scan_serial_kernel<<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
-      st_f_out, st_i_out, count, B, cap, max_syms, gardner_params(params));
-  return static_cast<int>(cudaGetLastError());
+  return launch_scan_serial(x, t, n_valid, st_f_in, st_i_in, syms, times,
+                            valid, bits, emit, st_f_out, st_i_out, count, B,
+                            cap, max_syms, params, n_params, stream);
+}
+
+// gardner_manchester_scan_f64, the float64 exact chain's Gardner +
+// Manchester scan: the serial kernel in double, as pdt_gardner_scan_serial
+// with double x, t, syms, times and st_f rows; params the 4 doubles of
+// GardnerParamsT<double>.
+extern "C" int pdt_gardner_scan_f64(
+    const double* x, const double* t, const int* n_valid,
+    const double* st_f_in, const int* st_i_in, double* syms, double* times,
+    uint8_t* valid, uint8_t* bits, uint8_t* emit, double* st_f_out,
+    int* st_i_out, int* count, int B, int cap, int max_syms,
+    const double* params, int n_params, void* stream) {
+  return launch_scan_serial(x, t, n_valid, st_f_in, st_i_in, syms, times,
+                            valid, bits, emit, st_f_out, st_i_out, count, B,
+                            cap, max_syms, params, n_params, stream);
 }

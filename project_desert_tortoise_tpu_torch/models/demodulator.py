@@ -10,8 +10,10 @@ scalars it reads to the host in one transfer, runs the exact host-side
 framer on the emitted bits, and tracks the reference's console telemetry
 (quality, lock events, sym/bit/frame counters).
 
-The float32 modes are ported (``poes_tip``, ``poes_tip_realtime``,
-``argos_realtime``); a float64 mode (``argos``) raises ``ValueError``.
+Each mode runs in its dtype: the float32 modes (``poes_tip``,
+``poes_tip_realtime``, ``argos_realtime``) on the float32 kernels, the
+float64 ``argos`` mode on their double instances, as JAX runs it under
+x64.
 """
 
 from __future__ import annotations
@@ -67,15 +69,13 @@ class DemodSession:
                  reacquire_quality_db: float = -20.0,
                  annotate_quality: bool = False,
                  timebase: str = "accumulated", *, device="cuda"):
-        if mode_cfg.np_dtype() != np.float32:
-            raise ValueError(f"mode {mode_cfg.name!r} runs in "
-                             f"{mode_cfg.dtype}: the exact chain is ported "
-                             "for the float32 modes only")
         self.cfg = mode_cfg
         self.fs = float(fs)
         self.device = resolve_device(device)
         self.chunk_size = int(chunk_size or mode_cfg.chunk_size)
         self.dtype = mode_cfg.np_dtype()
+        self.torch_dtype = (torch.float64 if self.dtype == np.float64
+                            else torch.float32)
         self.params = chain_lib.make_params(mode_cfg, self.fs, quirks=quirks)
         self.norm_factor = norm_factor
         # timebase="integer" (quirks=False only): an int64 global sample
@@ -117,13 +117,14 @@ class DemodSession:
                 first_chunk_iq, self.cfg.static_gain_level, self.dtype)
         self.state = chain_lib.init_state(
             self.params, self.norm_factor, self.chunk_size,
-            device=self.device)
+            device=self.device, dtype=self.torch_dtype)
 
     def _fetch(self, out):
-        """The chunk's host values in one device-to-host copy: (bits uint8,
-        bit mask, bit times, symbol count, avg_phase, locked, freq as a 0-d
-        float32 array, soft symbols and their mask or None, post-AGC
-        stream or None)."""
+        """The chunk's host values in one device-to-host copy, in the
+        mode's dtype (a float64 bit time keeps its sample resolution hours
+        into a pass): (bits uint8, bit mask, bit times, symbol count,
+        avg_phase, locked, freq as a 0-d array, soft symbols and their mask
+        or None, post-AGC stream or None)."""
         msyms = out.bits.shape[-1]
         pll = self.state.pll
         parts = [out.bits, out.bit_mask, out.bit_times, out.sym_count,
@@ -132,7 +133,7 @@ class DemodSession:
             parts += [out.syms, out.sym_valid]
         if self.raw_tap is not None:
             parts.append(out.agc_stream)
-        host = torch.cat([p.reshape(-1).to(torch.float32)
+        host = torch.cat([p.reshape(-1).to(self.torch_dtype)
                           for p in parts]).cpu().numpy()
         bits, mask, btimes = host[:3 * msyms].reshape(3, msyms)
         k = 3 * msyms
@@ -210,7 +211,8 @@ class DemodSession:
             syms = syms[syms != 0.0]
             self._snr_window = np.concatenate([self._snr_window, syms])[-512:]
             if len(self._snr_window) >= 128:
-                self.snr_db = metrics.m2m4_snr_db(self._snr_window)
+                self.snr_db = metrics.m2m4_snr_db(self._snr_window,
+                                                  self.dtype)
             q = quality_db_from_avg_phase(self.avg_phase)
             carrier = float(freq * self.fs / (2 * np.pi))
             for f in new_frames:
@@ -229,7 +231,8 @@ class DemodSession:
         else:
             self._low_quality_samples = 0
         if self._low_quality_samples >= self.reacquire_after_s * self.fs:
-            fresh = pll_ops.init_state(self.params.pll, device=self.device)
+            fresh = pll_ops.init_state(self.params.pll, device=self.device,
+                                       dtype=self.torch_dtype)
             self.state = self.state._replace(pll=fresh)
             self._was_locked = False
             self._low_quality_samples = 0

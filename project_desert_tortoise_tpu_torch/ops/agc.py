@@ -46,15 +46,16 @@ class AGCState(NamedTuple):
 
 def agc_init(initial_gain, batch_shape=(), *, device,
              dtype=torch.float32) -> AGCState:
-    return AGCState(gain=torch.full(batch_shape, float(np.float32(
-        initial_gain)), dtype=dtype, device=device))
+    """The gain `initial_gain`, rounded to `dtype`, on each lane."""
+    return AGCState(gain=torch.full(batch_shape, float(initial_gain),
+                                    dtype=dtype, device=device))
 
 
 def agc_scan(state: AGCState, x, attack_rate: float, decay_rate: float,
              reference: float = AGC_REFERENCE, max_gain: float = AGC_MAX_GAIN,
              min_gain: float = AGC_MIN_GAIN):
     """GNURadio-style attack/decay AGC (``AGC.c:78-132``) over the last
-    axis of (B, n) `x`.  Returns (state, y).
+    axis of (B, n) `x`, float32 or float64.  Returns (state, y).
 
     JAX's ``window`` argument (VMEM-sized chunks of its scan) has no
     counterpart: the arithmetic does not depend on it.  CUDA tensors launch
@@ -67,6 +68,7 @@ def agc_scan(state: AGCState, x, attack_rate: float, decay_rate: float,
 
 def squelch(x, squelch_stream, threshold: float):
     """Zero samples whose side channel (the PLL lock) is below threshold
-    (``AGC.c:24-46``)."""
-    return torch.where(squelch_stream < float(np.float32(threshold)),
+    (``AGC.c:24-46``), the threshold rounded to the dtype of `x`."""
+    thr = torch.tensor(threshold, dtype=x.dtype).item()
+    return torch.where(squelch_stream < thr,
                        torch.zeros((), dtype=x.dtype, device=x.device), x)

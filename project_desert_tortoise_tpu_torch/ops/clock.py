@@ -47,10 +47,11 @@ def gardner_step_size(fs: float, baud: float, dtype=np.float32) -> float:
     return float(np.dtype(dtype).type(np.float64(fs) / np.float64(baud)))
 
 
-def _state_rows(g_state: GardnerState, m_state: man_ops.ManchesterState):
-    f32, i32 = torch.float32, torch.int32
-    return (tuple(s.to(f32) for s in (*g_state, m_state.cur, m_state.prev,
-                                      m_state.prevprev)),
+def _state_rows(g_state: GardnerState, m_state: man_ops.ManchesterState,
+                dtype=torch.float32):
+    i32 = torch.int32
+    return (tuple(s.to(dtype) for s in (*g_state, m_state.cur, m_state.prev,
+                                        m_state.prevprev)),
             (m_state.clockmod.to(i32), m_state.evenodd.to(i32)))
 
 
@@ -96,13 +97,14 @@ def gardner_manchester_scan(g_state: GardnerState,
     n: valid length, an int or (B,).  Returns (g_state, m_state, syms,
     sym_times, sym_valid, sym_count, bits uint8, bit_times, emit_mask),
     the planes (B, max_syms); the bit times are the symbol times, as in
-    JAX.  CUDA tensors launch the kernel, CPU tensors run its plain
-    version."""
+    JAX.  The state and the outputs are in the dtype of `x` (float32, or
+    float64 for the ``argos`` mode's exact chain).  CUDA tensors launch the
+    kernel, CPU tensors run its plain version."""
     B = x.shape[0]
     if isinstance(n, int):      # filled on the device: no host copy, no sync
         n = torch.full((B,), n, dtype=torch.int32, device=x.device)
     n = n.to(torch.int32).expand(B)
-    fstate, istate = _state_rows(g_state, m_state)
+    fstate, istate = _state_rows(g_state, m_state, x.dtype)
     p = scan_kernels.GardnerParams(step_size, err_limit, kp, resync_threshold)
     (ns, half_raw, prev_bit, cur, prev, prevprev), (clockmod, evenodd), \
         syms, times, valid, bits, emit, count = \

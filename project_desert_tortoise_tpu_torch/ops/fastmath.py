@@ -15,7 +15,8 @@ COEFF_2 = 2.35619449019234475   # 3*pi/4
 
 
 def arctan2_approx(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Rational atan2 approximation (CarrierTrackingPLL.c:15)."""
+    """Rational atan2 approximation (CarrierTrackingPLL.c:15), its
+    constants in the inputs' dtype (python floats take the tensor's)."""
     abs_y = torch.abs(y) + 1e-10                  # avoids 0/0
     r_pos = (x - abs_y) / (x + abs_y)
     r_neg = (x + abs_y) / (abs_y - x)
@@ -25,7 +26,10 @@ def arctan2_approx(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def q_rsqrt(x: torch.Tensor) -> torch.Tensor:
-    """Quake fast inverse sqrt, float32 bit-exact (CarrierTrackingPLL.c:43)."""
+    """Quake fast inverse sqrt, float32 bit-exact (CarrierTrackingPLL.c:43).
+    A float64 input is squeezed through float32 and the result cast back,
+    as the reference applies the float version in double builds
+    (CarrierTrackingPLL.c:202)."""
     xf = x.to(torch.float32)
     xhalf = 0.5 * xf
     i = xf.view(torch.int32)

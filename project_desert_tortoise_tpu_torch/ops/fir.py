@@ -39,22 +39,20 @@ def make_lpfir(order: int, cutoff_hz: float, fs_hz: float, interp: int,
 def fir_interp(x, taps, interp: int, history=None):
     """Zero-stuffing 1:interp upsampler + FIR over one block.
 
-    x: (..., n) real float32 (or float64) block; taps: float32 values, or a
-    float32 tensor (the exact chain passes one already on the device: a
-    copy from the host would wait for the work queued before it);
+    x: (..., n) real float32 (or float64) block; taps: values, or a
+    tensor (the exact chain passes one already on the device: a copy from
+    the host would wait for the work queued before it), taken in the dtype
+    of `x` (float32 taps with a float64 x give the exact-sum reference);
     history: (..., H) previous real samples
     with H = ceil((N-1)/interp), or None for stream start (zeros).  Returns
     y of shape (..., n*interp): the JAX convolution's output, with its
     padding (the stuffed history's excess trimmed on the left, `interp - 1`
-    zeros on the right).  The sums run in float32: cuDNN's TF32 (10-bit
-    mantissa) is switched off for the call on the card, through the
+    zeros on the right).  The sums run in the dtype of `x`: cuDNN's TF32
+    (10-bit mantissa) is switched off for the call on the card, through the
     process-wide cuDNN flags; their order is the convolution library's, not
     XLA's.
     """
-    # float32 taps, in x's type (a float64 x gives the exact-sum reference)
-    if not isinstance(taps, torch.Tensor):
-        taps = torch.as_tensor(np.asarray(taps, np.float32))
-    taps = taps.to(device=x.device, dtype=x.dtype)
+    taps = torch.as_tensor(taps, dtype=x.dtype, device=x.device)
     n_taps = taps.shape[0]
     hist_len = -(-(n_taps - 1) // interp)  # ceil
     lead = tuple(x.shape[:-1])

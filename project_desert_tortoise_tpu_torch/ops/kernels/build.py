@@ -58,12 +58,16 @@ _SIGNATURES = {
     "pdt_pll_scan_config": [_P],
     # zre, zim, st_in, out, lock, st_out, B, L, params, n_params, stream
     "pdt_pll_scan_serial": [_P] * 6 + [_I] * 2 + [_P, _I, _P],
+    # the same in double
+    "pdt_pll_scan_f64": [_P] * 6 + [_I] * 2 + [_P, _I, _P],
     # x, g_in, y, g_out, B, n, params, n_params, stream
     "pdt_agc_scan": [_P] * 4 + [_I] * 2 + [_P, _I, _P],
     # out
     "pdt_agc_scan_config": [_P],
     # x, g_in, y, g_out, B, n, params, n_params, stream
     "pdt_agc_scan_serial": [_P] * 4 + [_I] * 2 + [_P, _I, _P],
+    # the same in double
+    "pdt_agc_scan_f64": [_P] * 4 + [_I] * 2 + [_P, _I, _P],
     # x, t, n_valid, st_f_in, st_i_in, bits, btimes, emit, st_f_out,
     # st_i_out, filled, B, n_win, window, margin, spw, params, n_params,
     # stream
@@ -82,6 +86,8 @@ _SIGNATURES = {
     # x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
     # st_f_out, st_i_out, count, B, cap, max_syms, params, n_params, stream
     "pdt_gardner_scan_serial": [_P] * 13 + [_I] * 3 + [_P, _I, _P],
+    # the same in double
+    "pdt_gardner_scan_f64": [_P] * 13 + [_I] * 3 + [_P, _I, _P],
     # variant, in, st_in, out, st_out, B, L, params, n_params, stream
     "pdt_ablate_kernel": [_I] + [_P] * 4 + [_I] * 2 + [_P, _I, _P],
     # flags, re, im, tn, st_in, bit, btime, emit, st_out, B, L, window,

@@ -57,9 +57,10 @@ def polyphase(taps, interp: int):
 
 
 def lane_const(v, like: torch.Tensor) -> torch.Tensor:
-    """float32(v) as a (B,) lane tensor like `like` (tensor-tensor ops
+    """v rounded to the stream dtype of `like` (float64 for a float64
+    tensor, else float32) as a (B,) lane tensor like it (tensor-tensor ops
     dispatch fastest in the per-sample loops)."""
-    return torch.full(like.shape, float(np.float32(v)), dtype=torch.float32,
+    return torch.full(like.shape, v, dtype=pll_ops.stream_dtype(like),
                       device=like.device)
 
 

@@ -43,10 +43,11 @@ def on_card(name: str, device) -> bool:
 
 
 def state_rows(pll_state, *extra):
-    """The kernels' (6 + len(extra), B) float32 state rows: PLL phase,
-    freq, locksig, avg_phase, sweep, locked as 0/1, then `extra`."""
-    return torch.stack([*pll_state[:5], pll_state.locked.to(torch.float32),
-                        *extra]).contiguous()
+    """The kernels' (6 + len(extra), B) state rows in the state's dtype
+    (float32, or float64): PLL phase, freq, locksig, avg_phase, sweep,
+    locked as 0/1, then `extra`."""
+    locked = pll_state.locked.to(pll_state.phase.dtype)
+    return torch.stack([*pll_state[:5], locked, *extra]).contiguous()
 
 
 # While a dict is set here, launch() records a pair of CUDA events on the

@@ -12,6 +12,9 @@ Counterpart of ``project_desert_tortoise_tpu/ops/pallas/pll_kernel.py``
 - :func:`pll_scan_serial` launches the serial kernel of the same file, the
   whole step of a sample in turn: the card-side oracle and timing baseline
   of the decoupled kernel, on no path.
+- :func:`pll_scan_f64` launches that serial kernel instantiated in double:
+  the PLL of the float64 ``argos`` mode's exact chain, which
+  :func:`pll_scan_kernel` launches for float64 tensors on the card.
 """
 
 from __future__ import annotations
@@ -32,14 +35,15 @@ PLL_FIELDS = ("alpha_acq", "beta_acq", "alpha_track", "beta_track",
               "avg_phase_alpha")
 
 
-def pll_param_block(params: pll_ops.PLLParams) -> np.ndarray:
-    return np.array([getattr(params, k) for k in PLL_FIELDS], np.float32)
+def pll_param_block(params: pll_ops.PLLParams,
+                    dtype=np.float32) -> np.ndarray:
+    return np.array([getattr(params, k) for k in PLL_FIELDS], dtype)
 
 
-def check_pll_state(state, B: int, dev) -> None:
+def check_pll_state(state, B: int, dev, dtype=torch.float32) -> None:
     for name, s in zip(pll_ops.PLLState._fields, state):
         check(name, s, (B,), (torch.bool if name == "locked"
-                              else torch.float32,), dev)
+                              else dtype,), dev)
 
 
 def pll_state_from_rows(rows) -> pll_ops.PLLState:
@@ -47,14 +51,14 @@ def pll_state_from_rows(rows) -> pll_ops.PLLState:
     return pll_ops.PLLState(*rows[:5], locked=rows[5] > 0.5)
 
 
-def _state_in(state, z):
+def _state_in(state, z, dtype=torch.float32):
     """Check a launch's arguments; returns the kernels' state rows."""
     zre, zim = z
     dev = zre.device
     B, L = zre.shape
-    check("zre", zre, (B, L), (torch.float32,), dev)
-    check("zim", zim, (B, L), (torch.float32,), dev)
-    check_pll_state(state, B, dev)
+    check("zre", zre, (B, L), (dtype,), dev)
+    check("zim", zim, (B, L), (dtype,), dev)
+    check_pll_state(state, B, dev, dtype)
     return state_rows(state)
 
 
@@ -62,12 +66,17 @@ def pll_scan_kernel(params: pll_ops.PLLParams, state: pll_ops.PLLState, z,
                     *, unlocked=None):
     """The PLL over (B, L) float32 planes z = (zre, zim); state: (B,)
     lanes.  Returns (state, out (B, L), locksig (B, L)), as the JAX
-    ``pll_scan_pallas``.  CPU tensors run ``ops/pll.py::pll_scan_ref``.
+    ``pll_scan_pallas``.  CPU tensors run ``ops/pll.py::pll_scan_ref``;
+    float64 planes on the card launch :func:`pll_scan_f64`.
     ``unlocked``, a (B,) int32 tensor on the card, receives the steps each
     lane ran before its PLL locked."""
     zre, zim = z
     if not on_card("pll_scan", zre.device):
         return pll_ops.pll_scan_ref(params, state, zre, zim)
+    if zre.dtype == torch.float64:
+        if unlocked is not None:
+            raise ValueError("unlocked: counted by the float32 kernel only")
+        return pll_scan_f64(params, state, z)
     st_in = _state_in(state, z)
     dev = zre.device
     B, L = zre.shape
@@ -91,6 +100,29 @@ def pll_scan_kernel(params: pll_ops.PLLParams, state: pll_ops.PLLState, z,
 pll_scan_kernel.launches = 0
 
 
+def _launch_serial(entry: str, params: pll_ops.PLLParams,
+                   state: pll_ops.PLLState, z, dtype):
+    """Launch the serial kernel `entry` in `dtype` (float32 or float64)
+    on time-major copies of the (B, L) planes z; returns as
+    :func:`pll_scan_kernel`."""
+    st_in = _state_in(state, z, dtype)
+    zre, zim = z
+    dev = zre.device
+    B, L = zre.shape
+    # time-major planes: a warp reads and writes 32 neighbouring lanes
+    xre = zre.t().contiguous()
+    xim = zim.t().contiguous()
+    out = torch.empty((L, B), dtype=dtype, device=dev)
+    lock = torch.empty_like(out)
+    st_out = torch.empty_like(st_in)
+    p = pll_param_block(params, np.float64 if dtype == torch.float64
+                        else np.float32)
+    launch(dev, entry, xre.data_ptr(), xim.data_ptr(), st_in.data_ptr(),
+           out.data_ptr(), lock.data_ptr(), st_out.data_ptr(), B, L,
+           p.ctypes.data_as(ctypes.c_void_p), p.size)
+    return pll_state_from_rows(st_out), out.t(), lock.t()
+
+
 def pll_scan_serial(params: pll_ops.PLLParams, state: pll_ops.PLLState, z):
     """:func:`pll_scan_kernel` on the serial kernel, which runs the whole
     PLL step of a sample in turn, one thread a lane, on time-major planes.
@@ -99,26 +131,29 @@ def pll_scan_serial(params: pll_ops.PLLParams, state: pll_ops.PLLState, z):
     CUDA tensors only."""
     if not on_card("pll_scan_serial", z[0].device):
         raise ValueError("pll_scan_serial runs on a CUDA device only")
-    st_in = _state_in(state, z)
-    zre, zim = z
-    dev = zre.device
-    B, L = zre.shape
-    # time-major planes: a warp reads and writes 32 neighbouring lanes
-    xre = zre.t().contiguous()
-    xim = zim.t().contiguous()
-    out = torch.empty((L, B), dtype=torch.float32, device=dev)
-    lock = torch.empty((L, B), dtype=torch.float32, device=dev)
-    st_out = torch.empty_like(st_in)
-    p = pll_param_block(params)
-    launch(dev, "pdt_pll_scan_serial", xre.data_ptr(), xim.data_ptr(),
-           st_in.data_ptr(), out.data_ptr(), lock.data_ptr(),
-           st_out.data_ptr(), B, L, p.ctypes.data_as(ctypes.c_void_p),
-           p.size)
+    out = _launch_serial("pdt_pll_scan_serial", params, state, z,
+                         torch.float32)
     pll_scan_serial.launches += 1
-    return pll_state_from_rows(st_out), out.t(), lock.t()
+    return out
 
 
 pll_scan_serial.launches = 0
+
+
+def pll_scan_f64(params: pll_ops.PLLParams, state: pll_ops.PLLState, z):
+    """The PLL of the float64 ``argos`` mode's exact chain: the serial
+    kernel instantiated in double, one thread a lane, over (B, L) float64
+    planes (time-major copies; a lane's row where B = 1); returns as
+    :func:`pll_scan_kernel`.  CUDA tensors only."""
+    if not on_card("pll_scan_f64", z[0].device):
+        raise ValueError("pll_scan_f64 runs on a CUDA device only")
+    out = _launch_serial("pdt_pll_scan_f64", params, state, z,
+                         torch.float64)
+    pll_scan_f64.launches += 1
+    return out
+
+
+pll_scan_f64.launches = 0
 
 
 def launch_config(device="cuda") -> dict:

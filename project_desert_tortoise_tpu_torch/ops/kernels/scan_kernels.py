@@ -25,10 +25,16 @@ per launch at the main path's size, so each is a hand-written kernel in
   thread a lane (over time-major copies for the first two, over the image
   in device memory for the third): the card-side oracles and timing
   baselines of the three, on no path.
+- :func:`agc_scan_f64` and :func:`gardner_manchester_scan_f64` launch the
+  same serial kernels instantiated in double: the float64 ``argos`` mode's
+  exact chain (JAX runs its scans under x64 there).  :func:`agc_scan` and
+  :func:`gardner_manchester_scan` launch them for float64 tensors.
 - :func:`agc_scan_ref`, :func:`gardner_manchester_ref` and
-  :func:`gardner_manchester_scan_ref` are the plain PyTorch versions, on any device: loops over the steps, all lanes at once,
-  in the JAX scans' order of float32 operations, so on the card they agree
-  with the kernels bit for bit.
+  :func:`gardner_manchester_scan_ref` are the plain PyTorch versions, on
+  any device: loops over the steps, all lanes at once, in the JAX scans'
+  order of operations in the stream's dtype (float32; float64 for the
+  first and the third), so on the card they agree with the kernels bit for
+  bit.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from project_desert_tortoise_tpu_torch.ops import fastmath
+from project_desert_tortoise_tpu_torch.ops import pll as pll_ops
 from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
     AGC_MAX_GAIN, AGC_MIN_GAIN, AGC_REFERENCE, agc_step, lane_const)
 from project_desert_tortoise_tpu_torch.ops.kernels.common import (
@@ -55,8 +62,9 @@ class AGCParams(NamedTuple):
 
 
 def agc_scan_ref(gain, x, p: AGCParams):
-    """Plain PyTorch version of :func:`agc_scan`."""
-    gain = gain.to(torch.float32)
+    """Plain PyTorch version of :func:`agc_scan`, in the dtype of `x`
+    (float32 or float64)."""
+    gain = gain.to(pll_ops.stream_dtype(x))
     c = lambda v: lane_const(v, gain)
     attack, decay, reference = c(p.attack), c(p.decay), c(p.reference)
     max_gain, min_gain, zero = c(p.max_gain), c(p.min_gain), c(0.0)
@@ -68,21 +76,24 @@ def agc_scan_ref(gain, x, p: AGCParams):
     return gain, torch.stack(ys, 1)
 
 
-def _agc_args(gain, x):
+def _agc_args(gain, x, dtype=torch.float32):
     """Check a launch's arguments."""
     dev = x.device
     B, n = x.shape
-    check("x", x, (B, n), (torch.float32,), dev)
-    check("gain", gain, (B,), (torch.float32,), dev)
+    check("x", x, (B, n), (dtype,), dev)
+    check("gain", gain, (B,), (dtype,), dev)
 
 
 def agc_scan(gain, x, p: AGCParams):
     """Attack/decay AGC over the last axis of (B, n) float32 `x` from
-    (B,) gains.  Returns (gain (B,), y (B, n)).  CPU tensors run
+    (B,) gains.  Returns (gain (B,), y (B, n)).  Float64 tensors on the
+    card launch :func:`agc_scan_f64`; CPU tensors run
     :func:`agc_scan_ref`."""
     dev = x.device
     if not on_card("agc_scan", dev):
         return agc_scan_ref(gain, x, p)
+    if x.dtype == torch.float64:
+        return agc_scan_f64(gain, x, p)
     _agc_args(gain, x)
     B, n = x.shape
     x = x.contiguous()                # lane-major: a chunk is contiguous
@@ -100,29 +111,51 @@ def agc_scan(gain, x, p: AGCParams):
 agc_scan.launches = 0
 
 
-def agc_scan_serial(gain, x, p: AGCParams):
-    """:func:`agc_scan` on the serial kernel, one thread a lane over
-    time-major planes.  No path calls it: the card checks and
-    ``chip_smoke.py`` hold :func:`agc_scan` to it over whole passes and
-    time the two in one run.  CUDA tensors only."""
-    dev = x.device
-    if not on_card("agc_scan_serial", dev):
-        raise ValueError("agc_scan_serial runs on a CUDA device only")
-    _agc_args(gain, x)
+def _launch_agc_serial(entry: str, gain, x, p: AGCParams, dtype):
+    """Launch the serial AGC kernel `entry` in `dtype` (float32 or
+    float64) on a time-major copy of `x`; returns (gain, y)."""
+    _agc_args(gain, x, dtype)
     B, n = x.shape
     xt = x.t().contiguous()           # time-major: coalesced warp access
     y = torch.empty_like(xt)
     g_in = gain.contiguous()
     g_out = torch.empty_like(g_in)
-    params = np.array(p, np.float32)
-    launch(dev, "pdt_agc_scan_serial", xt.data_ptr(), g_in.data_ptr(),
-           y.data_ptr(), g_out.data_ptr(), B, n,
-           params.ctypes.data_as(ctypes.c_void_p), params.size)
-    agc_scan_serial.launches += 1
+    params = np.array(p, np.float64 if dtype == torch.float64
+                      else np.float32)
+    launch(x.device, entry, xt.data_ptr(), g_in.data_ptr(), y.data_ptr(),
+           g_out.data_ptr(), B, n, params.ctypes.data_as(ctypes.c_void_p),
+           params.size)
     return g_out, y.t()
 
 
+def agc_scan_serial(gain, x, p: AGCParams):
+    """:func:`agc_scan` on the serial kernel, one thread a lane over
+    time-major planes.  No path calls it: the card checks and
+    ``chip_smoke.py`` hold :func:`agc_scan` to it over whole passes and
+    time the two in one run.  CUDA tensors only."""
+    if not on_card("agc_scan_serial", x.device):
+        raise ValueError("agc_scan_serial runs on a CUDA device only")
+    out = _launch_agc_serial("pdt_agc_scan_serial", gain, x, p,
+                             torch.float32)
+    agc_scan_serial.launches += 1
+    return out
+
+
 agc_scan_serial.launches = 0
+
+
+def agc_scan_f64(gain, x, p: AGCParams):
+    """:func:`agc_scan` in float64 (the ``argos`` mode's exact chain): the
+    serial kernel instantiated in double, one thread a lane; (B, n)
+    float64 `x`, (B,) float64 gains.  CUDA tensors only."""
+    if not on_card("agc_scan_f64", x.device):
+        raise ValueError("agc_scan_f64 runs on a CUDA device only")
+    out = _launch_agc_serial("pdt_agc_scan_f64", gain, x, p, torch.float64)
+    agc_scan_f64.launches += 1
+    return out
+
+
+agc_scan_f64.launches = 0
 
 
 def agc_launch_config(device="cuda") -> dict:
@@ -161,7 +194,7 @@ def layout(cap: int, window: int, step_size: float, err_limit: float,
 
 class _SlotConsts(NamedTuple):
     """The Gardner/Manchester constants of the plain versions as (B,) lane
-    tensors, rounded as the JAX scans round them."""
+    tensors in the stream's dtype, rounded as the JAX scans round them."""
     kp: torch.Tensor
     err_limit: torch.Tensor
     neg_limit: torch.Tensor
@@ -174,11 +207,10 @@ class _SlotConsts(NamedTuple):
 
 def _slot_consts(p: GardnerParams, like: torch.Tensor) -> _SlotConsts:
     c = lambda v: lane_const(v, like)
+    step, err_limit = c(p.step_size), c(p.err_limit)
     return _SlotConsts(
-        kp=c(p.kp), err_limit=c(p.err_limit),
-        neg_limit=c(-np.float32(p.err_limit)), step=c(p.step_size),
-        half_step=c(np.float32(p.step_size) / np.float32(2.0)),
-        thr=c(p.resync_threshold), zero=c(0.0),
+        kp=c(p.kp), err_limit=err_limit, neg_limit=-err_limit, step=step,
+        half_step=step / 2.0, thr=c(p.resync_threshold), zero=c(0.0),
         one_u8=torch.ones(like.shape, dtype=torch.uint8, device=like.device))
 
 
@@ -219,7 +251,7 @@ def _plain_result(st, n):
     chunk rollover of next_sample (JAX clock.py:104-107); half_raw is
     kept."""
     ns, *rest = st
-    return (ns - n.to(torch.float32), *rest[:5]), tuple(rest[5:])
+    return (ns - n.to(ns.dtype), *rest[:5]), tuple(rest[5:])
 
 
 def gardner_manchester_ref(fstate, istate, x, t, n, p: GardnerParams,
@@ -261,19 +293,19 @@ def gardner_manchester_ref(fstate, istate, x, t, n, p: GardnerParams,
             torch.stack(btimes, 1), torch.stack(emits, 1))
 
 
-def _gardner_args(fstate, istate, x, t, n, lay=None):
+def _gardner_args(fstate, istate, x, t, n, lay=None, dtype=torch.float32):
     """Check a launch's arguments (and the layout, if any); returns the
-    state as (6, B) float32 and (2, B) int32 rows."""
+    state as (6, B) `dtype` and (2, B) int32 rows."""
     dev = x.device
     B, cap = x.shape
     if lay is not None and cap != lay.n_win * lay.window:
         raise ValueError(f"x has {cap} samples, layout {lay} needs "
                          f"{lay.n_win * lay.window}")
-    check("x", x, (B, cap), (torch.float32,), dev)
-    check("t", t, (B, cap), (torch.float32,), dev)
+    check("x", x, (B, cap), (dtype,), dev)
+    check("t", t, (B, cap), (dtype,), dev)
     check("n", n, (B,), (torch.int32,), dev)
     for k, s in enumerate(fstate):
-        check(f"fstate[{k}]", s, (B,), (torch.float32,), dev)
+        check(f"fstate[{k}]", s, (B,), (dtype,), dev)
     for k, s in enumerate(istate):
         check(f"istate[{k}]", s, (B,), (torch.int32,), dev)
     return (torch.stack(list(fstate)).contiguous(),
@@ -379,13 +411,15 @@ def gardner_manchester_scan_ref(fstate, istate, x, t, n, p: GardnerParams,
                                 max_syms: int):
     """Plain PyTorch version of :func:`gardner_manchester_scan`: JAX's
     ``gardner_scan`` then ``manchester_scan`` (``clock.py:58-108``,
-    ``manchester.py:34-74``), slot by slot over all lanes at once."""
-    f32, i32 = torch.float32, torch.int32
+    ``manchester.py:34-74``), slot by slot over all lanes at once, in the
+    state's dtype (float32, or float64)."""
+    i32 = torch.int32
     B, cap = x.shape
     st = (*fstate, *istate)
     k = _slot_consts(p, fstate[0])
-    n_f, cap_f = n.to(f32), lane_const(cap, fstate[0])
-    x, t = x.to(f32), t.to(f32)
+    dt = k.zero.dtype
+    n_f, cap_f = n.to(dt), lane_const(cap, fstate[0])
+    x, t = x.to(dt), t.to(dt)
     syms, times, valid, bits, emits = [], [], [], [], []
     for _ in range(max_syms):
         ns, half_raw = st[0], st[1]
@@ -411,20 +445,22 @@ def gardner_manchester_scan_ref(fstate, istate, x, t, n, p: GardnerParams,
 
 
 def _launch_scan(entry: str, fstate, istate, x, t, n, p: GardnerParams,
-                 max_syms: int, *extra):
+                 max_syms: int, *extra, dtype=torch.float32):
     """Launch a whole-image scan kernel (`extra`: its arguments after
-    max_syms); returns the wrapper's outputs."""
+    max_syms) on `dtype` images and state; returns the wrapper's
+    outputs."""
     dev = x.device
-    f_in, i_in = _gardner_args(fstate, istate, x, t, n)
+    f_in, i_in = _gardner_args(fstate, istate, x, t, n, dtype=dtype)
     B, cap = x.shape
     x, t, n = x.contiguous(), t.contiguous(), n.contiguous()
-    syms = torch.empty((B, max_syms), dtype=torch.float32, device=dev)
+    syms = torch.empty((B, max_syms), dtype=dtype, device=dev)
     times = torch.empty_like(syms)
     flags = torch.empty((3, B, max_syms), dtype=torch.bool, device=dev)
     count = torch.empty((B,), dtype=torch.int32, device=dev)
     f_out = torch.empty_like(f_in)
     i_out = torch.empty_like(i_in)
-    params = np.array(p, np.float32)
+    params = np.array(p, np.float64 if dtype == torch.float64
+                      else np.float32)
     launch(dev, entry, x.data_ptr(), t.data_ptr(), n.data_ptr(),
            f_in.data_ptr(), i_in.data_ptr(), syms.data_ptr(),
            times.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
@@ -444,13 +480,20 @@ def gardner_manchester_scan(fstate, istate, x, t, n, p: GardnerParams,
     (fstate, istate, syms, times (B, max_syms) float32, valid, bits uint8,
     emit bool (B, max_syms), count (B,) int32 active slots); a slot's time
     is its symbol's and its bit's.  CPU tensors run
-    :func:`gardner_manchester_scan_ref`.  The kernel stages each lane's
+    :func:`gardner_manchester_scan_ref`; float64 tensors on the card launch
+    :func:`gardner_manchester_scan_f64`.  The kernel stages each lane's
     image in a ring of shared memory that it sizes itself
     (:func:`gardner_scan_launch_config`); ``ring_floats`` > 0 caps the
     ring (so that a small image recycles its tiles), for tests."""
     dev = x.device
     if not on_card("gardner_manchester_scan", dev):
         return gardner_manchester_scan_ref(fstate, istate, x, t, n, p,
+                                           max_syms)
+    if x.dtype == torch.float64:
+        if ring_floats:
+            raise ValueError("ring_floats: the float64 kernel stages no "
+                             "ring")
+        return gardner_manchester_scan_f64(fstate, istate, x, t, n, p,
                                            max_syms)
     out = _launch_scan("pdt_gardner_scan", fstate, istate, x, t, n, p,
                        max_syms, int(ring_floats))
@@ -478,6 +521,25 @@ def gardner_manchester_scan_serial(fstate, istate, x, t, n,
 
 
 gardner_manchester_scan_serial.launches = 0
+
+
+def gardner_manchester_scan_f64(fstate, istate, x, t, n, p: GardnerParams,
+                                max_syms: int):
+    """:func:`gardner_manchester_scan` in float64 (the ``argos`` mode's
+    exact chain): the serial kernel instantiated in double, one thread a
+    lane reading the image from device memory; float64 `x`, `t` and
+    fstate, float64 syms and times.  CUDA tensors only."""
+    dev = x.device
+    if not on_card("gardner_manchester_scan_f64", dev):
+        raise ValueError("gardner_manchester_scan_f64 runs on a CUDA "
+                         "device only")
+    out = _launch_scan("pdt_gardner_scan_f64", fstate, istate, x, t, n, p,
+                       max_syms, dtype=torch.float64)
+    gardner_manchester_scan_f64.launches += 1
+    return out
+
+
+gardner_manchester_scan_f64.launches = 0
 
 # what pdt_gardner_scan_config reports, in order
 GARDNER_SCAN_CONFIG_FIELDS = (

@@ -5,8 +5,9 @@ Twin of ``project_desert_tortoise_tpu/ops/pll.py`` (``_step``,
 second-order loop on the wrapped fast-atan2 phase error, BPSK data on the
 imaginary arm, EWMA lock detector over the Q_rsqrt-normalised carrier
 projection, triangle frequency sweep during acquisition and a one-shot
-acquisition->track bandwidth switch.  Every operation is one float32 op in
-the JAX order, so the kernels' step (``csrc/pdt_common.cuh::pll_step``)
+acquisition->track bandwidth switch.  Every operation is one op in the
+stream's dtype (float32, or float64 for the ``argos`` mode's exact chain)
+in the JAX order, so the kernels' step (``csrc/pdt_common.cuh::pll_step``)
 matches it bit for bit on the card.
 """
 
@@ -79,11 +80,11 @@ def init_state(params: PLLParams, batch_shape=(), *, device,
 
 
 class LoopConsts(NamedTuple):
-    """The loop's float32 constants as (B,) lane tensors: tensor-tensor ops
-    dispatch faster than ops with a python scalar, and the per-sample loops
-    of this package run a few hundred ops per sample.  Each value is rounded
-    as the JAX step rounds it (``1.0 - c(alpha)`` is a float32
-    subtraction there)."""
+    """The loop's constants as (B,) lane tensors in the stream's dtype:
+    tensor-tensor ops dispatch faster than ops with a python scalar, and the
+    per-sample loops of this package run a few hundred ops per sample.  Each
+    value is rounded as the JAX step rounds it (``1.0 - c(alpha)`` is a
+    subtraction in the stream's dtype there)."""
     alpha_acq: torch.Tensor
     beta_acq: torch.Tensor
     alpha_track: torch.Tensor
@@ -104,22 +105,30 @@ class LoopConsts(NamedTuple):
     zero: torch.Tensor
 
 
+def stream_dtype(like: torch.Tensor) -> torch.dtype:
+    """The dtype of the stream that `like` belongs to: float64 for the
+    ``argos`` mode's exact chain, float32 for everything else."""
+    return torch.float64 if like.dtype == torch.float64 else torch.float32
+
+
 def loop_consts(params: PLLParams, like: torch.Tensor) -> LoopConsts:
-    f32 = np.float32
+    """The constants of a step on lanes shaped like `like`, in its
+    :func:`stream_dtype`."""
+    dt = stream_dtype(like)
+    c = (np.float64 if dt == torch.float64 else np.float32)
     vals = dict(
         alpha_acq=params.alpha_acq, beta_acq=params.beta_acq,
         alpha_track=params.alpha_track, beta_track=params.beta_track,
-        max_freq=params.max_freq, neg_max_freq=-f32(params.max_freq),
+        max_freq=params.max_freq, neg_max_freq=-c(params.max_freq),
         lock_alpha=params.lock_alpha,
-        one_minus_lock=f32(1.0) - f32(params.lock_alpha),
+        one_minus_lock=c(1.0) - c(params.lock_alpha),
         lock_threshold=params.lock_threshold,
         sweep_threshold=params.sweep_threshold,
         avg_alpha=params.avg_phase_alpha,
-        one_minus_avg=f32(1.0) - f32(params.avg_phase_alpha),
-        pi=np.pi, neg_pi=-f32(np.pi), two_pi=2.0 * np.pi,
-        neg_two_pi=-f32(2.0 * np.pi), half_pi=np.pi / 2.0, zero=0.0)
-    return LoopConsts(**{k: torch.full(like.shape, float(f32(v)),
-                                       dtype=torch.float32,
+        one_minus_avg=c(1.0) - c(params.avg_phase_alpha),
+        pi=np.pi, neg_pi=-c(np.pi), two_pi=2.0 * np.pi,
+        neg_two_pi=-c(2.0 * np.pi), half_pi=np.pi / 2.0, zero=0.0)
+    return LoopConsts(**{k: torch.full(like.shape, float(c(v)), dtype=dt,
                                        device=like.device)
                          for k, v in vals.items()})
 
@@ -186,7 +195,7 @@ def step_with_terms(k: LoopConsts, state: PLLState, zre, zim,
 
 
 def step(params: PLLParams, state: PLLState, zre, zim):
-    """One PLL step on (B,) float32 lanes; returns (state, (out, locksig))."""
+    """One PLL step on (B,) lanes; returns (state, (out, locksig))."""
     return step_with_terms(loop_consts(params, state.phase), state, zre, zim,
                            *input_terms(zre, zim))
 

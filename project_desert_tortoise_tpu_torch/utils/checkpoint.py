@@ -83,10 +83,11 @@ def load_session(path: str, *, device="cuda") -> DemodSession:
                         norm_factor=meta["norm_factor"], quirks=False,
                         device=device)
     template = chain_lib.init_state(sess.params, meta["norm_factor"] or 1.0,
-                                    sess.chunk_size, device=sess.device)
+                                    sess.chunk_size, device=sess.device,
+                                    dtype=sess.torch_dtype)
     # each leaf keeps its saved shape (the chunk-invariant chain's buffer
     # images carry a margin beyond the initial state's) and takes the
-    # template's dtype
+    # template's dtype, the mode's (float64 leaves for the argos mode)
     leaves = [torch.from_numpy(np.asarray(z[f"leaf_{i}"])).to(
         dtype=t.dtype, device=sess.device)
         for i, t in enumerate(_leaves(template))]

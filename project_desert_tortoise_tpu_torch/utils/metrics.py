@@ -1,8 +1,9 @@
 """Signal-quality metrics and console telemetry.
 
 The port's own copy of ``project_desert_tortoise_tpu/utils/metrics.py``,
-with the M2M4 moments in numpy (float32, as the JAX package computes them
-without x64; the sums run in numpy's order, not XLA's).
+with the M2M4 moments in numpy, in the stream's dtype (float32, as the JAX
+package computes them without x64; float64 for the ``argos`` mode, which
+JAX runs under x64); the sums run in numpy's order, not XLA's.
 
 - quality figure ``10*log10((pi/2 - avgPhase)^2)`` with the reference's ANSI
   thresholds (``POESTIPdemod/main.c:115-118,461-481``);
@@ -48,17 +49,17 @@ def progress_line(percent: float, total_ksamples: float, stream_time_s: float,
             f"{frames} Frames : {quality_string(q_db, color)}")
 
 
-def m2m4_snr_db(x) -> float:
+def m2m4_snr_db(x, dtype=np.float32) -> float:
     """M2M4 SNR estimate for a real BPSK soft stream (MATLAB ``M2M4.m:27-43``).
 
     Real-signal constants: with x = s + n, s = +/-A, n ~ N(0, sigma^2):
     M4 = S^2 + 6SN + 3N^2, so S = sqrt((3*M2^2 - M4)/2), N = M2 - S;
-    returns 10*log10(S/N).
+    returns 10*log10(S/N), computed in `dtype`.
     """
-    x = np.asarray(x, np.float32)
+    c = np.dtype(dtype).type
+    x = np.asarray(x, c)
     m2 = np.mean(x * x)
     m4 = np.mean(x * x * x * x)
-    s = np.sqrt(np.maximum((3 * m2 * m2 - m4) / np.float32(2.0),
-                           np.float32(1e-30)))
-    n = np.maximum(m2 - s, np.float32(1e-30))
-    return float(np.float32(10.0) * np.log10(s / n))
+    s = np.sqrt(np.maximum((3 * m2 * m2 - m4) / c(2.0), c(1e-30)))
+    n = np.maximum(m2 - s, c(1e-30))
+    return float(c(10.0) * np.log10(s / n))

@@ -148,8 +148,13 @@ def test_unported_clock_and_dtype_are_refused():
     for make in (JC.make_params, TC.make_params):   # as JAX refuses it
         with pytest.raises(ValueError, match="quirks=False"):
             make(upsampling, 50000.0, quirks=True)
+    # the float64 argos mode is no longer refused: its session runs in
+    # float64 (tests/test_torch_argos_exact.py holds it against JAX)
     from project_desert_tortoise_tpu_torch.models.demodulator import (
         DemodSession as PortSession)
     from project_desert_tortoise_tpu_torch.utils.config import ARGOS
-    with pytest.raises(ValueError, match="float32 modes only"):
-        PortSession(ARGOS, 32000.0, device="cpu")
+    sess = PortSession(ARGOS, 32000.0, device="cpu")
+    t = np.arange(1, 101, dtype=np.float64) / 32000.0
+    assert sess.process(np.zeros(100, np.complex128), t, t + t[0]) == []
+    assert sess.state.x_img.dtype == sess.state.pll.phase.dtype == \
+        torch.float64

@@ -6,10 +6,13 @@ lengths, its ring holding the whole image or forced small (tiles
 recycled, the stale pointer read from device memory), on rows aligned to
 16 bytes or not, also against its serial twin
 ``gardner_manchester_scan_serial``; ``pll_scan`` and ``agc_scan`` at one
-lane from an unlocked start
-over a chunk of each float32 mode and a short final one; and three chunks
-of ``chain.chunk_step`` in each float32 mode, the kernels against the
-plain versions on the same card, every output and state bit for bit.
+lane from an unlocked start over a chunk of each float32 mode and a short
+final one, in float32 (POES) and in float64 (the ``argos`` mode: their
+double instances ``pll_scan_f64`` and ``agc_scan_f64``); and three chunks
+of ``chain.chunk_step`` in each mode, float32 and float64 (there the
+three double instances, ``gardner_manchester_scan_f64`` too), the kernels
+against the plain versions on the same card, every output and state bit
+for bit.
 
 Marked ``cuda``; skips without a card.  On a machine with one:
 
@@ -112,21 +115,37 @@ def test_gardner_manchester_scan_matches_plain_on_card(card, case, B, ring,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("L", [10000, 2400, 1234])
-def test_one_lane_pll_and_agc_from_an_unlocked_start_on_card(card, L):
-    params = chain.make_params(POES_TIP, FS)
-    iq, _ = synth.make_poes_recording(n_frames=3, fs=FS)
-    iq = (iq / (np.abs(iq).max() * 1.2)).astype(np.complex64)
-    a = int(0.3 * FS)                        # where the signal starts
+def test_one_lane_pll_and_agc_from_an_unlocked_start_on_card(card, L,
+                                                              dtype):
+    """float32: POES_TIP on a POES clip; float64: the argos mode on an
+    ARGOS clip, on the double instances."""
+    f64 = dtype == "float64"
+    fs = 32000.0 if f64 else FS
+    params = chain.make_params(MODES["argos" if f64 else "poes_tip"], fs)
+    if f64:
+        iq, _ = synth.make_argos_recording(n_packets=2, fs=fs)
+    else:
+        iq, _ = synth.make_poes_recording(n_frames=3, fs=FS)
+    iq = (iq / (np.abs(iq).max() * 1.2)).astype(
+        np.complex128 if f64 else np.complex64)
+    a = int(0.3 * fs)                        # where the signal starts
     z = tuple(torch.from_numpy(np.ascontiguousarray(v[a:a + L])[None]).to(
         card) for v in (iq.real, iq.imag))
-    cold = pll.init_state(params.pll, (1,), device=card)
+    tdt = getattr(torch, dtype)
+    cold = pll.init_state(params.pll, (1,), device=card, dtype=tdt)
+    launches = (pll_kernel.pll_scan_f64.launches,
+                sk.agc_scan_f64.launches)
     got = pll_kernel.pll_scan_kernel(params.pll, cold, z)
     _equal(got, pll.pll_scan_ref(params.pll, cold, *z))
     x = fir.fir_interp(got[1], params.taps, params.interp)
-    gain = torch.full((1,), 17.58, device=card)
+    gain = torch.full((1,), 17.58, device=card, dtype=tdt)
     ap = sk.AGCParams(params.agc_attack, params.agc_decay)
     _equal(sk.agc_scan(gain, x, ap), sk.agc_scan_ref(gain, x, ap))
+    assert got[1].dtype == x.dtype == tdt
+    assert (pll_kernel.pll_scan_f64.launches,
+            sk.agc_scan_f64.launches) == tuple(k + f64 for k in launches)
 
 
 def _plain_kernels(monkeypatch):
@@ -142,23 +161,27 @@ def _plain_kernels(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,quirks", [
     ("poes_tip", True), ("poes_tip", False), ("poes_tip_realtime", True),
-    ("argos_realtime", True)])
+    ("argos_realtime", True), ("argos", True), ("argos", False)])
 def test_chunk_step_kernels_match_plain_on_card(card, mode, quirks,
                                                 monkeypatch):
+    """Each mode in its dtype: float32, or float64 for ``argos``."""
     cfg = MODES[mode]
+    dt = cfg.np_dtype()
     fs = 32000.0 if mode.startswith("argos") else FS
     params = chain.make_params(cfg, fs, quirks=quirks)
     if mode.startswith("argos"):
         iq, _ = synth.make_argos_recording(n_packets=1, fs=fs)
     else:
         iq, _ = synth.make_poes_recording(n_frames=3, fs=fs)
-    iq = (iq / (np.abs(iq).max() * 1.2)).astype(np.complex64)
-    t = W.time_axis(len(iq), fs, np.float32)
-    t_ext = np.concatenate([t, [t[-1] + np.float32(1.0) / np.float32(fs)]])
+    iq = (iq / (np.abs(iq).max() * 1.2)).astype(
+        np.complex128 if dt == np.float64 else np.complex64)
+    t = W.time_axis(len(iq), fs, dt)
+    t_ext = np.concatenate([t, [t[-1] + dt.type(1.0) / dt.type(fs)]])
     chunk, a0 = 2000, int(0.3 * fs)
 
     def run():
-        state = chain.init_state(params, 17.58, chunk, device=card)
+        state = chain.init_state(params, 17.58, chunk, device=card,
+                                 dtype=getattr(torch, str(dt)))
         outs = []
         for k, n in enumerate((chunk, chunk, chunk * 5 // 8)):
             a = a0 + k * chunk
@@ -168,9 +191,11 @@ def test_chunk_step_kernels_match_plain_on_card(card, mode, quirks,
             state, out = chain.chunk_step(params, state, *planes)
             outs.append(out)
         return state, outs
-    before = sk.gardner_manchester_scan.launches
+    scan = (sk.gardner_manchester_scan_f64 if dt == np.float64
+            else sk.gardner_manchester_scan)
+    before = scan.launches
     got = run()
-    assert sk.gardner_manchester_scan.launches == before + 3
+    assert scan.launches == before + 3
     with monkeypatch.context() as m:
         _plain_kernels(m)
         want = run()

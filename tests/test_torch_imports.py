@@ -51,7 +51,10 @@ def test_port_imports_with_jax_blocked():
                               "parallel.serving", "models.streaming",
                               "utils.checkpoint", "utils.audio",
                               "utils.profiling", "apps.demod_realtime",
-                              "apps.demod_serve")} <= mods
+                              "apps.demod_serve", "models.argos",
+                              "telemetry.minorframes", "telemetry.tip",
+                              "telemetry.argos", "utils.png",
+                              "apps.telemetry_explorer")} <= mods
 
 
 def test_no_port_file_imports_jax():
