@@ -10,10 +10,11 @@ branches (``use_pallas`` "fused", "front", False), for POES and for ARGOS,
 and drives the port's three entry points:
 
 - a synthetic 12-minute NOAA POES pass (50 kHz, 36 M samples, 7,201
-  minor frames) through ``demod_poes --fast`` (the fused branch, on
-  in-kernel time generation), whose lines must equal those of the fused
-  path on the staged position plane, then through ``demodulate_blocked``
-  on the front and scan branches;
+  minor frames) through ``demod_poes --fast`` (the scan branch,
+  ``use_pallas=False``, the JAX CLI's), then through
+  ``demodulate_blocked`` on the fused branch (in-kernel time generation),
+  whose lines must equal those of the fused path on the staged position
+  plane, and on the front branch;
 - a synthetic 12-minute ARGOS pass (32 kHz, 23.04 M samples, 589
   packets) through ``demod_argos --fast`` and the same two branches;
 - the same POES pass through ``demod_poes`` without ``--fast``, the exact
@@ -26,9 +27,10 @@ and drives the port's three entry points:
   error-free count ``check_parity``'s);
 - the same ARGOS pass through ``demod_argos`` without ``--fast``, the
   float64 ``argos`` mode's exact chain (9,601 chunks of 2,400 samples on
-  the double instances ``pll_scan_f64``, ``agc_scan_f64`` and
-  ``gardner_manchester_scan_f64``), whose payloads must be the JAX float64
-  exact chain's (``argos_exact_cli``, split as ``exact_cli``);
+  the double instances ``pll_scan_f64`` (decoupled), ``agc_scan_f64`` and
+  ``gardner_manchester_scan_f64`` (the image in shared memory)), whose
+  payloads must be the JAX float64 exact chain's (``argos_exact_cli``,
+  split as ``exact_cli``);
 - the two ablation tools (``project_desert_tortoise_tpu_torch/tools``),
   every variant at 128 and at 4,224 lanes (``ablation`` lines);
 - multi-channel serving (``serving``): a ``ChannelBank`` of 256 POES
@@ -57,11 +59,15 @@ unwindowed layout of the POES blocks, each time against its serial twin
 ``design`` line each), and ``DemodSession`` on a short clip on the card
 against the CPU and, on the clip's first 25,000 samples, against its
 plain versions on the card (``exact_small``).  The float64 kernels are
-held to their plain versions at one lane from an unlocked start, over a
-2,400-sample chunk and a final one of 1,234, on quirks images with stale
-mid-bit pointers and on the chunk-invariant image
-(``argos_exact_kernels``: ``kernel_vs_plain`` lines and a ``design``
-line).
+held to their plain versions at one lane from an unlocked start (and the
+PLL from a locked one), over a 2,400-sample chunk, the pass's final one
+of 1,680 and a short one of 1,234, on quirks images with stale mid-bit
+pointers and on the chunk-invariant image, ``pll_scan_f64`` and
+``gardner_manchester_scan_f64`` also against their serial twins
+``pll_scan_f64_serial`` and ``gardner_manchester_scan_f64_serial``
+(``argos_exact_kernels``: ``kernel_vs_plain`` and
+``whole_chunk_vs_serial`` lines and a ``design`` line with the chain
+bounds at the FP64 latency that ``fp64_latency`` measures first).
 
 It holds the decoupled ``fused_demod``, ``pll_fir_agc``, ``pll_scan`` and
 ``agc_scan`` and the windowed ``gardner_manchester`` to their serial twins
@@ -148,6 +154,7 @@ MAIN_CHECK_L = 8192
 # also checked (four tiles of 512: recycled, the stale pointer read from
 # device memory)
 SMALL_RING = 2048
+SMALL_RING_F64 = 256            # doubles: four tiles of 64, the chunk 2,400
 # the ablation tools: lane counts (S x 128) of the timed runs, at each of
 # which every variant is checked against its plain version over
 # (steps, window)
@@ -185,15 +192,22 @@ KERNELS = {
     "gardner_manchester_scan_serial": (CSRC + "scan_kernels.cu",
                                        JAX + "ops/clock.py:58, " + JAX
                                        + "ops/manchester.py:34"),
-    # the float64 argos exact chain's three: the serial kernels of the
-    # exact chain's kernels instantiated in double (JAX runs the same
-    # functions there under x64)
+    # the float64 argos exact chain's three (JAX runs the same functions
+    # there under x64): the decoupled PLL, the serial AGC and the
+    # whole-image Gardner scan instantiated in double
     "pll_scan_f64": (CSRC + "pll_kernel.cu",
                      JAX + "ops/pallas/pll_kernel.py:60"),
     "agc_scan_f64": (CSRC + "scan_kernels.cu", JAX + "ops/agc.py:65"),
     "gardner_manchester_scan_f64": (CSRC + "scan_kernels.cu",
                                     JAX + "ops/clock.py:58, " + JAX
                                     + "ops/manchester.py:34"),
+    # the serial designs of the PLL and the Gardner scan in double, kept in
+    # the same way
+    "pll_scan_f64_serial": (CSRC + "pll_kernel.cu",
+                            JAX + "ops/pallas/pll_kernel.py:60"),
+    "gardner_manchester_scan_f64_serial": (CSRC + "scan_kernels.cu",
+                                           JAX + "ops/clock.py:58, " + JAX
+                                           + "ops/manchester.py:34"),
     "ablate_kernel": (CSRC + "ablate_kernel.cu", "tools/ablate_kernel.py:32"),
     "ablate_fused": (CSRC + "ablate_fused.cu", "tools/ablate_fused.py:42"),
 }
@@ -233,7 +247,7 @@ def kernel_fns() -> dict:
     from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
         fused_demod, fused_demod_serial)
     from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
-        pll_scan_f64, pll_scan_kernel, pll_scan_serial)
+        pll_scan_f64, pll_scan_f64_serial, pll_scan_kernel, pll_scan_serial)
     from project_desert_tortoise_tpu_torch.tools import (
         ablate_fused, ablate_kernel)
     return {"fused_demod": fused_demod, "pll_fir_agc": pll_fir_agc,
@@ -252,6 +266,9 @@ def kernel_fns() -> dict:
             "agc_scan_f64": scan_kernels.agc_scan_f64,
             "gardner_manchester_scan_f64":
                 scan_kernels.gardner_manchester_scan_f64,
+            "pll_scan_f64_serial": pll_scan_f64_serial,
+            "gardner_manchester_scan_f64_serial":
+                scan_kernels.gardner_manchester_scan_f64_serial,
             "ablate_kernel": ablate_kernel.ablate_kernel,
             "ablate_fused": ablate_fused.ablate_fused}
 
@@ -259,8 +276,9 @@ def kernel_fns() -> dict:
 def drive(path, fn):
     """Run one main path: every kernel count set to 0 just before fn(),
     read just after; fails unless each kernel of the path launched and no
-    other did (the serial kernels among them, gardner_manchester_serial
-    and gardner_manchester_scan_serial too).  Returns (fn's result,
+    other did (the serial kernels among them, gardner_manchester_serial,
+    gardner_manchester_scan_serial and the float64 twins
+    pll_scan_f64_serial and gardner_manchester_scan_f64_serial too).  Returns (fn's result,
     {kernel: launches})."""
     import torch
     fns = kernel_fns()
@@ -314,18 +332,31 @@ def bound(n_bytes: float, flops: float, peak: float = FP32_FLOP_S) -> dict:
 CHAIN_CYCLES = 4
 AGC_CHAIN_OPS, PLL_CHAIN_OPS = 10, 12
 GM_SLOT_CHAIN_OPS, E_SYMBOL_CHAIN_OPS = 17, 16
-# The float64 kernels (the serial kernels in double) compute the same
-# operations in double.  Their chains: the AGC gain, 10 an output;
-# Gardner's next-sample chain, 17 a slot; the PLL step, whose `locked`
+# The float64 kernels compute the same operations in double.  Their
+# chains: the AGC gain, 10 an output; Gardner's next-sample chain, 17 a
+# slot; pll_scan_f64 (the decoupled kernel in double) stage A's locked
+# phase update, 12 a sample, as in float32 (the lock signal is stage M's,
+# sin/cos and q_rsqrt stage B's); its serial twin's step, whose `locked`
 # flag feeds back through the lock signal and so puts the data arm's
-# sin/cos and q_rsqrt on the chain: the locked phase update's 12 and the
-# lock signal's 6 (two multiplies, two adds, the threshold's compare and
-# the gain select), sin/cos and q_rsqrt not counted, so a lower bound.
-# Each at CHAIN_CYCLES_F64, the latency of a dependent FP64 add, multiply
-# or fused multiply-add: 8 cycles, as microbenchmarks measured it on
-# Volta (Jia et al., 2018); assumed for Hopper, not measured here.
-CHAIN_CYCLES_F64 = 8
-PLL_F64_CHAIN_OPS = PLL_CHAIN_OPS + 6
+# sin/cos and q_rsqrt on the chain: those 12 and the lock signal's 6 (two
+# multiplies, two adds, the threshold's compare and the gain select),
+# sin/cos and q_rsqrt not counted.  Each at the latency of a dependent
+# FP64 operation that phase_fp64_latency measures on the card
+# (chain_cycles_f64(): the least of a double add's, multiply's and
+# compare-select's, so a lower bound).
+PLL_F64_SERIAL_CHAIN_OPS = PLL_CHAIN_OPS + 6
+# cycles a step of each dependent double operation's chain, as measured by
+# phase_fp64_latency (csrc/fp64_latency.cu's kinds, in order)
+FP64_LATENCY_KINDS = ("add", "mul", "fma", "select", "sin", "cos",
+                      "sincos")
+FP64_CYCLES = {}
+
+
+def chain_cycles_f64() -> float:
+    """The latency the float64 chain bounds count for each dependent
+    operation: the least of the measured add, multiply and compare-select
+    latencies (phase_fp64_latency must have run)."""
+    return min(FP64_CYCLES[k] for k in ("add", "mul", "select"))
 
 
 def max_sm_clock_hz() -> float:
@@ -336,7 +367,7 @@ def max_sm_clock_hz() -> float:
 
 
 def chain_bound_ms(steps: int, ops_per_step: float,
-                   cycles: int = CHAIN_CYCLES) -> float:
+                   cycles: float = CHAIN_CYCLES) -> float:
     """Least time of `steps` steps of a loop-carried chain of
     `ops_per_step` dependent operations of `cycles` cycles each, at the
     card's maximum SM clock."""
@@ -851,9 +882,9 @@ def payload_check(mode_name: str, got, want, lead_in,
 
 def phase_cli_path(mode_name: str, workdir: str, wav: str, want, lead_in):
     """The pass through the port's CLI on the card, ``demod_poes --fast``
-    or ``demod_argos --fast`` (the fused branch, on time generation).
-    Returns the output file, the wall seconds, the kernels' launches and
-    the (timestamp, payload) lines written."""
+    or ``demod_argos --fast`` (the scan branch, use_pallas=False, as the
+    JAX CLI runs it).  Returns the output file, the wall seconds, the
+    kernels' launches and the (timestamp, payload) lines written."""
     import torch
     from project_desert_tortoise_tpu_torch.apps import demod_argos, demod_poes
     from project_desert_tortoise_tpu_torch.utils.output import (
@@ -872,12 +903,12 @@ def phase_cli_path(mode_name: str, workdir: str, wav: str, want, lead_in):
         raise AssertionError("demod_argos.main returned without an exit code")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    rc, counts = drive("fused", cli)
+    rc, counts = drive(False, cli)
     wall = time.time() - t0
     if rc != 0:
         raise AssertionError(f"the {mode_name} CLI exited {rc}")
     lines = [(f"{t:.5f}", bytes(b)) for t, _, b in parse_frames_file(out)]
-    emit("main_path", mode=mode_name, use_pallas="fused", entry="cli",
+    emit("main_path", mode=mode_name, use_pallas=False, entry="cli",
          launches=counts, wall_s=wall,
          peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
          card=card_line(),
@@ -885,17 +916,20 @@ def phase_cli_path(mode_name: str, workdir: str, wav: str, want, lead_in):
     return out, wall, counts, lines
 
 
-def phase_branch_path(mode_name: str, wav: str, br, want, lead_in,
-                      fused_lines):
+def phase_branch_path(mode_name: str, workdir: str, wav: str, br, want,
+                      lead_in, cli_lines):
     """The pass through ``demodulate_blocked(use_pallas=br)`` on the card
     with the default plan, from the WAV: the payloads, the branch's
     kernels launched, wall seconds, peak device memory (and above what was
     held before, per lane-sample of the blocks), and how many frames match
-    the fused path's in payload and timestamp."""
+    the CLI's (the scan branch's) in payload and timestamp.  Returns the
+    launches, the wall seconds and the frames written as the CLI writes
+    them."""
     import torch
     from project_desert_tortoise_tpu_torch.parallel.blocked import (
         default_plan, demodulate_blocked)
     from project_desert_tortoise_tpu_torch.utils import wav as W
+    from project_desert_tortoise_tpu_torch.utils.output import FrameWriter
 
     mode, _ = modes()[mode_name]
     torch.cuda.reset_peak_memory_stats()
@@ -911,19 +945,22 @@ def phase_branch_path(mode_name: str, wav: str, br, want, lead_in,
                                   device="cuda")
     got, counts = drive(br, run)
     wall = time.time() - t0
-    fused = set(fused_lines)
-    same = sum((f"{f.time:.5f}", bytes(f.data)) in fused for f in got)
+    cli = set(cli_lines)
+    same = sum((f"{f.time:.5f}", bytes(f.data)) in cli for f in got)
     peak = torch.cuda.max_memory_allocated()
     # what the branch allocated at its peak, per (lane, sample) of the
     # plan's blocks: what parallel/blocked.py's _LANE_SAMPLE_BYTES budgets
     emit("main_path", mode=mode_name, use_pallas=br, launches=counts,
          wall_s=wall, peak_device_gib=peak / 2**30,
          peak_bytes_a_lane_sample=(peak - held) / lane_samples[0],
-         frames_as_fused=same, fused_frames=len(fused_lines),
+         frames_as_cli=same, cli_frames=len(cli_lines),
          card=card_line(),
          **payload_check(mode_name, [bytes(f.data) for f in got], want,
                          lead_in))
-    return counts
+    path = os.path.join(workdir, f"{mode_name}_{br}.txt")
+    with FrameWriter(path, inverted_mark=mode.framer.inverted_mark) as w:
+        w.write_all(got)
+    return counts, wall, path
 
 
 def timed(stages: dict, name: str, fn):
@@ -939,10 +976,11 @@ def timed(stages: dict, name: str, fn):
 def phase_stages(mode_name: str, wav: str, workdir: str, cli_wall: float,
                  reps: int = 2):
     """Where the CLI path's time goes: the steps of ``--fast``
-    (parallel/blocked.py::demodulate_blocked and the frame writer) once
-    more, one by one, on the host clock with a device synchronise after
-    each.  Returns the last run's staged blocks and state for the kernel
-    phases, and the extended time axis."""
+    (parallel/blocked.py::demodulate_blocked on its default branch,
+    use_pallas=False, and the frame writer) once more, one by one, on the
+    host clock with a device synchronise after each.  Returns the last
+    run's staged blocks and state for the kernel phases, and the extended
+    time axis."""
     import torch
     from project_desert_tortoise_tpu_torch import chain
     from project_desert_tortoise_tpu_torch.ops import agc
@@ -980,7 +1018,8 @@ def phase_stages(mode_name: str, wav: str, workdir: str, cli_wall: float,
         fest = timed(st, "carrier_est", lambda: blocked.coarse_carrier_est(
             zre, zim, fs, mode.gardner.baud / 2.0))
         stitched = timed(st, "demod_frames", lambda: blocked.demod_frames(
-            params, plan, mode.framer, fs, zre, zim, lo, n, fest, norm))
+            params, plan, mode.framer, fs, zre, zim, lo, n, fest, norm,
+            use_pallas=False))
         frames = timed(st, "fetch",
                        lambda: blocked._fetch_frames(stitched, t_ext))
 
@@ -989,18 +1028,19 @@ def phase_stages(mode_name: str, wav: str, workdir: str, cli_wall: float,
                              inverted_mark=mode.framer.inverted_mark) as w:
                 w.write_all(frames)
         timed(st, "write", write)
-        emit("stages", mode=mode_name, use_pallas="fused", rep=rep,
+        emit("stages", mode=mode_name, use_pallas=False, rep=rep,
              frames=len(frames), B=int(zre.shape[0]), L=int(zre.shape[1]),
              total_s=sum(st.values()), cli_wall_s=cli_wall, card=card_line(),
              **{k + "_s": v for k, v in st.items()})
     return (params, plan, fs, n, norm, zre, zim, lo, fest), t_ext
 
 
-def phase_plane_lines(mode_name: str, staged, t_ext, cli_out: str,
+def phase_plane_lines(mode_name: str, staged, t_ext, fused_out: str,
                       workdir: str):
-    """The fused path on the staged position plane (what the CLI ran
-    before time generation) on the same blocks: its frames, written as
-    the CLI writes them, must equal the CLI's file line for line."""
+    """The fused path on the staged position plane (what the fused branch
+    ran before time generation) on the same blocks: its frames, written as
+    the CLI writes them, must equal the fused branch's file (time
+    generation) line for line."""
     import torch
     from project_desert_tortoise_tpu_torch.ops import framer
     from project_desert_tortoise_tpu_torch.parallel import blocked
@@ -1011,7 +1051,8 @@ def phase_plane_lines(mode_name: str, staged, t_ext, cli_out: str,
     pos = blocked.sample_positions(lo, n, plan.total,
                                    1 if params.interp > 1 else 0)
     bits_c, pos_c, n_bits, _ = blocked.demod_blocks(
-        params, plan.total, zre, zim, fs, pos, fest, norm)
+        params, plan.total, zre, zim, fs, pos, fest, norm,
+        use_pallas="fused")
     fb = framer.frame_extract(bits_c, pos_c, n_bits, mode.framer,
                               plan.max_frames)
     fb = fb._replace(times=fb.times.to(torch.float64) + lo[:, None])
@@ -1023,15 +1064,15 @@ def phase_plane_lines(mode_name: str, staged, t_ext, cli_out: str,
     path = os.path.join(workdir, f"{mode_name}_plane.txt")
     with FrameWriter(path, inverted_mark=mode.framer.inverted_mark) as w:
         w.write_all(frames)
-    with open(cli_out) as f:
-        cli = f.read().splitlines()
+    with open(fused_out) as f:
+        gen = f.read().splitlines()
     with open(path) as f:
         plane = f.read().splitlines()
-    differ = sum(a != b for a, b in zip(cli, plane))
-    if len(cli) != len(plane) or differ:
-        raise AssertionError(f"time generation wrote {len(cli)} lines, the "
+    differ = sum(a != b for a, b in zip(gen, plane))
+    if len(gen) != len(plane) or differ:
+        raise AssertionError(f"time generation wrote {len(gen)} lines, the "
                              f"staged plane {len(plane)}; {differ} differ")
-    emit("tgen_vs_plane_lines", mode=mode_name, cli_lines=len(cli),
+    emit("tgen_vs_plane_lines", mode=mode_name, fused_lines=len(gen),
          plane_lines=len(plane), identical=True)
 
 
@@ -1056,7 +1097,7 @@ def plane_agreement(gen, plane, pos, n_tg: int) -> dict:
                 samples_outside=int((~valid).sum()))
 
 
-def phase_fused_at_main_shape(mode_name: str, staged, cli_wall: float,
+def phase_fused_at_main_shape(mode_name: str, staged, fused_wall: float,
                               stats: dict) -> None:
     """The fused kernel on the blocks the pass stages: timed (CUDA events)
     with time generation (the path's mode) and with the staged position
@@ -1090,7 +1131,8 @@ def phase_fused_at_main_shape(mode_name: str, staged, cli_wall: float,
     agree = plane_agreement(k_gen, k_plane, pos, geometry(params).n_tg)
     emit("main_path_kernel", mode=mode_name, kernel="fused_demod", B=B, L=L,
          time_generation_ms=ms_gen, staged_plane_ms=ms_plane,
-         kernel_share_of_cli_wall=ms_gen / 1e3 / cli_wall, card=card_line(),
+         kernel_share_of_fused_wall=ms_gen / 1e3 / fused_wall,
+         card=card_line(),
          **agree)
 
     if float(pad0.max()) <= 0:
@@ -1697,29 +1739,67 @@ def phase_exact_kernels(stats: dict):
         ms=ms, serial_ms=ms_old, shape=[1, cap])
 
 
-ARGOS_EXACT_CHECK_L = (2400, 1234)   # the argos chunk, a short final one
+ARGOS_EXACT_CHECK_L = (2400, 1680, 1234)   # the argos chunk, the pass's
+                                           # final one, a short one
+FP64_LATENCY_STEPS = {"sin": 2048, "cos": 2048, "sincos": 2048}
+
+
+def phase_fp64_latency():
+    """The latency of dependent double operations on the card
+    (csrc/fp64_latency.cu): one thread runs a chain of 16,384 steps of one
+    kind (2,048 of sin, cos and the sin/cos pair, each with an add), the
+    clock64() cycles over the steps, the least of three runs, into
+    FP64_CYCLES.  The float64 chain bounds count chain_cycles_f64(), the
+    least of the add, multiply and compare-select latencies."""
+    import torch
+    from project_desert_tortoise_tpu_torch.ops.kernels.common import launch
+
+    dev = torch.device("cuda")
+    inp = torch.tensor([0.5, 1.0000001, 0.25], dtype=torch.float64,
+                       device=dev)
+    out = torch.zeros(1, dtype=torch.float64, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    for kind, name in enumerate(FP64_LATENCY_KINDS):
+        steps = FP64_LATENCY_STEPS.get(name, 16384)
+        runs = []
+        for _ in range(3):
+            launch(dev, "pdt_fp64_latency", kind, inp.data_ptr(),
+                   out.data_ptr(), cycles.data_ptr(), steps)
+            torch.cuda.synchronize()
+            runs.append(int(cycles[0]) / steps)
+        FP64_CYCLES[name] = min(runs)
+    emit("fp64_latency", cycles_a_step=dict(FP64_CYCLES),
+         chain_cycles_f64=chain_cycles_f64(), card=card_line())
 
 
 def phase_argos_exact_kernels(stats: dict):
     """The float64 argos exact chain's three kernels at one lane against
     their plain versions on the card, bit for bit (max abs error 0): from
     an unlocked start where the first packet's signal begins (the
-    acquisition sweep), over a 2,400-sample chunk and a short final chunk
-    of 1,234: pll_scan_f64, agc_scan_f64 on its filtered output, and
-    gardner_manchester_scan_f64 on the squelched AGC output, as the quirks
-    image (over the previous chunk's image, the mid-bit pointer carried
-    stale inside the image, past the valid length, past the image and
-    negative) and as the chunk-invariant image (16 carried samples, then
-    the chunk); ms by CUDA events.  One `design` line: the three kernels'
-    ms at the 2,400-sample chunk and their chain bounds (computed from
-    counted operations and an assumed latency, not measured)."""
+    acquisition sweep; the lane locks inside a 256-sample chunk of the
+    decoupled PLL), over a 2,400-sample chunk, the pass's final chunk of
+    1,680 and a short one of 1,234: pll_scan_f64 (also from a locked
+    start, the state after the first chunk), agc_scan_f64 on its filtered
+    output, and gardner_manchester_scan_f64 on the squelched AGC output,
+    as the quirks image (over the previous chunk's image, the mid-bit
+    pointer carried stale inside the image, past the valid length, past
+    the image and negative; also on a forced small ring) and as the
+    chunk-invariant image (16 carried samples, then the chunk); ms by CUDA
+    events.  pll_scan_f64 and gardner_manchester_scan_f64 are also held to
+    their serial twins (pll_scan_f64_serial,
+    gardner_manchester_scan_f64_serial) and timed beside them in this run
+    (`whole_chunk_vs_serial` lines).  One `design` line: the launch
+    configurations the card reports, the kernels' and twins' ms at the
+    2,400-sample chunk, their chain bounds (computed from counted
+    operations at the latency phase_fp64_latency measured) and the share
+    of the serial PLL's cycles a sample that its data arm's sin/cos pair
+    takes."""
     import torch
     from project_desert_tortoise_tpu_torch import chain
     from project_desert_tortoise_tpu_torch.ops import agc, fir, pll
     from project_desert_tortoise_tpu_torch.ops import manchester as man
+    from project_desert_tortoise_tpu_torch.ops.kernels import pll_kernel as pk
     from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
-    from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
-        pll_scan_kernel)
     from project_desert_tortoise_tpu_torch.utils import synth
     from project_desert_tortoise_tpu_torch.utils.config import ARGOS
 
@@ -1739,24 +1819,45 @@ def phase_argos_exact_kernels(stats: dict):
     msyms = chain.max_symbols(cap, params.step_size)
     m0 = man.manchester_init((1,), device=dev)
     istate = (m0.clockmod, m0.evenodd + 1)
+    z_at = lambda a, L: tuple(
+        torch.from_numpy(np.ascontiguousarray(v[a:a + L])[None]).to(dev)
+        for v in (iq.real, iq.imag))
 
     def front(a, L):
         """The chunk iq[a:a+L] from the cold state: (pll args, agc args,
         squelched AGC output)."""
-        z = tuple(torch.from_numpy(np.ascontiguousarray(v[a:a + L])[None])
-                  .to(dev) for v in (iq.real, iq.imag))
-        _, soft, lock = pll_scan_kernel(params.pll, cold, z)
+        z = z_at(a, L)
+        _, soft, lock = pk.pll_scan_kernel(params.pll, cold, z)
         x = fir.fir_interp(soft, params.taps, params.interp)
         _, y = sk.agc_scan(gain, x, ap)
         return z, x, agc.squelch(y, lock, params.squelch_threshold)
+
+    def vs_serial(name, case, new, old, shape):
+        """new against its serial twin old: bit-exact, both timed."""
+        ms, ms_old, got, want = old_new_ms(new, old)
+        check_equal(got, want, f"{name} vs serial ({case})")
+        emit("whole_chunk_vs_serial", kernel=name, case=case, shape=shape,
+             bit_exact=True, ms=ms, serial_ms=ms_old, speedup=ms_old / ms,
+             card=card_line())
+        return ms, ms_old
     _, _, prev = front(start - cap, cap)  # the previous chunk's image
-    times = {}
+    warm, _, lock = pll.pll_scan_ref(params.pll, cold, *z_at(start, cap))
+    locks_at = int(torch.nonzero(lock[0] > params.pll.lock_threshold)[0])
+    times, serial = {}, {}
     for L in ARGOS_EXACT_CHECK_L:
         z, x, y = front(start, L)
-        times["pll_scan_f64", L] = time_pair(
-            "pll_scan_f64", f"argos exact chain, 1 lane, unlocked start, "
-            f"{L} samples", lambda: pll_scan_kernel(params.pll, cold, z),
-            lambda: pll.pll_scan_ref(params.pll, cold, *z), [1, L], stats)
+        starts = (("unlocked start", cold, z),
+                  ("locked start", warm, z_at(start + cap, L)))
+        for case, st0, zs in starts[:2 if L == cap else 1]:
+            times["pll_scan_f64", L, case] = time_pair(
+                "pll_scan_f64", f"argos exact chain, 1 lane, {case}, "
+                f"{L} samples",
+                lambda: pk.pll_scan_kernel(params.pll, st0, zs),
+                lambda: pll.pll_scan_ref(params.pll, st0, *zs), [1, L], stats)
+            serial["pll_scan_f64", L, case] = vs_serial(
+                "pll_scan_f64", f"{case}, {L} samples",
+                lambda: pk.pll_scan_f64(params.pll, st0, zs),
+                lambda: pk.pll_scan_f64_serial(params.pll, st0, zs), [1, L])
         times["agc_scan_f64", L] = time_pair(
             "agc_scan_f64", f"argos exact chain, 1 lane, {L} samples",
             lambda: sk.agc_scan(gain, x, ap),
@@ -1787,22 +1888,58 @@ def phase_argos_exact_kernels(stats: dict):
                 lambda: sk.gardner_manchester_scan(*args),
                 lambda: sk.gardner_manchester_scan_ref(*args),
                 [1, img[0].shape[1]], stats)
+            serial["gardner_manchester_scan_f64", L, case] = vs_serial(
+                "gardner_manchester_scan_f64", f"{L} samples, {case}",
+                lambda: sk.gardner_manchester_scan_f64(*args),
+                lambda: sk.gardner_manchester_scan_f64_serial(*args),
+                [1, img[0].shape[1]])
+            check_equal(sk.gardner_manchester_scan_f64(
+                *args, ring_floats=SMALL_RING_F64),
+                sk.gardner_manchester_scan_f64_serial(*args),
+                f"gardner_manchester_scan_f64, small ring ({L}, {case})")
     L = ARGOS.chunk_size
+    clock = max_sm_clock_hz()
+    pll_ms, pll_serial_ms = serial["pll_scan_f64", L, "locked start"]
+    gm_case = (L, "quirks, stale inside the image")
+    gm_ms, gm_serial_ms = serial[("gardner_manchester_scan_f64",) + gm_case]
+    serial_cycles = pll_serial_ms * 1e-3 / L * clock
+    sincos = FP64_CYCLES["sincos"] - FP64_CYCLES["add"]
+    cycles = chain_cycles_f64()
+    chains = {
+        "pll_scan_f64 (stage A, locked)": chain_bound_ms(
+            L, PLL_CHAIN_OPS, cycles),
+        "pll_scan_f64_serial (without sin/cos, q_rsqrt)": chain_bound_ms(
+            L, PLL_F64_SERIAL_CHAIN_OPS, cycles),
+        "agc_scan_f64": chain_bound_ms(L * params.interp, AGC_CHAIN_OPS,
+                                       cycles),
+        "gardner_manchester_scan_f64": chain_bound_ms(
+            msyms, GM_SLOT_CHAIN_OPS, cycles)}
     emit("design", mode="argos exact chain (float64)", card=card_line(),
-         chain_cycles_f64=CHAIN_CYCLES_F64, ms={
-             "pll_scan_f64": times["pll_scan_f64", L][0],
+         chain_cycles_f64=cycles, fp64_cycles_a_step=dict(FP64_CYCLES),
+         pll_scan_f64=dict(pk.launch_config(dtype=f64), shape=[1, L],
+                           ms_locked=pll_ms,
+                           ms_unlocked=serial["pll_scan_f64", L,
+                                              "unlocked start"][0],
+                           cold_start_locks_at_sample=locks_at),
+         gardner_manchester_scan_f64=dict(
+             sk.gardner_scan_launch_config(1, cap, dtype=f64),
+             shape=[1, cap], ms=gm_ms, max_syms=msyms,
+             small_ring=sk.gardner_scan_launch_config(
+                 1, cap, SMALL_RING_F64, dtype=f64)),
+         ms={"pll_scan_f64": pll_ms, "pll_scan_f64_serial": pll_serial_ms,
              "agc_scan_f64": times["agc_scan_f64", L][0],
-             "gardner_manchester_scan_f64": times[
-                 "gardner_manchester_scan_f64", L,
-                 "quirks, stale inside the image"][0]},
-         chain_bound_ms={
-             "pll_scan_f64 (lower bound)": chain_bound_ms(
-                 L, PLL_F64_CHAIN_OPS, CHAIN_CYCLES_F64),
-             "agc_scan_f64": chain_bound_ms(L * params.interp,
-                                            AGC_CHAIN_OPS, CHAIN_CYCLES_F64),
-             "gardner_manchester_scan_f64": chain_bound_ms(
-                 msyms, GM_SLOT_CHAIN_OPS, CHAIN_CYCLES_F64)},
-         max_syms=msyms)
+             "gardner_manchester_scan_f64": gm_ms,
+             "gardner_manchester_scan_f64_serial": gm_serial_ms},
+         chain_bound_ms=chains,
+         serial_pll_cycles_a_sample=serial_cycles,
+         sincos_cycles=sincos, sincos_share_of_serial_sample=(
+             sincos / serial_cycles))
+    stats["pll_scan_f64_serial"] = dict(
+        ms=pll_serial_ms, shape=[1, L], redesigned_ms=pll_ms,
+        max_abs_err=0.0)
+    stats["gardner_manchester_scan_f64_serial"] = dict(
+        ms=gm_serial_ms, shape=[1, cap], redesigned_ms=gm_ms,
+        max_abs_err=0.0)
 
 
 # the files the telemetry explorer writes for the POES pass's frames: how
@@ -2182,7 +2319,7 @@ def phase_exact_cli(mode_name: str, workdir: str, wav: str, want, lead_in,
             stats[k]["exact"].update(row)
     kernels_s = sum(event_s.values())
     split["other"] = wall - sum(split.values())
-    cycles = CHAIN_CYCLES_F64 if argos else CHAIN_CYCLES
+    cycles = chain_cycles_f64() if argos else CHAIN_CYCLES
     emit("argos_exact_cli" if argos else "exact_cli", wall_s=wall,
          launches={k: counts[k] for k in PATH_KERNELS[path]},
          split_s=dict(split), kernel_event_s=event_s,
@@ -2193,9 +2330,11 @@ def phase_exact_cli(mode_name: str, workdir: str, wav: str, want, lead_in,
          samples=n_samples, symbols=n_syms, bits=n_bits,
          symbol_slots_a_launch=slots,
          # the Gardner scan's next-sample chain, 17 counted operations a
-         # slot (computed, not measured; float64: at an assumed latency)
+         # slot (computed, not measured; float64: at the measured latency)
          gardner_manchester_scan_chain_bound_ms=chain_bound_ms(
              slots, GM_SLOT_CHAIN_OPS, cycles),
+         **({"pll_scan_f64_chain_bound_ms": chain_bound_ms(
+             mode.chunk_size, PLL_CHAIN_OPS, cycles)} if argos else {}),
          framer_bits_per_s=n_bits / split["framer"] if split["framer"]
          else None,
          progress_line=progress, stdout_tail=so.getvalue()[-200:],
@@ -3070,11 +3209,12 @@ def drive_all(exact_cpu, slice_cpu) -> int:
     phase_new_kernels(stats["poes"])
     phase_exact_kernels(stats["poes"])
     phase_argos_kernels(stats["argos"])
+    phase_fp64_latency()
     phase_argos_exact_kernels(stats["argos"])
     phase_exact_small(exact_cpu.result())
     launches = {"poes": collections.Counter(), "argos": collections.Counter()}
     staged = {}
-    walls = {}
+    walls, fused_walls = {}, {}
     with tempfile.TemporaryDirectory() as workdir:
         for mode_name in ("poes", "argos"):
             wav, want, lead_in = synth_pass(mode_name, workdir)
@@ -3086,14 +3226,17 @@ def drive_all(exact_cpu, slice_cpu) -> int:
                 stats[mode_name]))
             if mode_name == "poes":
                 phase_products(workdir, out)
-            for br in ("front", False):
-                launches[mode_name].update(phase_branch_path(
-                    mode_name, wav, br, want, lead_in, lines))
+            for br in ("fused", "front"):
+                counts, wall, br_out = phase_branch_path(
+                    mode_name, workdir, wav, br, want, lead_in, lines)
+                launches[mode_name].update(counts)
+                if br == "fused":
+                    fused_out, fused_walls[mode_name] = br_out, wall
             staged[mode_name], t_ext = phase_stages(mode_name, wav, workdir,
                                                     walls[mode_name])
             if mode_name == "poes":
-                phase_plane_lines(mode_name, staged[mode_name], t_ext, out,
-                                  workdir)
+                phase_plane_lines(mode_name, staged[mode_name], t_ext,
+                                  fused_out, workdir)
                 phase_exact_fallback(staged[mode_name], stats["poes"])
             os.remove(wav)
     with tempfile.TemporaryDirectory() as workdir:
@@ -3110,7 +3253,7 @@ def drive_all(exact_cpu, slice_cpu) -> int:
     for mode_name in ("poes", "argos"):
         st = stats[mode_name]
         phase_fused_at_main_shape(mode_name, staged[mode_name],
-                                  walls[mode_name], st)
+                                  fused_walls[mode_name], st)
         phase_new_kernels_at_main_shape(mode_name, staged[mode_name], st)
         phase_decoupled_at_main_shape(mode_name, staged[mode_name], st)
         phase_scan_at_main_shape(mode_name, staged[mode_name], st)
@@ -3123,7 +3266,8 @@ def drive_all(exact_cpu, slice_cpu) -> int:
     # the serial twins compute the same function as the redesigned kernels:
     # the same bound and plain version
     for mode_name, st in stats.items():
-        exact = ("gardner_manchester_scan",) if mode_name == "poes" else ()
+        exact = (("gardner_manchester_scan",) if mode_name == "poes" else
+                 ("pll_scan_f64", "gardner_manchester_scan_f64"))
         for k in ("fused_demod", "pll_fir_agc", "pll_scan", "agc_scan",
                   "gardner_manchester", *exact):
             for f in ("bound_ms", "bound_by", "plain_ms", "plain_shape"):

@@ -4,6 +4,7 @@
 two or more checkouts of the repository timed in turns on one card.
 
     python3 cli_walls.py ROOT [ROOT ...] [--pairs N] [--scan-branch]
+                         [--exact] [--modes poes argos]
 
 Each ROOT is a checkout.  One worker process a root imports that root's
 ``project_desert_tortoise_tpu_torch`` and runs the CLI on request; each
@@ -14,7 +15,10 @@ both alike.  A run is timed from WAV load to written file, as
 ``chip_smoke.py``'s ``main_path`` lines are.  ``--scan-branch`` times
 ``demodulate_blocked(use_pallas=False)`` instead (the scan branch of
 ``demod_blocks``, what the JAX package's ``--fast`` runs), from WAV load
-to the frame list, as that branch's ``main_path`` lines are.  Beside each
+to the frame list, as that branch's ``main_path`` lines are.  ``--exact``
+times the CLIs without ``--fast`` (the exact chain; for ARGOS the float64
+``argos`` mode), as ``chip_smoke.py``'s ``exact_cli`` and
+``argos_exact_cli`` lines are; ``--modes`` picks the passes.  Beside each
 wall the worker reports what its process did in that time: CPU seconds
 (user and system), major page faults (reads that waited on the disk) and
 involuntary context switches (time the process was ready but another had
@@ -39,9 +43,10 @@ import tempfile
 
 from chip_smoke import card_line, synth_pass
 
-# a worker: argv[1] is its root; each stdin line "mode wav out scan" runs
-# that CLI (scan 0) or demodulate_blocked on the scan branch (scan 1) once
-# and answers one JSON line on stdout (the CLI's own prints go to a buffer)
+# a worker: argv[1] is its root; each stdin line "mode wav out kind" runs
+# that CLI with --fast (kind "fast"), without it (kind "exact") or
+# demodulate_blocked on the scan branch (kind "scan") once and answers one
+# JSON line on stdout (the CLI's own prints go to a buffer)
 _WORKER = r"""
 import contextlib, io, json, resource, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -51,8 +56,8 @@ from project_desert_tortoise_tpu_torch.parallel.blocked import (
 from project_desert_tortoise_tpu_torch.utils import wav as W
 from project_desert_tortoise_tpu_torch.utils.config import ARGOS, POES_TIP
 
-def cli(mode, wav, out):
-    argv = [wav, "--fast", "--out", out]
+def cli(mode, wav, out, fast=True):
+    argv = [wav, *(["--fast"] if fast else []), "--out", out]
     if mode == "poes":
         return demod_poes.run(argv)
     try:
@@ -70,11 +75,13 @@ def scan_branch(mode, wav):
 
 reply = sys.stdout
 for line in sys.stdin:
-    mode, wav, out, scan = line.split()
+    mode, wav, out, kind = line.split()
     r0 = resource.getrusage(resource.RUSAGE_SELF)
     t0 = time.time()
-    with contextlib.redirect_stdout(io.StringIO()):
-        rc = scan_branch(mode, wav) if scan == "1" else cli(mode, wav, out)
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = (scan_branch(mode, wav) if kind == "scan"
+              else cli(mode, wav, out, fast=kind == "fast"))
     wall = time.time() - t0
     r1 = resource.getrusage(resource.RUSAGE_SELF)
     print(json.dumps({
@@ -96,8 +103,8 @@ class Worker:
             [sys.executable, "-c", _WORKER, self.root], text=True,
             stdin=subprocess.PIPE, stdout=subprocess.PIPE)
 
-    def run(self, mode: str, wav: str, out: str, scan: bool) -> dict:
-        self.proc.stdin.write(f"{mode} {wav} {out} {int(scan)}\n")
+    def run(self, mode: str, wav: str, out: str, kind: str) -> dict:
+        self.proc.stdin.write(f"{mode} {wav} {out} {kind}\n")
         self.proc.stdin.flush()
         line = self.proc.stdout.readline()
         if not line:
@@ -131,23 +138,28 @@ def main(argv=None) -> int:
     ap.add_argument("--scan-branch", action="store_true",
                     help="demodulate_blocked(use_pallas=False) in place of "
                     "the CLIs")
+    ap.add_argument("--exact", action="store_true",
+                    help="the CLIs without --fast (the exact chain)")
+    ap.add_argument("--modes", nargs="+", choices=("poes", "argos"),
+                    default=["poes", "argos"], help="the passes to time")
     args = ap.parse_args(argv)
+    kind = "scan" if args.scan_branch else "exact" if args.exact else "fast"
     order = (args.roots + args.roots[::-1]) * args.pairs
     walls = {}
     workers = {root: Worker(root) for root in args.roots}
     try:
         with tempfile.TemporaryDirectory() as workdir:
-            for mode in ("poes", "argos"):
+            for mode in args.modes:
                 wav = synth_pass(mode, workdir)[0]
                 out = os.path.join(workdir, "out.txt")
                 for w in workers.values():
-                    w.run(mode, wav, out, args.scan_branch)   # warm-up
+                    w.run(mode, wav, out, kind)   # warm-up
                 for turn, root in enumerate(order):
-                    r = workers[root].run(mode, wav, out, args.scan_branch)
+                    r = workers[root].run(mode, wav, out, kind)
                     walls.setdefault((mode, root), []).append(r["wall_s"])
                     print(json.dumps({"mode": mode, "root": root,
-                                      "scan_branch": args.scan_branch,
-                                      "turn": turn, **r}), flush=True)
+                                      "kind": kind, "turn": turn, **r}),
+                          flush=True)
                 os.remove(wav)
     finally:
         for w in workers.values():
@@ -155,7 +167,7 @@ def main(argv=None) -> int:
     for (mode, root), w in walls.items():
         print(json.dumps({"mode": mode, "root": root, **summary(w)}))
     if len(args.roots) == 2:
-        for mode in ("poes", "argos"):
+        for mode in args.modes:
             a, b = (walls[mode, root] for root in args.roots)
             print(json.dumps({"mode": mode, "pairs": len(a),
                               "second_won": sum(y < x for x, y in zip(a, b)),

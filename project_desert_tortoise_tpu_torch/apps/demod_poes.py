@@ -7,7 +7,9 @@ Without ``--fast`` it runs the exact chunked chain
 (``models/demodulator.py::DemodSession``) in the mode's dtype, with its
 options ``-r``, ``-c``, ``--no-quirks`` and ``--timebase`` and the
 reference's stderr progress line; ``--fast`` runs the block-parallel path
-on the fused kernel.  ``--products DIR`` then runs the telemetry explorer
+on its scan branch (``demodulate_blocked``'s default ``use_pallas=False``,
+the branch the JAX CLI's ``--fast`` runs: the PLL, AGC and windowed
+Gardner/Manchester kernels).  ``--products DIR`` then runs the telemetry explorer
 (``apps/telemetry_explorer.py``) on the frames file, after either path.
 ``apps/demod_argos.py`` runs the same with the ARGOS modes.  Refused (exit
 2, with a message): the exact chain's options together with ``--fast``.
@@ -39,7 +41,7 @@ def build_parser(prog: str, default_mode: str) -> argparse.ArgumentParser:
     p.add_argument("-c", dest="chunk_size", type=int, default=0)
     p.add_argument("--out", default=None)
     p.add_argument("--fast", action="store_true",
-                   help="block-parallel path on the fused kernel "
+                   help="block-parallel path on the scan branch "
                         "(frame-level parity)")
     p.add_argument("--no-quirks", action="store_true",
                    help="chunk-size-invariant exact mode")

@@ -23,7 +23,10 @@
 // The serial stages run on separate warps, stage s working on chunk u - s
 // at tick u, so a tick of the CTA costs the longest chain, not their sum.
 // Every float32 operation keeps the inputs it has in the plain version, so
-// the result is bit for bit the same.
+// the result is bit for bit the same.  The stages are templates on the
+// stream's scalar type T: float, or double for stages A, B and M of the
+// float64 `argos` mode's PLL (pll_kernel.cu), whose float instances are
+// the code they were before.
 
 #pragma once
 
@@ -52,9 +55,9 @@ struct Schedule {
   }
 };
 
-// Shared memory of the front stages, in floats, one row a sample.  YPAD
-// rows in front of each AGC output buffer are the consumer's carry
-// (fused_demod's on-time ring).
+// Shared memory of the front stages, in elements of the stream's type (a
+// float or a double), one row a sample.  YPAD rows in front of each AGC
+// output buffer are the consumer's carry (fused_demod's on-time ring).
 template <int INTERP, int HIST, int YPAD>
 struct FrontSmem {
   static constexpr int kIn = 0;                        // [2 bufs][re, im]
@@ -80,10 +83,25 @@ struct PllSmem : FrontSmem<1, 1, 0> {
   static constexpr int kEnd = kY;
 };
 
+// The stream's scalar type of an input plane's type: float for float32 and
+// int16 PCM planes, double for float64 ones.
 template <typename T>
-__device__ __forceinline__ float to_sample(T v);
+struct StreamOf {
+  using type = float;
+};
+template <>
+struct StreamOf<double> {
+  using type = double;
+};
+template <typename T>
+using Stream = typename StreamOf<T>::type;
+
+template <typename T>
+__device__ __forceinline__ Stream<T> to_sample(T v);
 template <>
 __device__ __forceinline__ float to_sample<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ double to_sample<double>(double v) { return v; }
 // int16 PCM: exact /32768 (common/wave.c:117)
 template <>
 __device__ __forceinline__ float to_sample<int16_t>(int16_t v) {
@@ -107,7 +125,7 @@ struct ChunkRegs {
       v[r] = i < L ? src[static_cast<size_t>(b) * L + i] : T(0);
     }
   }
-  __device__ __forceinline__ void store(float* dst) const {
+  __device__ __forceinline__ void store(Stream<T>* dst) const {
 #pragma unroll
     for (int r = 0; r < kPer; ++r) {
       dst[threadIdx.x + r * kStageThreads] = to_sample<T>(v[r]);
@@ -117,69 +135,73 @@ struct ChunkRegs {
 
 // Store rows [0, rows) of buf to columns col0.. of row b of the lane-major
 // plane out (B, width): neighbouring threads, neighbouring columns.
-__device__ __forceinline__ void store_rows(float* __restrict__ out,
+template <typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ out,
                                            size_t width, size_t col0,
-                                           const float* buf, int rows,
-                                           int b) {
-  float* dst = out + static_cast<size_t>(b) * width + col0;
+                                           const T* buf, int rows, int b) {
+  T* dst = out + static_cast<size_t>(b) * width + col0;
   for (int r = threadIdx.x; r < rows; r += kStageThreads) dst[r] = buf[r];
 }
 
 // The loop-carried state of a lane's front stages, one part per stage.
-struct FrontLane {
-  PllState pll;          // A (its locksig, avg_phase only until locked)
+template <typename T>
+struct FrontLaneT {
+  PllStateT<T> pll;      // A (its locksig, avg_phase only until locked)
   int unlocked;          // A: steps that ran the whole pll_step
-  float avg, locksig;    // M
-  float gain;            // D
+  T avg, locksig;        // M
+  T gain;                // D
 };
+using FrontLane = FrontLaneT<float>;
 
-// S: the shared-memory layout, FrontSmem or (stages A, B, M alone) PllSmem
+// S: the shared-memory layout, FrontSmem or (stages A, B, M alone) PllSmem;
+// T: the stream's scalar type (P's PLL parameters are PllParamsT<T>)
 template <int INTERP, int HIST, int YPAD, int SQ, typename P,
-          typename S = FrontSmem<INTERP, HIST, YPAD>>
+          typename S = FrontSmem<INTERP, HIST, YPAD>, typename T = float>
 struct Front {
-  float* sm;
+  T* sm;
   const P& p;
 
-  __device__ __forceinline__ float* in(int c, int plane) const {
+  __device__ __forceinline__ T* in(int c, int plane) const {
     return sm + S::kIn + ((c & 1) * 2 + plane) * kChunk;
   }
-  __device__ __forceinline__ float* lock(int c) const {
+  __device__ __forceinline__ T* lock(int c) const {
     return sm + S::kLock + (c & 1) * kChunk;
   }
-  __device__ __forceinline__ float* y(int c) const {
+  __device__ __forceinline__ T* y(int c) const {
     return sm + S::kY + (c % 3) * S::kYRows;
   }
 
   // zeroes the FIR history in front of the first chunk
   __device__ __forceinline__ void init() const {
     for (int m = threadIdx.x; m < HIST - 1; m += kStageThreads) {
-      sm[S::kSoft + m] = 0.0f;
+      sm[S::kSoft + m] = T(0);
     }
   }
 
   // B, part 1: the sample phases of chunk c (n samples), for A
   __device__ __forceinline__ void sample_phases(int c, int n) const {
-    const float* re = in(c, 0);
-    const float* im = in(c, 1);
+    const T* re = in(c, 0);
+    const T* im = in(c, 1);
     for (int k = threadIdx.x; k < n; k += kStageThreads) {
       sm[S::kSp + k] = arctan2_approx(im[k], re[k]);
     }
   }
 
   // A: the phase recurrence over chunk c
-  __device__ __forceinline__ void stage_a(FrontLane& s, int c, int n) const {
-    const float* re = in(c, 0);
-    const float* im = in(c, 1);
-    float* ph = sm + S::kPhase;
+  __device__ __forceinline__ void stage_a(FrontLaneT<T>& s, int c,
+                                          int n) const {
+    const T* re = in(c, 0);
+    const T* im = in(c, 1);
+    T* ph = sm + S::kPhase;
     int k = 0;
     for (; k < n && !s.pll.locked; ++k) {
       ph[k] = s.pll.phase;
-      float lk;
+      T lk;
       pll_step(s.pll, p.pll, re[k], im[k], &lk);
       ++s.unlocked;
     }
-    float phase = s.pll.phase, freq = s.pll.freq;
-    const float* sp = sm + S::kSp;
+    T phase = s.pll.phase, freq = s.pll.freq;
+    const T* sp = sm + S::kSp;
 #pragma unroll 4
     for (; k < n; ++k) {
       ph[k] = phase;
@@ -192,10 +214,11 @@ struct Front {
 
   // B, part 2: pll_terms of chunk c from A's phases
   __device__ __forceinline__ void stage_b(int c, int n) const {
-    const float* re = in(c, 0);
-    const float* im = in(c, 1);
+    const T* re = in(c, 0);
+    const T* im = in(c, 1);
     for (int k = threadIdx.x; k < n; k += kStageThreads) {
-      const PllTerms f = pll_terms(sm[S::kPhase + k], p.pll, re[k], im[k]);
+      const PllTermsT<T> f =
+          pll_terms(sm[S::kPhase + k], p.pll, re[k], im[k]);
       sm[S::kOut + k] = f.out;
       sm[S::kAvgT + k] = f.avg_term;
       sm[S::kLockT + k] = f.lock_term;
@@ -204,24 +227,25 @@ struct Front {
 
   // M: the EMAs over chunk c; the locksig of each sample into lock(c), the
   // (squelched) data arm after the carried FIR history
-  __device__ __forceinline__ void stage_m(FrontLane& s, int c, int n) const {
-    float* soft = sm + S::kSoft;
+  __device__ __forceinline__ void stage_m(FrontLaneT<T>& s, int c,
+                                          int n) const {
+    T* soft = sm + S::kSoft;
     if (c > 0) {   // the previous chunk was whole: carry its last HIST-1
       for (int m = 0; m < HIST - 1; ++m) soft[m] = soft[kChunk + m];
     }
-    const float keep_avg = 1.0f - p.pll.avg_phase_alpha;
-    const float keep_lock = 1.0f - p.pll.lock_alpha;
-    float* lk = lock(c);
-    float avg = s.avg, locksig = s.locksig;
+    const T keep_avg = T(1) - p.pll.avg_phase_alpha;
+    const T keep_lock = T(1) - p.pll.lock_alpha;
+    T* lk = lock(c);
+    T avg = s.avg, locksig = s.locksig;
 #pragma unroll 4
     for (int k = 0; k < n; ++k) {
       avg = avg * keep_avg + sm[S::kAvgT + k];
       locksig = locksig * keep_lock + sm[S::kLockT + k];
       lk[k] = locksig;
-      float v = sm[S::kOut + k];
+      T v = sm[S::kOut + k];
       if constexpr (SQ == kSquelchAfterPll) {
         // |lock|: block relock may settle at the inverted BPSK point
-        v = fabsf(locksig) < p.squelch_thr ? 0.0f : v;
+        v = num::abs(locksig) < p.squelch_thr ? T(0) : v;
       }
       soft[HIST - 1 + k] = v;
     }
@@ -231,15 +255,15 @@ struct Front {
 
   // C: the polyphase FIR outputs of chunk c into y(c), after YPAD rows
   __device__ __forceinline__ void stage_c(int c, int n) const {
-    const float* soft = sm + S::kSoft;
-    float* out = y(c) + YPAD;
+    const T* soft = sm + S::kSoft;
+    T* out = y(c) + YPAD;
     for (int k = threadIdx.x; k < n; k += kStageThreads) {
-      float acc[INTERP];
+      T acc[INTERP];
 #pragma unroll
-      for (int ph = 0; ph < INTERP; ++ph) acc[ph] = 0.0f;
+      for (int ph = 0; ph < INTERP; ++ph) acc[ph] = T(0);
 #pragma unroll
       for (int m = 0; m < HIST; ++m) {
-        const float h = soft[HIST - 1 + k - m];
+        const T h = soft[HIST - 1 + k - m];
 #pragma unroll
         for (int ph = 0; ph < INTERP; ++ph) {
           acc[ph] = acc[ph] + p.poly[ph][m] * h;
@@ -251,19 +275,20 @@ struct Front {
   }
 
   // D: the AGC over chunk c's outputs, in place
-  __device__ __forceinline__ void stage_d(FrontLane& s, int c, int n) const {
-    float* out = y(c) + YPAD;
-    const float* lk = lock(c);
-    float gain = s.gain;
+  __device__ __forceinline__ void stage_d(FrontLaneT<T>& s, int c,
+                                          int n) const {
+    T* out = y(c) + YPAD;
+    const T* lk = lock(c);
+    T gain = s.gain;
 #pragma unroll 4
     for (int k = 0; k < n; ++k) {
 #pragma unroll
       for (int ph = 0; ph < INTERP; ++ph) {
-        float v = agc_step(out[k * INTERP + ph], gain, p.agc_attack,
-                           p.agc_decay, kAgcReference, kAgcMaxGain,
-                           kAgcMinGain);
+        T v = agc_step(out[k * INTERP + ph], gain, p.agc_attack,
+                       p.agc_decay, kAgcReference, kAgcMaxGain,
+                       kAgcMinGain);
         if constexpr (SQ == kSquelchAfterAgc) {
-          v = fabsf(lk[k]) < p.squelch_thr ? 0.0f : v;
+          v = num::abs(lk[k]) < p.squelch_thr ? T(0) : v;
         }
         out[k * INTERP + ph] = v;
       }

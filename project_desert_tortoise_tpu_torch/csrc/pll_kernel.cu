@@ -25,12 +25,19 @@
 // and the same-run timing baseline.
 //
 // pdt_pll_scan_f64 (pll_scan_f64), the float64 `argos` mode's exact chain
-// (JAX runs pll_scan there under x64): the serial kernel instantiated in
-// double, one thread a lane, one lane at a time on that chain.  2,400
-// samples a chunk move 64 KB, nothing at 3.35 TB/s: the bound is the
-// step's chain of dependent double operations (libdevice sin and cos are
-// tens of them each), latency the one lane cannot hide.  A simple kernel:
-// the chain is host-bound (one device-to-host copy and the framer a chunk).
+// (JAX runs pll_scan there under x64): the decoupled kernel instantiated
+// in double, one lane at a time on that chain.  2,400 samples a chunk
+// move 64 KB, nothing at 3.35 TB/s: the bound is the chain of dependent
+// double operations that the one lane cannot hide.  The serial kernel in
+// double kept the data arm's libdevice sin and cos (tens of dependent
+// operations each) and q_rsqrt on that chain through the lock signal;
+// here, once the lane has locked, A's chain is pll_advance's alone and
+// B computes the double sin/cos and the terms across the CTA.  Shared
+// memory: PllSmem in doubles, 24 KB a CTA.  No unlocked counts.
+//
+// pdt_pll_scan_f64_serial (pll_scan_f64_serial), the serial kernel in
+// double: the float64 kernel's card-side oracle and timing baseline, on
+// no path.
 //
 // Numerics as in pdt_common.cuh.  Cold state (acquisition sweep) and warm
 // state (tracking, `locked`) run the same code.
@@ -43,28 +50,33 @@ using namespace pdt;
 
 namespace {
 
-struct PllScanParams {
-  PllParams pll;
+template <typename T>
+struct PllScanParamsT {
+  PllParamsT<T> pll;
 };
 
-using PllFront = Front<1, 1, 0, kSquelchNone, PllScanParams, PllSmem>;
+template <typename T>
+using PllFront =
+    Front<1, 1, 0, kSquelchNone, PllScanParamsT<T>, PllSmem, T>;
 
 // ---------------------------------------------------------------------------
-// The decoupled kernel
+// The decoupled kernel; T = double is pll_scan_f64, the float64 exact
+// chain's
 
+template <typename T>
 __global__ void __launch_bounds__(kStageThreads)
-pll_scan_kernel(const float* __restrict__ zre, const float* __restrict__ zim,
-                const float* __restrict__ st_in, float* __restrict__ out,
-                float* __restrict__ lock_out, float* __restrict__ st_out,
+pll_scan_kernel(const T* __restrict__ zre, const T* __restrict__ zim,
+                const T* __restrict__ st_in, T* __restrict__ out,
+                T* __restrict__ lock_out, T* __restrict__ st_out,
                 int* __restrict__ unlocked, int B, int L,
-                const __grid_constant__ PllScanParams p) {
-  __shared__ float sm[PllSmem::kEnd];
-  const PllFront front{sm, p};
+                const __grid_constant__ PllScanParamsT<T> p) {
+  __shared__ T sm[PllSmem::kEnd];
+  const PllFront<T> front{sm, p};
   const int warp = threadIdx.x / 32;
   const bool serial = threadIdx.x % 32 == 0 && warp < 2;   // stage `warp`
   const int b = blockIdx.x;                               // the CTA's lane
 
-  FrontLane s;
+  FrontLaneT<T> s;
   s.pll = load_pll(st_in, B, b);
   s.unlocked = 0;
   s.avg = s.pll.avg_phase;
@@ -72,7 +84,7 @@ pll_scan_kernel(const float* __restrict__ zre, const float* __restrict__ zim,
 
   const Schedule sch{(L + kChunk - 1) / kChunk, 2};
   auto len = [L](int c) { return min(kChunk, L - c * kChunk); };
-  ChunkRegs<float> rre, rim;
+  ChunkRegs<T> rre, rim;
   rre.load(zre, b, L, 0);
   rim.load(zim, b, L, 0);
   rre.store(front.in(0, 0));
@@ -116,7 +128,7 @@ pll_scan_kernel(const float* __restrict__ zre, const float* __restrict__ zim,
       st_out[b] = s.pll.phase;
       st_out[B + b] = s.pll.freq;
       st_out[4 * B + b] = s.pll.sweep;
-      st_out[5 * B + b] = s.pll.locked ? 1.0f : 0.0f;
+      st_out[5 * B + b] = s.pll.locked ? T(1) : T(0);
       if (unlocked != nullptr) unlocked[b] = s.unlocked;
     } else {
       st_out[2 * B + b] = s.locksig;
@@ -127,7 +139,7 @@ pll_scan_kernel(const float* __restrict__ zre, const float* __restrict__ zim,
 
 // ---------------------------------------------------------------------------
 // The serial kernel: the whole step of a sample in turn, one thread a lane;
-// T = double is pll_scan_f64, the float64 exact chain's
+// T = double is pll_scan_f64_serial
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -170,6 +182,39 @@ int launch_serial(const T* zre, const T* zim, const T* st_in, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the decoupled kernel, one CTA a lane on lane-major planes
+template <typename T>
+int launch_decoupled(const T* zre, const T* zim, const T* st_in, T* out,
+                     T* lock, T* st_out, int* unlocked, int B, int L,
+                     const T* params, int n_params, void* stream) {
+  if (bad_args<T>(n_params, B, L)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PllScanParamsT<T> p;
+  memcpy(&p.pll, params, sizeof(p.pll));
+  pll_scan_kernel<T><<<B, kStageThreads, 0,          // one CTA a lane
+                       static_cast<cudaStream_t>(stream)>>>(
+      zre, zim, st_in, out, lock, st_out, unlocked, B, L, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The decoupled kernel's launch configuration, into out[6]: lanes per
+// CTA, chunk samples, threads a CTA, shared memory bytes a CTA (static),
+// registers a thread, local bytes a thread.  Returns a cudaError_t.
+template <typename T>
+int decoupled_config(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, pll_scan_kernel<T>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = 1;
+  out[1] = kChunk;
+  out[2] = kStageThreads;
+  out[3] = static_cast<int>(a.sharedSizeBytes);
+  out[4] = a.numRegs;
+  out[5] = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
+
 }  // namespace
 
 // Runs the decoupled PLL over lane-major float32 planes zre/zim (B, L).
@@ -181,31 +226,13 @@ extern "C" int pdt_pll_scan(const float* zre, const float* zim,
                             const float* st_in, float* out, float* lock,
                             float* st_out, int* unlocked, int B, int L,
                             const float* params, int n_params, void* stream) {
-  if (bad_args<float>(n_params, B, L)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  PllScanParams p;
-  memcpy(&p.pll, params, sizeof(p.pll));
-  pll_scan_kernel<<<B, kStageThreads, 0,             // one CTA a lane
-                    static_cast<cudaStream_t>(stream)>>>(
-      zre, zim, st_in, out, lock, st_out, unlocked, B, L, p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_decoupled(zre, zim, st_in, out, lock, st_out, unlocked, B,
+                          L, params, n_params, stream);
 }
 
-// The decoupled kernel's launch configuration, into out[6]: lanes per
-// CTA, chunk samples, threads a CTA, shared memory bytes a CTA (static),
-// registers a thread, local bytes a thread.  Returns a cudaError_t.
+// The float32 decoupled kernel's launch configuration (decoupled_config).
 extern "C" int pdt_pll_scan_config(int* out) {
-  cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, pll_scan_kernel);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  out[0] = 1;
-  out[1] = kChunk;
-  out[2] = kStageThreads;
-  out[3] = static_cast<int>(a.sharedSizeBytes);
-  out[4] = a.numRegs;
-  out[5] = static_cast<int>(a.localSizeBytes);
-  return 0;
+  return decoupled_config<float>(out);
 }
 
 // The serial kernel, as pdt_pll_scan but on time-major planes: zre/zim,
@@ -219,14 +246,32 @@ extern "C" int pdt_pll_scan_serial(const float* zre, const float* zim,
                        n_params, stream);
 }
 
-// pll_scan_f64, the float64 exact chain's PLL: the serial kernel in double
-// (time-major planes, a lane's row where B = 1), params the 9 doubles of
-// PllParamsT<double>.
+// pll_scan_f64, the float64 exact chain's PLL: the decoupled kernel in
+// double, as pdt_pll_scan (lane-major planes) without unlocked counts;
+// params the 9 doubles of PllParamsT<double>.
 extern "C" int pdt_pll_scan_f64(const double* zre, const double* zim,
                                 const double* st_in, double* out,
                                 double* lock, double* st_out, int B, int L,
                                 const double* params, int n_params,
                                 void* stream) {
+  return launch_decoupled(zre, zim, st_in, out, lock, st_out,
+                          static_cast<int*>(nullptr), B, L, params,
+                          n_params, stream);
+}
+
+// The float64 decoupled kernel's launch configuration (decoupled_config).
+extern "C" int pdt_pll_scan_f64_config(int* out) {
+  return decoupled_config<double>(out);
+}
+
+// pll_scan_f64_serial: the serial kernel in double, as pdt_pll_scan_serial
+// (time-major planes, a lane's row where B = 1); the float64 decoupled
+// kernel's oracle and timing baseline.
+extern "C" int pdt_pll_scan_f64_serial(const double* zre, const double* zim,
+                                       const double* st_in, double* out,
+                                       double* lock, double* st_out, int B,
+                                       int L, const double* params,
+                                       int n_params, void* stream) {
   return launch_serial(zre, zim, st_in, out, lock, st_out, B, L, params,
                        n_params, stream);
 }

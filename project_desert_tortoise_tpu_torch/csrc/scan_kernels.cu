@@ -79,12 +79,18 @@
 //
 // pdt_agc_scan_f64 and pdt_gardner_scan_f64 (agc_scan_f64,
 // gardner_manchester_scan_f64): the float64 `argos` mode's exact chain,
-// where JAX runs agc_scan and gardner_scan + manchester_scan under x64.
-// They are the serial kernels above instantiated in double, one thread a
-// lane, one lane on that chain.  A chunk is 2,400 doubles (19 KB) and ~70
+// where JAX runs agc_scan and gardner_scan + manchester_scan under x64,
+// one lane on that chain.  A chunk is 2,400 doubles (19 KB) and ~70
 // symbol slots, nothing at 3.35 TB/s: each is bound by its chain of
-// dependent double operations.  Simple kernels on purpose: the chain's
-// wall is the PLL's and the host's.
+// dependent double operations.  agc_scan_f64 is the serial AGC kernel
+// instantiated in double, one thread a lane.  gardner_manchester_scan_f64
+// is gardner_scan_kernel instantiated in double: the image resident in
+// shared memory (a bulk copy moves 16-byte bodies of 2 doubles, the
+// ragged ends 8-byte cp.async copies), the chain thread off device
+// memory, the mover warps storing the records; its rint is one double add
+// (1.5 * 2^52) below 2^30.  pdt_gardner_scan_f64_serial
+// (gardner_manchester_scan_f64_serial), the serial kernel in double, is
+// its card-side oracle and timing baseline, on no path.
 //
 // Numerics as in pdt_common.cuh.
 
@@ -215,14 +221,15 @@ using SlotState = SlotStateT<float>;
 // gardner_scan_kernel's chain thread: the error from the slot's on-time
 // value cur and mid-bit value hval; an active slot advances next_sample,
 // half_raw and prev_bit.
-__device__ __forceinline__ void timing_slot(SlotState& g, float cur,
-                                            float hval, bool active,
-                                            const GardnerConsts& c) {
-  float err = c.kp * (cur - g.prev_bit) * hval;
-  err = fminf(fmaxf(err, c.neg_limit), c.err_limit);
-  const float ns_adj = g.ns - err;
-  const float half_new = ns_adj + c.half_step;
-  const float ns_new = ns_adj + c.step;
+template <typename T>
+__device__ __forceinline__ void timing_slot(SlotStateT<T>& g, Arg<T> cur,
+                                            Arg<T> hval, bool active,
+                                            const GardnerConstsT<T>& c) {
+  T err = c.kp * (cur - g.prev_bit) * hval;
+  err = num::min(num::max(err, c.neg_limit), c.err_limit);
+  const T ns_adj = g.ns - err;
+  const T half_new = ns_adj + c.half_step;
+  const T ns_new = ns_adj + c.step;
   if (active) {
     g.ns = ns_new;
     g.half_raw = half_new;
@@ -231,20 +238,21 @@ __device__ __forceinline__ void timing_slot(SlotState& g, float cur,
 }
 
 // The Manchester half (ManchesterDecode.c:27-97), for
-// gardner_scan_kernel's mover: the decision on the slot's symbol cur.  Returns the bit, plus 2 where it is emitted; an
-// active slot advances the Manchester state.  Nothing of it feeds the
-// timing half.
-__device__ __forceinline__ int manchester_slot(SlotState& g, float cur,
-                                               bool active, float thr) {
-  const float prevprev = g.m_prev;
-  const float prev = g.m_cur;
-  const bool strong = fabsf(prevprev) > thr && fabsf(prev) > thr;
+// gardner_scan_kernel's mover: the decision on the slot's symbol cur.
+// Returns the bit, plus 2 where it is emitted; an active slot advances the
+// Manchester state.  Nothing of it feeds the timing half.
+template <typename T>
+__device__ __forceinline__ int manchester_slot(SlotStateT<T>& g, Arg<T> cur,
+                                               bool active, Arg<T> thr) {
+  const T prevprev = g.m_prev;
+  const T prev = g.m_cur;
+  const bool strong = num::abs(prevprev) > thr && num::abs(prev) > thr;
   const bool resync = g.evenodd != g.clockmod
                       && sgn(prevprev) == sgn(prev) && strong;
   const int cm = resync ? g.evenodd : g.clockmod;
   const bool boundary = g.evenodd == cm;
-  const bool use_prev = fabsf(prev) > fabsf(cur);
-  const int bit = use_prev ? (prev > 0.0f ? 1 : 0) : (cur > 0.0f ? 0 : 1);
+  const bool use_prev = num::abs(prev) > num::abs(cur);
+  const int bit = use_prev ? (prev > T(0) ? 1 : 0) : (cur > T(0) ? 0 : 1);
   if (active) {
     g.clockmod = cm;
     g.evenodd = (g.evenodd + 1) & 1;
@@ -321,6 +329,21 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                "l"(src) : "memory");
 }
 
+// 8-byte asynchronous copy from device to shared memory, no registers
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+
+// an element's asynchronous copy: 4 bytes for a float, 8 for a double
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  cp_async4(dst, src);
+}
+__device__ __forceinline__ void cp_async(double* dst, const double* src) {
+  cp_async8(dst, src);
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -353,6 +376,25 @@ template <bool ADD>
 __device__ __forceinline__ int rint_int(float v) {
   return ADD ? __float_as_int(v + kRintAdd) - kRintAddBits
              : __float2int_rn(v);   // (int)rintf(v), one conversion
+}
+
+// The same in double: v + 1.5 * 2^52 lands where the double ulp is 1, and
+// the low word of its bits is the integer while |v| < 2^31 (the limit
+// keeps a margin below it).
+constexpr double kRintAddD = 6755399441055744.0;
+constexpr double kRintAddLimitD = 1073741824.0;   // 2^30
+
+template <bool ADD>
+__device__ __forceinline__ int rint_int(double v) {
+  return ADD ? __double2loint(v + kRintAddD) : __double2int_rn(v);
+}
+
+// kRintAddLimit of the stream's type
+__device__ __forceinline__ float rint_add_limit(float) {
+  return kRintAddLimit;
+}
+__device__ __forceinline__ double rint_add_limit(double) {
+  return kRintAddLimitD;
 }
 
 // The chain thread over one window's slots, reading the window buffer xs
@@ -608,8 +650,8 @@ gardner_scan_serial_kernel(const T* __restrict__ x, const T* __restrict__ t,
 constexpr int kGsThreads = 128;    // warp 0: the chain; warps 1-3: movers
 constexpr int kGsMovers = kGsThreads - 32;
 constexpr int kGsSegment = 256;    // slot records a segment (two segments)
-constexpr int kGsTileLog2 = 10;    // a tile holds 1,024 floats at most
-constexpr int kGsMinRing = 64;     // floats: four 64-byte tiles
+constexpr int kGsTileLog2 = 10;    // a tile holds 1,024 elements at most
+constexpr int kGsMinRing = 64;     // elements: four tiles of 16 at least
 // the H100's shared memory: a CTA's dynamic maximum, an SM's total and
 // what the SM reserves a CTA
 constexpr int kGsMaxSmem = 232448;
@@ -617,17 +659,23 @@ constexpr int kGsSmemPerSm = 233472;
 constexpr int kGsCtaReserve = 1024;
 constexpr int kGsMaxCtasPerSm = 8;
 
+// elements of T in 16 bytes: the alignment of a bulk copy
+template <typename T>
+constexpr int kGsVec = 16 / static_cast<int>(sizeof(T));
+
 // dynamic shared memory: the tiles' mbarriers and the segments' (full,
-// free), then the ring (ring floats, plus 4 for the row's shift to a
-// 16-byte boundary), then two segments of records: indices, soft symbols,
-// bits
+// free), then the ring (ring elements of T, plus kGsVec<T> for the row's
+// shift to a 16-byte boundary), then two segments of records: indices,
+// soft symbols, bits
 __host__ __device__ inline int gs_bar_bytes(int tiles) {
   return ((tiles + 4) * 8 + 15) / 16 * 16;
 }
 
+template <typename T>
 __host__ __device__ inline int gs_smem_bytes(int tiles, int ring) {
-  return gs_bar_bytes(tiles) + (ring + 4) * 4 +
-         2 * kGsSegment * static_cast<int>(2 * sizeof(float) + 1);
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  return gs_bar_bytes(tiles) + (ring + kGsVec<T>) * kSize +
+         2 * kGsSegment * (static_cast<int>(sizeof(int)) + kSize + 1);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -672,7 +720,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 
 // a 1-D bulk copy (TMA) of 16-byte aligned `bytes` from device to shared
 // memory, completing on bar
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                                           int bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
@@ -682,37 +730,44 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
 
 // a shared-memory load the compiler issues where it is written (not sunk
 // behind the branch that may replace its value)
-__device__ __forceinline__ float ld_shared(unsigned addr) {
+__device__ __forceinline__ float ld_shared(unsigned addr, float) {
   float v;
   asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
   return v;
 }
+__device__ __forceinline__ double ld_shared(unsigned addr, double) {
+  double v;
+  asm volatile("ld.shared.f64 %0, [%1];\n" : "=d"(v) : "r"(addr));
+  return v;
+}
 
-// The lane's x image as a ring of `tiles` tiles of 2^lt floats: image
-// tile k (samples k << lt ...) in ring slot k % tiles, sample i at
+// The lane's x image as a ring of `tiles` tiles of 2^lt elements of T:
+// image tile k (samples k << lt ...) in ring slot k % tiles, sample i at
 // xs[i & mask] with xs the ring shifted by the row's misalignment, so
 // that a tile's 16-byte aligned body is one bulk copy.  RESIDENT: the
 // ring holds the whole image (tiles = nt, sample i at xs[i]) and no tile
 // is refilled.  Tiles [lo, hi) are staged (their copies waited), tiles
 // [lo, min(lo + tiles, nt)) issued.  Run by the chain thread alone.
-template <bool RESIDENT>
+template <typename T, bool RESIDENT>
 struct Ring {
-  const float* xr;      // the lane's row in device memory
-  float* xs;
+  static constexpr int kV = kGsVec<T>;       // elements in 16 bytes
+  static constexpr int kLog2Size = sizeof(T) == 8 ? 3 : 2;
+  const T* xr;          // the lane's row in device memory
+  T* xs;
   uint64_t* full;       // a tile slot's mbarrier
   unsigned xs_addr;     // xs as a shared-memory address
   int lt, tiles, mask, cap, nt, head;
   int lo = 0, hi = 0;
 
-  __device__ Ring(const float* row, float* ring, uint64_t* bars, int lt_,
+  __device__ Ring(const T* row, T* ring, uint64_t* bars, int lt_,
                   int tiles_, int cap_)
       : xr(row), full(bars), lt(lt_), tiles(tiles_),
         mask((tiles_ << lt_) - 1), cap(cap_),
         nt((cap_ + (1 << lt_) - 1) >> lt_) {
-    // floats before the row's first 16-byte boundary
-    const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(row) >> 2)
-                   & 3;
-    head = (4 - sh) & 3;
+    // elements before the row's first 16-byte boundary
+    const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(row)
+                                    >> kLog2Size) & (kV - 1);
+    head = (kV - sh) & (kV - 1);
     xs = ring + sh;
     xs_addr = smem_addr(xs);
     for (int k = 0; k < min(tiles, nt); ++k) issue(k);
@@ -723,23 +778,25 @@ struct Ring {
     return RESIDENT ? 0 : (k / tiles) & 1;
   }
   __device__ unsigned addr(int i) const {
-    return xs_addr + 4u * static_cast<unsigned>(RESIDENT ? i : i & mask);
+    return xs_addr + static_cast<unsigned>(sizeof(T)) *
+                         static_cast<unsigned>(RESIDENT ? i : i & mask);
   }
 
   // image tile k into its slot: the aligned body as one bulk copy, the
-  // ragged head and tail of the row as 4-byte copies
+  // ragged head and tail of the row as one-element copies
   __device__ void issue(int k) {
+    constexpr int kSize = static_cast<int>(sizeof(T));
     const int i0 = k << lt;
     const int len = min(1 << lt, cap - i0);
-    float* dst = xs + (slot(k) << lt);
-    const float* src = xr + i0;
+    T* dst = xs + (slot(k) << lt);
+    const T* src = xr + i0;
     const int h = min(head, len);
-    const int body = (len - h) & ~3;
+    const int body = (len - h) & ~(kV - 1);
     uint64_t* bar = full + slot(k);
-    mbar_arrive_expect_tx(bar, body * 4);
-    if (body > 0) bulk_copy(dst + h, src + h, body * 4, bar);
-    for (int i = 0; i < h; ++i) cp_async4(dst + i, src + i);
-    for (int i = h + body; i < len; ++i) cp_async4(dst + i, src + i);
+    mbar_arrive_expect_tx(bar, body * kSize);
+    if (body > 0) bulk_copy(dst + h, src + h, body * kSize, bar);
+    for (int i = 0; i < h; ++i) cp_async(dst + i, src + i);
+    for (int i = h + body; i < len; ++i) cp_async(dst + i, src + i);
     mbar_arrive_cp_async(bar);
   }
 
@@ -764,9 +821,9 @@ struct Ring {
 
   // x at sample i: from the ring where its tile is staged, else (a read
   // outside the staged span) from device memory
-  __device__ float read(int i) const {
+  __device__ T read(int i) const {
     const int k = i >> lt;
-    return k >= lo && k < hi ? ld_shared(addr(i)) : xr[i];
+    return k >= lo && k < hi ? ld_shared(addr(i), T()) : xr[i];
   }
 
   // A slot whose reads leave the staged span, or whose reads have both
@@ -774,13 +831,13 @@ struct Ring {
   // mid-bit read's where the ring can hold it with the on-time one; read
   // both; drop the tiles behind both reads (a mid-bit read outside the
   // ring holds none).
-  __device__ void slow(int ii, int hc, bool in_img, float& cur, float& h) {
+  __device__ void slow(int ii, int hc, bool in_img, T& cur, T& h) {
     const int kt = ii >> lt;
     int kh = hc >> lt;
     stage_to(kt);
     if (in_img && kh >= hi && kh < lo + tiles) stage_to(kh);
     cur = read(ii);
-    h = in_img ? read(hc) : 0.0f;
+    h = in_img ? read(hc) : T(0);
     if (!RESIDENT) {
       if (!in_img || kh < lo || kh >= hi) kh = kt;
       if (min(kt, kh) > lo) release_to(min(kt, kh));
@@ -807,25 +864,25 @@ struct Ring {
 // scan's rules (clock.py:76-85): the on-time index rint(next_sample)
 // clamped to [0, cap - 1], the mid-bit read 0 unless rint(half_raw) lies
 // in [0, cap): chain_window's with base 0 and span cap.
-template <bool ADD, bool RESIDENT>
-__device__ __forceinline__ int chain_segment(SlotState& g, Ring<RESIDENT>& r,
-                                             int* ridx, float* rsym, int s0,
-                                             int s1, int n,
-                                             const GardnerConsts& c) {
+template <bool ADD, typename T, bool RESIDENT>
+__device__ __forceinline__ int chain_segment(SlotStateT<T>& g,
+                                             Ring<T, RESIDENT>& r, int* ridx,
+                                             T* rsym, int s0, int s1, int n,
+                                             const GardnerConstsT<T>& c) {
   const int cap_m1 = r.cap - 1;
-  const float nf = static_cast<float>(n);
+  const T nf = static_cast<T>(n);
   const int len = s1 - s0;
   const unsigned tile = 1u << r.lt;
   int lo_lim = r.lo << r.lt, hi_lim = r.hi << r.lt;
   for (int k = 0; k < len; ++k) {
     const int ir = rint_int<ADD>(g.ns);
     const int hr = rint_int<ADD>(g.half_raw);
-    const bool active = ADD ? ir < n : rintf(g.ns) < nf;     // clock.py:78
+    const bool active = ADD ? ir < n : num::rint(g.ns) < nf;  // clock.py:78
     const int ii = min(max(ir, 0), cap_m1);
     const int hc = min(max(hr, 0), cap_m1);
-    const bool in_img = hr == hc && (ADD || rintf(g.half_raw) >= 0.0f);
-    float cur = ld_shared(r.addr(ii));
-    float h = ld_shared(r.addr(hc));
+    const bool in_img = hr == hc && (ADD || num::rint(g.half_raw) >= T(0));
+    T cur = ld_shared(r.addr(ii), T());
+    T h = ld_shared(r.addr(hc), T());
     const bool staged =
         max(ii, hc) < hi_lim &&
         (RESIDENT || static_cast<unsigned>(min(ii, hc) - lo_lim) < tile);
@@ -836,37 +893,39 @@ __device__ __forceinline__ int chain_segment(SlotState& g, Ring<RESIDENT>& r,
     }
     ridx[k] = ii;
     rsym[k] = cur;
-    timing_slot(g, cur, in_img ? h : 0.0f, active, c);
+    timing_slot(g, cur, in_img ? h : T(0), active, c);
     if (!active) return s0 + k;
   }
   return -1;
 }
 
-template <bool RESIDENT>
+// T = double is gardner_manchester_scan_f64, the float64 exact chain's;
+// ring_floats: the ring's elements of T
+template <typename T, bool RESIDENT>
 __global__ void __launch_bounds__(kGsThreads, 1)
-gardner_scan_kernel(const float* __restrict__ x, const float* __restrict__ t,
+gardner_scan_kernel(const T* __restrict__ x, const T* __restrict__ t,
                     const int* __restrict__ n_valid,
-                    const float* __restrict__ st_f_in,
-                    const int* __restrict__ st_i_in, float* __restrict__ syms,
-                    float* __restrict__ times, uint8_t* __restrict__ valid,
+                    const T* __restrict__ st_f_in,
+                    const int* __restrict__ st_i_in, T* __restrict__ syms,
+                    T* __restrict__ times, uint8_t* __restrict__ valid,
                     uint8_t* __restrict__ bits, uint8_t* __restrict__ emit,
-                    float* __restrict__ st_f_out, int* __restrict__ st_i_out,
+                    T* __restrict__ st_f_out, int* __restrict__ st_i_out,
                     int* __restrict__ count, int B, int cap, int max_syms,
                     int lt, int tiles, int ring_floats,
-                    const GardnerParams p) {
+                    const GardnerParamsT<T> p) {
   extern __shared__ __align__(128) unsigned char gs_sm[];
   __shared__ int stop_slot;          // the first inactive slot, or max_syms
   uint64_t* full = reinterpret_cast<uint64_t*>(gs_sm);
   uint64_t* seg_full = full + tiles;
   uint64_t* seg_free = seg_full + 2;
-  float* ring = reinterpret_cast<float*>(gs_sm + gs_bar_bytes(tiles));
-  int* ridx = reinterpret_cast<int*>(ring + ring_floats + 4);
-  float* rsym = reinterpret_cast<float*>(ridx + 2 * kGsSegment);
+  T* ring = reinterpret_cast<T*>(gs_sm + gs_bar_bytes(tiles));
+  int* ridx = reinterpret_cast<int*>(ring + ring_floats + kGsVec<T>);
+  T* rsym = reinterpret_cast<T*>(ridx + 2 * kGsSegment);
   uint8_t* rbe = reinterpret_cast<uint8_t*>(rsym + 2 * kGsSegment);
   const int b = blockIdx.x;          // the CTA's lane
   const int tid = threadIdx.x;
-  const float* xr = x + static_cast<size_t>(b) * cap;
-  const float* tr = t + static_cast<size_t>(b) * cap;
+  const T* xr = x + static_cast<size_t>(b) * cap;
+  const T* tr = t + static_cast<size_t>(b) * cap;
   const size_t row = static_cast<size_t>(b) * max_syms;
   if (tid == 0) {
     for (int k = 0; k < tiles; ++k) mbar_init(full + k, 2);
@@ -878,27 +937,28 @@ gardner_scan_kernel(const float* __restrict__ x, const float* __restrict__ t,
     stop_slot = max_syms;
   }
   __syncthreads();
-  SlotState g;
-  const GardnerConsts c(p);
+  SlotStateT<T> g;
+  const GardnerConstsT<T> c(p);
 
   if (tid == 0) {
     // the chain: the timing half of every slot up to the first inactive
     g.load(st_f_in, st_i_in, B, b);
     const int n = n_valid[b];
-    Ring<RESIDENT> r(xr, ring, full, lt, tiles, cap);
+    Ring<T, RESIDENT> r(xr, ring, full, lt, tiles, cap);
     // how far next_sample and half_raw can move in a slot, with half an
     // ulp (< 0.25 below the limit) for each of its two adds
-    const float per_slot = fabsf(c.step) + fabsf(c.err_limit) + 1.0f;
+    const T per_slot = num::abs(c.step) + num::abs(c.err_limit) + T(1);
+    const T limit = rint_add_limit(T());
     int stop = max_syms;
     for (int j = 0, s0 = 0; s0 < max_syms; ++j, s0 += kGsSegment) {
       const int q = j & 1;
       if (j >= 2) mbar_wait(seg_free + q, ((j >> 1) - 1) & 1);
       const int s1 = min(s0 + kGsSegment, max_syms);
-      const float reach = (s1 - s0) * per_slot + 2.0f;
+      const T reach = (s1 - s0) * per_slot + T(2);
       int* ri = ridx + q * kGsSegment;
-      float* rs = rsym + q * kGsSegment;
-      const int s = fabsf(g.ns) + reach < kRintAddLimit &&
-                            fabsf(g.half_raw) + reach < kRintAddLimit
+      T* rs = rsym + q * kGsSegment;
+      const int s = num::abs(g.ns) + reach < limit &&
+                            num::abs(g.half_raw) + reach < limit
                         ? chain_segment<true>(g, r, ri, rs, s0, s1, n, c)
                         : chain_segment<false>(g, r, ri, rs, s0, s1, n, c);
       if (s >= 0) stop = stop_slot = s;
@@ -923,7 +983,7 @@ gardner_scan_kernel(const float* __restrict__ x, const float* __restrict__ t,
       const int stop = stop_slot;
       const int end = stop < s1 ? max_syms : s1;
       const int* ri = ridx + q * kGsSegment;
-      const float* rs = rsym + q * kGsSegment;
+      const T* rs = rsym + q * kGsSegment;
       uint8_t* rb = rbe + q * kGsSegment;
       if (m == 0) {
         const int last = min(s1, stop + 1) - s0;
@@ -990,15 +1050,17 @@ bool bad_scan_args(int n_params, int B, int cap, int max_syms) {
          || B <= 0 || cap <= 0 || max_syms <= 0;
 }
 
-// The ring of a gardner_scan_kernel launch.  The budget: an SM's shared
-// memory shared by ceil(B / SMs) CTAs (at most kGsMaxCtasPerSm).  The
-// whole image where it fits in the budget (and in ring_floats, if that is
-// not 0); else the largest power-of-two ring that does, in tiles of 1,024
-// floats, or of a quarter of the ring where that is smaller.
+// The ring of a gardner_scan_kernel<T> launch.  The budget: an SM's
+// shared memory shared by ceil(B / SMs) CTAs (at most kGsMaxCtasPerSm).
+// The whole image where it fits in the budget (and in ring_floats
+// elements, if that is not 0); else the largest power-of-two ring that
+// does, in tiles of 1,024 elements, or of a quarter of the ring where that
+// is smaller.
 struct ScanGeom {
   int lt, tiles, resident, ring_floats, smem, ctas;
 };
 
+template <typename T>
 ScanGeom scan_geom(int B, int cap, int ring_floats) {
   int dev = 0, n_sm = 132;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -1013,9 +1075,9 @@ ScanGeom scan_geom(int B, int cap, int ring_floats) {
                               kGsSmemPerSm / g.ctas - kGsCtaReserve)
                      - static_cast<int>(sizeof(int));   // stop_slot
   const int nt = (cap + (1 << kGsTileLog2) - 1) >> kGsTileLog2;
-  const int whole = (cap + 3) & ~3;
+  const int whole = (cap + kGsVec<T> - 1) & ~(kGsVec<T> - 1);
   if ((ring_floats <= 0 || ring_floats >= whole) &&
-      gs_smem_bytes(nt, whole) <= budget) {
+      gs_smem_bytes<T>(nt, whole) <= budget) {
     g.lt = kGsTileLog2;
     g.tiles = nt;
     g.resident = 1;
@@ -1029,7 +1091,7 @@ ScanGeom scan_geom(int B, int cap, int ring_floats) {
     int ring = kGsMinRing;
     for (int next = 2 * ring;
          (ring_floats <= 0 || next <= ring_floats) &&
-         gs_smem_bytes(next >> tile_log2(next), next) <= budget;
+         gs_smem_bytes<T>(next >> tile_log2(next), next) <= budget;
          next *= 2) {
       ring = next;
     }
@@ -1038,21 +1100,94 @@ ScanGeom scan_geom(int B, int cap, int ring_floats) {
     g.resident = 0;
     g.ring_floats = ring;
   }
-  g.smem = gs_smem_bytes(g.tiles, g.ring_floats);
+  g.smem = gs_smem_bytes<T>(g.tiles, g.ring_floats);
   return g;
 }
 
 // The kernel instantiation of a geometry, with its dynamic shared memory
 // limit raised to the launch's above the default 48 KB; the error if the
 // card refuses that size (then cleared).
-template <bool RESIDENT>
+template <typename T, bool RESIDENT>
 cudaError_t gs_prepare(const ScanGeom& g) {
   if (g.smem <= 48 * 1024) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
-      gardner_scan_kernel<RESIDENT>,
+      gardner_scan_kernel<T, RESIDENT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (e != cudaSuccess) cudaGetLastError();
   return e;
+}
+
+// the whole-image kernel, one CTA a lane, its ring chosen by scan_geom
+template <typename T>
+int launch_scan(const T* x, const T* t, const int* n_valid,
+                const T* st_f_in, const int* st_i_in, T* syms, T* times,
+                uint8_t* valid, uint8_t* bits, uint8_t* emit, T* st_f_out,
+                int* st_i_out, int* count, int B, int cap, int max_syms,
+                int ring_floats, const T* params, int n_params,
+                void* stream) {
+  if (bad_scan_args<T>(n_params, B, cap, max_syms)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const ScanGeom g = scan_geom<T>(B, cap, ring_floats);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const GardnerParamsT<T> p = gardner_params(params);
+  const cudaError_t e = g.resident ? gs_prepare<T, true>(g)
+                                   : gs_prepare<T, false>(g);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (g.resident) {
+    gardner_scan_kernel<T, true><<<B, kGsThreads, g.smem, st>>>(
+        x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
+        st_f_out, st_i_out, count, B, cap, max_syms, g.lt, g.tiles,
+        g.ring_floats, p);
+  } else {
+    gardner_scan_kernel<T, false><<<B, kGsThreads, g.smem, st>>>(
+        x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
+        st_f_out, st_i_out, count, B, cap, max_syms, g.lt, g.tiles,
+        g.ring_floats, p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The whole-image kernel's launch configuration for B lanes of cap
+// samples and a ring_floats as launch_scan takes it, into out[10]: ring
+// elements, tiles, elements a tile, the image resident (1) or recycled
+// (0), slots a record segment, threads a CTA, dynamic shared memory bytes
+// a CTA, resident CTAs an SM (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor), registers a thread, local bytes a thread.  Returns a
+// cudaError_t.
+template <typename T>
+int scan_config(int B, int cap, int ring_floats, int* out) {
+  if (B <= 0 || cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const ScanGeom g = scan_geom<T>(B, cap, ring_floats);
+  cudaError_t e = g.resident ? gs_prepare<T, true>(g)
+                             : gs_prepare<T, false>(g);
+  cudaFuncAttributes a;
+  int ctas = 0;
+  if (e == cudaSuccess) {
+    e = g.resident ? cudaFuncGetAttributes(&a, gardner_scan_kernel<T, true>)
+                   : cudaFuncGetAttributes(&a,
+                                           gardner_scan_kernel<T, false>);
+  }
+  if (e == cudaSuccess) {
+    e = g.resident ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &ctas, gardner_scan_kernel<T, true>, kGsThreads,
+                         g.smem)
+                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &ctas, gardner_scan_kernel<T, false>, kGsThreads,
+                         g.smem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = g.ring_floats;
+  out[1] = g.tiles;
+  out[2] = 1 << g.lt;
+  out[3] = g.resident;
+  out[4] = kGsSegment;
+  out[5] = kGsThreads;
+  out[6] = g.smem;
+  out[7] = ctas;
+  out[8] = a.numRegs;
+  out[9] = static_cast<int>(a.localSizeBytes);
+  return 0;
 }
 
 template <typename T>
@@ -1254,66 +1389,15 @@ extern "C" int pdt_gardner_scan(const float* x, const float* t,
                                 int* count, int B, int cap, int max_syms,
                                 int ring_floats, const float* params,
                                 int n_params, void* stream) {
-  if (bad_scan_args<float>(n_params, B, cap, max_syms)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const ScanGeom g = scan_geom(B, cap, ring_floats);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const GardnerParams p = gardner_params(params);
-  const cudaError_t e = g.resident ? gs_prepare<true>(g)
-                                   : gs_prepare<false>(g);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (g.resident) {
-    gardner_scan_kernel<true><<<B, kGsThreads, g.smem, st>>>(
-        x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
-        st_f_out, st_i_out, count, B, cap, max_syms, g.lt, g.tiles,
-        g.ring_floats, p);
-  } else {
-    gardner_scan_kernel<false><<<B, kGsThreads, g.smem, st>>>(
-        x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
-        st_f_out, st_i_out, count, B, cap, max_syms, g.lt, g.tiles,
-        g.ring_floats, p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_scan(x, t, n_valid, st_f_in, st_i_in, syms, times, valid,
+                     bits, emit, st_f_out, st_i_out, count, B, cap, max_syms,
+                     ring_floats, params, n_params, stream);
 }
 
-// The Gardner scan kernel's launch configuration for B lanes of cap
-// samples and a ring_floats as pdt_gardner_scan takes it, into out[10]:
-// ring floats, tiles, floats a tile, the image resident (1) or recycled
-// (0), slots a record segment, threads a CTA, dynamic shared memory bytes
-// a CTA, resident CTAs an SM (cudaOccupancyMaxActiveBlocksPer-
-// Multiprocessor), registers a thread, local bytes a thread.  Returns a
-// cudaError_t.
+// The float32 Gardner scan kernel's launch configuration (scan_config).
 extern "C" int pdt_gardner_scan_config(int B, int cap, int ring_floats,
                                        int* out) {
-  if (B <= 0 || cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const ScanGeom g = scan_geom(B, cap, ring_floats);
-  cudaError_t e = g.resident ? gs_prepare<true>(g) : gs_prepare<false>(g);
-  cudaFuncAttributes a;
-  int ctas = 0;
-  if (e == cudaSuccess) {
-    e = g.resident ? cudaFuncGetAttributes(&a, gardner_scan_kernel<true>)
-                   : cudaFuncGetAttributes(&a, gardner_scan_kernel<false>);
-  }
-  if (e == cudaSuccess) {
-    e = g.resident ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &ctas, gardner_scan_kernel<true>, kGsThreads, g.smem)
-                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &ctas, gardner_scan_kernel<false>, kGsThreads,
-                         g.smem);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  out[0] = g.ring_floats;
-  out[1] = g.tiles;
-  out[2] = 1 << g.lt;
-  out[3] = g.resident;
-  out[4] = kGsSegment;
-  out[5] = kGsThreads;
-  out[6] = g.smem;
-  out[7] = ctas;
-  out[8] = a.numRegs;
-  out[9] = static_cast<int>(a.localSizeBytes);
-  return 0;
+  return scan_config<float>(B, cap, ring_floats, out);
 }
 
 // The serial Gardner scan kernel, as pdt_gardner_scan but one thread a
@@ -1330,10 +1414,30 @@ extern "C" int pdt_gardner_scan_serial(
 }
 
 // gardner_manchester_scan_f64, the float64 exact chain's Gardner +
-// Manchester scan: the serial kernel in double, as pdt_gardner_scan_serial
-// with double x, t, syms, times and st_f rows; params the 4 doubles of
-// GardnerParamsT<double>.
+// Manchester scan: the whole-image kernel in double, as pdt_gardner_scan
+// with double x, t, syms, times and st_f rows (ring_floats in doubles);
+// params the 4 doubles of GardnerParamsT<double>.
 extern "C" int pdt_gardner_scan_f64(
+    const double* x, const double* t, const int* n_valid,
+    const double* st_f_in, const int* st_i_in, double* syms, double* times,
+    uint8_t* valid, uint8_t* bits, uint8_t* emit, double* st_f_out,
+    int* st_i_out, int* count, int B, int cap, int max_syms,
+    int ring_floats, const double* params, int n_params, void* stream) {
+  return launch_scan(x, t, n_valid, st_f_in, st_i_in, syms, times, valid,
+                     bits, emit, st_f_out, st_i_out, count, B, cap, max_syms,
+                     ring_floats, params, n_params, stream);
+}
+
+// The float64 Gardner scan kernel's launch configuration (scan_config).
+extern "C" int pdt_gardner_scan_f64_config(int B, int cap, int ring_floats,
+                                           int* out) {
+  return scan_config<double>(B, cap, ring_floats, out);
+}
+
+// gardner_manchester_scan_f64_serial: the serial kernel in double, as
+// pdt_gardner_scan_serial with double images, state and outputs; the
+// float64 whole-image kernel's oracle and timing baseline.
+extern "C" int pdt_gardner_scan_f64_serial(
     const double* x, const double* t, const int* n_valid,
     const double* st_f_in, const int* st_i_in, double* syms, double* times,
     uint8_t* valid, uint8_t* bits, uint8_t* emit, double* st_f_out,

@@ -23,7 +23,8 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 SOURCES = tuple(CSRC / f for f in ("fused_demod.cu", "chain_kernel.cu",
                                    "pll_kernel.cu", "scan_kernels.cu",
-                                   "ablate_kernel.cu", "ablate_fused.cu"))
+                                   "ablate_kernel.cu", "ablate_fused.cu",
+                                   "fp64_latency.cu"))
 HEADERS = (CSRC / "pdt_common.cuh", CSRC / "front_stages.cuh")
 BUILD_DIR = PKG / "_build"
 # -fmad=false and no fast math: the kernels match their plain PyTorch
@@ -58,8 +59,13 @@ _SIGNATURES = {
     "pdt_pll_scan_config": [_P],
     # zre, zim, st_in, out, lock, st_out, B, L, params, n_params, stream
     "pdt_pll_scan_serial": [_P] * 6 + [_I] * 2 + [_P, _I, _P],
-    # the same in double
+    # the decoupled kernel in double (no unlocked counts): zre, zim,
+    # st_in, out, lock, st_out, B, L, params, n_params, stream
     "pdt_pll_scan_f64": [_P] * 6 + [_I] * 2 + [_P, _I, _P],
+    # out
+    "pdt_pll_scan_f64_config": [_P],
+    # the serial kernel in double
+    "pdt_pll_scan_f64_serial": [_P] * 6 + [_I] * 2 + [_P, _I, _P],
     # x, g_in, y, g_out, B, n, params, n_params, stream
     "pdt_agc_scan": [_P] * 4 + [_I] * 2 + [_P, _I, _P],
     # out
@@ -86,13 +92,19 @@ _SIGNATURES = {
     # x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
     # st_f_out, st_i_out, count, B, cap, max_syms, params, n_params, stream
     "pdt_gardner_scan_serial": [_P] * 13 + [_I] * 3 + [_P, _I, _P],
-    # the same in double
-    "pdt_gardner_scan_f64": [_P] * 13 + [_I] * 3 + [_P, _I, _P],
+    # the whole-image kernel in double, as pdt_gardner_scan
+    "pdt_gardner_scan_f64": [_P] * 13 + [_I] * 4 + [_P, _I, _P],
+    # B, cap, ring_floats, out
+    "pdt_gardner_scan_f64_config": [_I] * 3 + [_P],
+    # the serial kernel in double, as pdt_gardner_scan_serial
+    "pdt_gardner_scan_f64_serial": [_P] * 13 + [_I] * 3 + [_P, _I, _P],
     # variant, in, st_in, out, st_out, B, L, params, n_params, stream
     "pdt_ablate_kernel": [_I] + [_P] * 4 + [_I] * 2 + [_P, _I, _P],
     # flags, re, im, tn, st_in, bit, btime, emit, st_out, B, L, window,
     # params, n_params, stream
     "pdt_ablate_fused": [_I] + [_P] * 8 + [_I] * 3 + [_P, _I, _P],
+    # kind, in, out, cycles, steps, stream
+    "pdt_fp64_latency": [_I, _P, _P, _P, _I, _P],
 }
 
 

@@ -12,9 +12,11 @@ Counterpart of ``project_desert_tortoise_tpu/ops/pallas/pll_kernel.py``
 - :func:`pll_scan_serial` launches the serial kernel of the same file, the
   whole step of a sample in turn: the card-side oracle and timing baseline
   of the decoupled kernel, on no path.
-- :func:`pll_scan_f64` launches that serial kernel instantiated in double:
-  the PLL of the float64 ``argos`` mode's exact chain, which
+- :func:`pll_scan_f64` launches the decoupled kernel instantiated in
+  double: the PLL of the float64 ``argos`` mode's exact chain, which
   :func:`pll_scan_kernel` launches for float64 tensors on the card.
+  :func:`pll_scan_f64_serial` launches the serial kernel in double, its
+  card-side oracle and timing baseline, on no path.
 """
 
 from __future__ import annotations
@@ -77,27 +79,38 @@ def pll_scan_kernel(params: pll_ops.PLLParams, state: pll_ops.PLLState, z,
         if unlocked is not None:
             raise ValueError("unlocked: counted by the float32 kernel only")
         return pll_scan_f64(params, state, z)
-    st_in = _state_in(state, z)
-    dev = zre.device
-    B, L = zre.shape
     if unlocked is not None:
-        check("unlocked", unlocked, (B,), (torch.int32,), dev)
-    # lane-major (B, L) planes: a CTA's chunk of a lane is contiguous
-    zre, zim = zre.contiguous(), zim.contiguous()
-    out = torch.empty((B, L), dtype=torch.float32, device=dev)
-    lock = torch.empty((B, L), dtype=torch.float32, device=dev)
-    st_out = torch.empty_like(st_in)
-    p = pll_param_block(params)
-    launch(dev, "pdt_pll_scan", zre.data_ptr(), zim.data_ptr(),
-           st_in.data_ptr(), out.data_ptr(), lock.data_ptr(),
-           st_out.data_ptr(),
-           None if unlocked is None else unlocked.data_ptr(), B, L,
-           p.ctypes.data_as(ctypes.c_void_p), p.size)
+        check("unlocked", unlocked, (zre.shape[0],), (torch.int32,),
+              zre.device)
+    out = _launch_decoupled("pdt_pll_scan", params, state, z, torch.float32,
+                            unlocked)
     pll_scan_kernel.launches += 1
-    return pll_state_from_rows(st_out), out, lock
+    return out
 
 
 pll_scan_kernel.launches = 0
+
+
+def _launch_decoupled(entry: str, params: pll_ops.PLLParams,
+                      state: pll_ops.PLLState, z, dtype, *unlocked):
+    """Launch the decoupled kernel `entry` in `dtype` (float32 or float64)
+    on the lane-major (B, L) planes z (a CTA's chunk of a lane is
+    contiguous); `unlocked`: the float32 kernel's counts tensor or None.
+    Returns as :func:`pll_scan_kernel`."""
+    st_in = _state_in(state, z, dtype)
+    zre, zim = (a.contiguous() for a in z)
+    dev = zre.device
+    B, L = zre.shape
+    out = torch.empty((B, L), dtype=dtype, device=dev)
+    lock = torch.empty_like(out)
+    st_out = torch.empty_like(st_in)
+    p = pll_param_block(params, np.float64 if dtype == torch.float64
+                        else np.float32)
+    launch(dev, entry, zre.data_ptr(), zim.data_ptr(), st_in.data_ptr(),
+           out.data_ptr(), lock.data_ptr(), st_out.data_ptr(),
+           *(None if u is None else u.data_ptr() for u in unlocked), B, L,
+           p.ctypes.data_as(ctypes.c_void_p), p.size)
+    return pll_state_from_rows(st_out), out, lock
 
 
 def _launch_serial(entry: str, params: pll_ops.PLLParams,
@@ -141,14 +154,14 @@ pll_scan_serial.launches = 0
 
 
 def pll_scan_f64(params: pll_ops.PLLParams, state: pll_ops.PLLState, z):
-    """The PLL of the float64 ``argos`` mode's exact chain: the serial
-    kernel instantiated in double, one thread a lane, over (B, L) float64
-    planes (time-major copies; a lane's row where B = 1); returns as
-    :func:`pll_scan_kernel`.  CUDA tensors only."""
+    """The PLL of the float64 ``argos`` mode's exact chain: the decoupled
+    kernel instantiated in double, one CTA a lane, over (B, L) float64
+    planes; returns as :func:`pll_scan_kernel` (no unlocked counts).
+    CUDA tensors only."""
     if not on_card("pll_scan_f64", z[0].device):
         raise ValueError("pll_scan_f64 runs on a CUDA device only")
-    out = _launch_serial("pdt_pll_scan_f64", params, state, z,
-                         torch.float64)
+    out = _launch_decoupled("pdt_pll_scan_f64", params, state, z,
+                            torch.float64)
     pll_scan_f64.launches += 1
     return out
 
@@ -156,8 +169,27 @@ def pll_scan_f64(params: pll_ops.PLLParams, state: pll_ops.PLLState, z):
 pll_scan_f64.launches = 0
 
 
-def launch_config(device="cuda") -> dict:
-    """The decoupled kernel's launch configuration: lanes per CTA, chunk
-    samples, threads and (static) shared memory bytes a CTA, registers and
-    local (spill) bytes a thread, as the card reports them."""
-    return kernel_config(device, "pdt_pll_scan_config")
+def pll_scan_f64_serial(params: pll_ops.PLLParams, state: pll_ops.PLLState,
+                        z):
+    """:func:`pll_scan_f64` on the serial kernel in double, one thread a
+    lane over time-major copies.  No path calls it: the card checks and
+    ``chip_smoke.py`` hold :func:`pll_scan_f64` to it and time the two in
+    one run.  CUDA tensors only."""
+    if not on_card("pll_scan_f64_serial", z[0].device):
+        raise ValueError("pll_scan_f64_serial runs on a CUDA device only")
+    out = _launch_serial("pdt_pll_scan_f64_serial", params, state, z,
+                         torch.float64)
+    pll_scan_f64_serial.launches += 1
+    return out
+
+
+pll_scan_f64_serial.launches = 0
+
+
+def launch_config(device="cuda", dtype=torch.float32) -> dict:
+    """The decoupled kernel's launch configuration in `dtype` (float32 or
+    float64): lanes per CTA, chunk samples, threads and (static) shared
+    memory bytes a CTA, registers and local (spill) bytes a thread, as the
+    card reports them."""
+    return kernel_config(device, "pdt_pll_scan_f64_config"
+                         if dtype == torch.float64 else "pdt_pll_scan_config")

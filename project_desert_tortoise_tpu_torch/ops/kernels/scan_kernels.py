@@ -25,10 +25,14 @@ per launch at the main path's size, so each is a hand-written kernel in
   thread a lane (over time-major copies for the first two, over the image
   in device memory for the third): the card-side oracles and timing
   baselines of the three, on no path.
-- :func:`agc_scan_f64` and :func:`gardner_manchester_scan_f64` launch the
-  same serial kernels instantiated in double: the float64 ``argos`` mode's
-  exact chain (JAX runs its scans under x64 there).  :func:`agc_scan` and
-  :func:`gardner_manchester_scan` launch them for float64 tensors.
+- :func:`agc_scan_f64` launches the serial AGC kernel instantiated in
+  double, :func:`gardner_manchester_scan_f64` the whole-image kernel in
+  double: the float64 ``argos`` mode's exact chain (JAX runs its scans
+  under x64 there).  :func:`agc_scan` and :func:`gardner_manchester_scan`
+  launch them for float64 tensors.
+  :func:`gardner_manchester_scan_f64_serial` launches the serial
+  whole-image kernel in double, the card-side oracle and timing baseline
+  of :func:`gardner_manchester_scan_f64`, on no path.
 - :func:`agc_scan_ref`, :func:`gardner_manchester_ref` and
   :func:`gardner_manchester_scan_ref` are the plain PyTorch versions, on
   any device: loops over the steps, all lanes at once, in the JAX scans'
@@ -484,17 +488,15 @@ def gardner_manchester_scan(fstate, istate, x, t, n, p: GardnerParams,
     :func:`gardner_manchester_scan_f64`.  The kernel stages each lane's
     image in a ring of shared memory that it sizes itself
     (:func:`gardner_scan_launch_config`); ``ring_floats`` > 0 caps the
-    ring (so that a small image recycles its tiles), for tests."""
+    ring (so that a small image recycles its tiles), for tests; it counts
+    elements of the image's dtype."""
     dev = x.device
     if not on_card("gardner_manchester_scan", dev):
         return gardner_manchester_scan_ref(fstate, istate, x, t, n, p,
                                            max_syms)
     if x.dtype == torch.float64:
-        if ring_floats:
-            raise ValueError("ring_floats: the float64 kernel stages no "
-                             "ring")
         return gardner_manchester_scan_f64(fstate, istate, x, t, n, p,
-                                           max_syms)
+                                           max_syms, ring_floats=ring_floats)
     out = _launch_scan("pdt_gardner_scan", fstate, istate, x, t, n, p,
                        max_syms, int(ring_floats))
     gardner_manchester_scan.launches += 1
@@ -524,22 +526,43 @@ gardner_manchester_scan_serial.launches = 0
 
 
 def gardner_manchester_scan_f64(fstate, istate, x, t, n, p: GardnerParams,
-                                max_syms: int):
+                                max_syms: int, *, ring_floats: int = 0):
     """:func:`gardner_manchester_scan` in float64 (the ``argos`` mode's
-    exact chain): the serial kernel instantiated in double, one thread a
-    lane reading the image from device memory; float64 `x`, `t` and
-    fstate, float64 syms and times.  CUDA tensors only."""
+    exact chain): the whole-image kernel instantiated in double, one lane
+    a CTA, the image staged in shared memory; float64 `x`, `t` and
+    fstate, float64 syms and times; ``ring_floats`` as
+    :func:`gardner_manchester_scan`, in doubles.  CUDA tensors only."""
     dev = x.device
     if not on_card("gardner_manchester_scan_f64", dev):
         raise ValueError("gardner_manchester_scan_f64 runs on a CUDA "
                          "device only")
     out = _launch_scan("pdt_gardner_scan_f64", fstate, istate, x, t, n, p,
-                       max_syms, dtype=torch.float64)
+                       max_syms, int(ring_floats), dtype=torch.float64)
     gardner_manchester_scan_f64.launches += 1
     return out
 
 
 gardner_manchester_scan_f64.launches = 0
+
+
+def gardner_manchester_scan_f64_serial(fstate, istate, x, t, n,
+                                       p: GardnerParams, max_syms: int):
+    """:func:`gardner_manchester_scan_f64` on the serial kernel in double,
+    one thread a lane reading the image from device memory.  No path calls
+    it: the card checks and ``chip_smoke.py`` hold
+    :func:`gardner_manchester_scan_f64` to it and time the two in one run.
+    CUDA tensors only."""
+    dev = x.device
+    if not on_card("gardner_manchester_scan_f64_serial", dev):
+        raise ValueError("gardner_manchester_scan_f64_serial runs on a "
+                         "CUDA device only")
+    out = _launch_scan("pdt_gardner_scan_f64_serial", fstate, istate, x, t,
+                       n, p, max_syms, dtype=torch.float64)
+    gardner_manchester_scan_f64_serial.launches += 1
+    return out
+
+
+gardner_manchester_scan_f64_serial.launches = 0
 
 # what pdt_gardner_scan_config reports, in order
 GARDNER_SCAN_CONFIG_FIELDS = (
@@ -549,12 +572,15 @@ GARDNER_SCAN_CONFIG_FIELDS = (
 
 
 def gardner_scan_launch_config(B: int, cap: int, ring_floats: int = 0,
-                               device="cuda") -> dict:
-    """The whole-image Gardner kernel's launch configuration for B lanes
-    of cap samples: the ring's floats, tiles and floats a tile, whether it
-    holds the whole image (1) or recycles its tiles (0), slots a record
-    segment, threads and dynamic shared memory bytes a CTA, the CTAs
-    resident on an SM at that size, and registers and local (spill) bytes
-    a thread, as the card reports them."""
-    return kernel_config(device, "pdt_gardner_scan_config", B, cap,
-                         ring_floats, fields=GARDNER_SCAN_CONFIG_FIELDS)
+                               device="cuda", dtype=torch.float32) -> dict:
+    """The whole-image Gardner kernel's launch configuration in `dtype`
+    (float32 or float64) for B lanes of cap samples: the ring's elements
+    ("floats": of the dtype), tiles and elements a tile, whether it holds
+    the whole image (1) or recycles its tiles (0), slots a record segment,
+    threads and dynamic shared memory bytes a CTA, the CTAs resident on an
+    SM at that size, and registers and local (spill) bytes a thread, as
+    the card reports them."""
+    entry = ("pdt_gardner_scan_f64_config" if dtype == torch.float64
+             else "pdt_gardner_scan_config")
+    return kernel_config(device, entry, B, cap, ring_floats,
+                         fields=GARDNER_SCAN_CONFIG_FIELDS)

@@ -8,11 +8,12 @@ when their sync falls inside the block's core, which tiles the recording
 exactly.
 
 The chain runs on one of three branches, JAX's ``use_pallas`` values:
-``"fused"`` (the whole chain in one kernel, ``ops/kernels/fused_kernel.py``;
-the port's default), ``"front"`` (PLL + FIR + AGC in one kernel,
+``"fused"`` (the whole chain in one kernel, ``ops/kernels/fused_kernel.py``),
+``"front"`` (PLL + FIR + AGC in one kernel,
 ``ops/kernels/chain_kernel.py``, then the windowed Gardner/Manchester
 kernel) and ``False`` (the PLL kernel, the FIR as a convolution, the AGC
-kernel, then the same Gardner/Manchester kernel).
+kernel, then the same Gardner/Manchester kernel; the default, as in JAX,
+and what both packages' ``--fast`` CLIs run).
 
 Lanes are the only parallel axis on the card, so by default all blocks of a
 recording go into one launch (capped by a memory budget); the JAX package's
@@ -102,7 +103,7 @@ def branch(use_pallas):
                      "(or True) or 'fused'")
 
 
-def max_lanes(plan: BlockPlan, use_pallas="fused") -> int:
+def max_lanes(plan: BlockPlan, use_pallas=False) -> int:
     """Blocks per launch that fit the memory budget of the branch."""
     return max(1, _BATCH_BYTES // (plan.total
                                    * _LANE_SAMPLE_BYTES[branch(use_pallas)]))
@@ -164,7 +165,7 @@ def warm_state(params: chain_lib.ChainParams, freq_est, fs: float,
 
 def demod_blocks(params: chain_lib.ChainParams, total: int, blocks_re,
                  blocks_im, fs: float, t_next, freq_est, norm_gain: float,
-                 window: int = 4096, use_pallas="fused", t_seed=None,
+                 window: int = 4096, use_pallas=False, t_seed=None,
                  t_pad0=None, ts: float = 0.0):
     """Demodulate (B, total) sample blocks -> compressed per-block bits
     (JAX ``demod_blocks``, ``blocked.py:175-323``).
@@ -282,7 +283,7 @@ def position_seeds(lo, shift: int):
 
 def demod_frames(params: chain_lib.ChainParams, plan: BlockPlan, framer_cfg,
                  fs: float, blocks_re, blocks_im, lo, n, freq_est,
-                 norm_gain: float, window: int = 4096, use_pallas="fused",
+                 norm_gain: float, window: int = 4096, use_pallas=False,
                  chan=None):
     """demod_blocks + frame extraction + stitching on sample positions.
 
@@ -361,7 +362,7 @@ def stage_blocks(re, im, plan: BlockPlan, b0: int, bn: int, dt):
 def demodulate_blocked(iq, t, fs, mode_cfg, norm_factor: Optional[float] = None,
                        plan: Optional[BlockPlan] = None,
                        batch_blocks: Optional[int] = None,
-                       window: int = 4096, use_pallas="fused",
+                       window: int = 4096, use_pallas=False,
                        *, device="cuda") -> List[Frame]:
     """Demodulate a whole recording via parallel blocks on `device`;
     returns complete frames in stream order, timed by `t` (the
@@ -373,10 +374,11 @@ def demodulate_blocked(iq, t, fs, mode_cfg, norm_factor: Optional[float] = None,
     versions.
 
     use_pallas picks the branch ("fused", "front" or True, False; see
-    :func:`demod_blocks`).  The default, "fused", differs from JAX's
-    default (False, its XLA scans), which is what the JAX CLI's ``--fast``
-    runs.  The port runs the branch it is asked for at any block count;
-    JAX silently falls back to its XLA branch when B % 128 != 0.
+    :func:`demod_blocks`).  The default, False, is JAX's default, so the
+    two packages' ``--fast`` CLIs run the same branch and compact bits the
+    same way (``compress_sorted``).  The port runs the branch it is asked
+    for at any block count; JAX silently falls back to its XLA branch
+    when B % 128 != 0.
     """
     dev = resolve_device(device)
     dt = np.dtype(np.float32)

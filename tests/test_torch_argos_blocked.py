@@ -26,7 +26,7 @@ def test_argos_blocked_matches_jax(tmp_path):
     _, iq, t, payloads = recording(tmp_path, "argos.wav", ARGOS, n_packets=4)
     assert t.dtype == np.float64
     frames = TB.demodulate_blocked(iq, t, FS, ARGOS, plan=TB.BlockPlan(*PLAN),
-                                   device="cpu")
+                                   use_pallas="fused", device="cpu")
     jf = JB.demodulate_blocked(iq.astype(np.complex64), t, FS, J_ARGOS,
                                plan=JB.BlockPlan(*PLAN), use_pallas=False)
     mine = {bytes(f.data): f.time for f in frames}

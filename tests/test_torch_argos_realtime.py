@@ -17,7 +17,8 @@ def test_argos_realtime_inverted_uses_inverse_sync(tmp_path):
     _, iq, t, payloads = recording(tmp_path, "inv.wav", ARGOS_REALTIME,
                                    n_packets=2, invert_bits=True)
     frames = TB.demodulate_blocked(iq, t, FS, ARGOS_REALTIME,
-                                   plan=TB.BlockPlan(*PLAN), device="cpu")
+                                   plan=TB.BlockPlan(*PLAN),
+                                   use_pallas="fused", device="cpu")
     assert {bytes(f.data) for f in frames} >= {bytes(p) for p in payloads}
     # past the first block's warm-up (tests/test_blocked_argos.py:143)
     assert frames and all(f.inverted for f in frames if f.time > 1.0)

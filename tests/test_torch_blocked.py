@@ -40,7 +40,8 @@ def recording():
     iq, sent = synth.make_poes_recording(n_frames=8, fs=FS)
     t = W.time_axis(len(iq), FS, np.float32)
     frames = TB.demodulate_blocked(iq, t, FS, POES_TIP,
-                                   plan=TB.BlockPlan(*PLAN), device="cpu")
+                                   plan=TB.BlockPlan(*PLAN),
+                                   use_pallas="fused", device="cpu")
     return iq, t, sent, frames
 
 
@@ -81,7 +82,8 @@ def test_stitching_survives_a_stalled_time_axis(recording):
     t_stall = W.time_axis(len(iq), FS, np.float32, t0=511.99)
     assert np.sum(np.diff(t_stall) == 0) > len(iq) // 2
     stalled = TB.demodulate_blocked(iq, t_stall, FS, POES_TIP,
-                                    plan=TB.BlockPlan(*PLAN), device="cpu")
+                                    plan=TB.BlockPlan(*PLAN),
+                                    use_pallas="fused", device="cpu")
     assert [bytes(f.data) for f in stalled] == [bytes(f.data) for f in ok]
     idx = [int(np.argmin(np.abs(t - f.time))) for f in ok]
     assert [f.time for f in stalled] == [float(t_stall[i]) for i in idx]
@@ -92,4 +94,5 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
     iq = np.zeros(1000, np.complex64)
     t = W.time_axis(len(iq), FS, np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
-        TB.demodulate_blocked(iq, t, FS, POES_TIP, device="cuda")
+        TB.demodulate_blocked(iq, t, FS, POES_TIP, use_pallas="fused",
+                              device="cuda")

@@ -12,7 +12,17 @@ double instances ``pll_scan_f64`` and ``agc_scan_f64``); and three chunks
 of ``chain.chunk_step`` in each mode, float32 and float64 (there the
 three double instances, ``gardner_manchester_scan_f64`` too), the kernels
 against the plain versions on the same card, every output and state bit
-for bit.
+for bit.  The float64 redesigns on their own: ``pll_scan_f64`` (the
+decoupled kernel in double) and ``gardner_manchester_scan_f64`` (the
+whole-image kernel in double) against their plain versions and their
+serial twins ``pll_scan_f64_serial`` and
+``gardner_manchester_scan_f64_serial``, at 1, 255, 256, 257, 1,234, 1,680
+and 2,400 samples; the PLL from an unlocked start in noise (it stays
+unlocked), a locked start, a lane that locks inside a 256-sample chunk
+and three such lanes at once; the Gardner scan over quirks images with
+the mid-bit pointer stale (inside, past the valid length, past the
+image, negative) on three lanes, rows aligned to 16 bytes or one double
+past, the ring resident or forced small.
 
 Marked ``cuda``; skips without a card.  On a machine with one:
 
@@ -148,6 +158,108 @@ def test_one_lane_pll_and_agc_from_an_unlocked_start_on_card(card, L,
             sk.agc_scan_f64.launches) == tuple(k + f64 for k in launches)
 
 
+F64_LENGTHS = [1, 255, 256, 257, 1234, 1680, 2400]
+
+
+def _argos_clip():
+    """The two-packet ARGOS clip in complex128, the argos mode's params."""
+    fs = 32000.0
+    iq, _ = synth.make_argos_recording(n_packets=2, fs=fs)
+    iq = (iq / (np.abs(iq).max() * 1.2)).astype(np.complex128)
+    return iq, chain.make_params(MODES["argos"], fs), fs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", F64_LENGTHS)
+@pytest.mark.parametrize("start", ["unlocked", "locked",
+                                   "locks mid-chunk", "three lanes"])
+def test_pll_scan_f64_matches_plain_and_serial_on_card(card, start, L):
+    iq, params, fs = _argos_clip()
+    a = int(0.4 * fs)                        # where the first packet starts
+    zd = [torch.from_numpy(np.ascontiguousarray(v)).to(card)
+          for v in (iq.real, iq.imag)]
+    plane = lambda b: tuple(v[b:b + L] for v in zd)
+    cold = pll.init_state(params.pll, (1,), device=card, dtype=torch.float64)
+    warm, _, lock = pll.pll_scan_ref(params.pll, cold,
+                                     *(v[a:a + 2400][None] for v in zd))
+    locks_at = int(torch.nonzero(lock[0] > params.pll.lock_threshold)[0])
+    assert bool(warm.locked[0]) and locks_at % 256 not in (0, 255)
+    lanes = {"unlocked": [(cold, 0)], "locked": [(warm, a + 2400)],
+             "locks mid-chunk": [(cold, a)],
+             "three lanes": [(cold, 0), (warm, a + 2400), (cold, a)]}[start]
+    st = pll.PLLState(*(torch.cat(f) for f in zip(*(s for s, _ in lanes))))
+    z = tuple(torch.stack(p).contiguous()
+              for p in zip(*(plane(b) for _, b in lanes)))
+    before = (pll_kernel.pll_scan_f64.launches,
+              pll_kernel.pll_scan_f64_serial.launches)
+    got = pll_kernel.pll_scan_kernel(params.pll, st, z)
+    torch.cuda.synchronize()
+    _equal(got, pll.pll_scan_ref(params.pll, st, *z))
+    _equal(got, pll_kernel.pll_scan_f64_serial(params.pll, st, z))
+    assert (pll_kernel.pll_scan_f64.launches,
+            pll_kernel.pll_scan_f64_serial.launches) == tuple(
+                k + 1 for k in before)
+    assert got[1].dtype == torch.float64
+    if start == "unlocked":                  # noise: no lock in the chunk
+        assert not bool(got[0].locked[0])
+    with pytest.raises(ValueError, match="unlocked"):
+        pll_kernel.pll_scan_kernel(
+            params.pll, st, z, unlocked=torch.zeros(
+                (len(lanes),), dtype=torch.int32, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["aligned", "unaligned"])
+@pytest.mark.parametrize("ring", ["resident", "small"])
+@pytest.mark.parametrize("L", F64_LENGTHS)
+def test_gardner_manchester_scan_f64_matches_plain_and_serial_on_card(
+        card, L, ring, rows):
+    """Three lanes of the argos mode's quirks image (L new samples over a
+    2,400-sample image), the mid-bit pointer stale in each of four ways;
+    unaligned: rows of 2,399 doubles, one double past a boundary."""
+    _, params, fs = _argos_clip()
+    B = 3
+    cap = 2400 - (rows == "unaligned")
+    msyms = chain.max_symbols(cap, params.step_size)
+    rng = np.random.default_rng(L)
+    x = np.empty((B, cap))
+    for b in range(B):
+        sym = rng.choice([-1.0, 1.0], int(cap / params.step_size) + 2)
+        pos = (np.arange(cap) + rng.uniform(0, params.step_size)) \
+            / params.step_size
+        x[b] = sym[pos.astype(int)] + 0.1 * rng.standard_normal(cap)
+    t = np.tile(np.arange(1, cap + 1) / fs, (B, 1))
+    offset = int(rows == "unaligned")
+
+    def place(a):
+        buf = torch.zeros(B * cap + offset, dtype=torch.float64, device=card)
+        buf[offset:] = torch.from_numpy(a).reshape(-1).to(card)
+        return buf[offset:].view(B, cap)
+    x, t = place(x), place(t)
+    n = torch.full((B,), min(L, cap), dtype=torch.int32, device=card)
+    n[1] = cap
+    gp = sk.GardnerParams(params.step_size, params.gardner_err_limit,
+                          params.gardner_gain, params.resync_threshold)
+    m0 = man.manchester_init((B,), device=card)
+    istate = (m0.clockmod, m0.evenodd + 1)
+    ring_floats = 256 if ring == "small" else 0
+    config = sk.gardner_scan_launch_config(B, cap, ring_floats,
+                                           dtype=torch.float64)
+    assert config["resident"] == (ring == "resident"), config
+    assert config["local_bytes"] == 0, config
+    f = lambda v: torch.full((B,), v, dtype=torch.float64, device=card)
+    for half in (cap - 9.6, min(L, cap) + 3.5, cap + 7.25, -4.5):
+        fstate = (f(7.3), f(half), f(0.4), f(0.9), f(-0.8), f(0.7))
+        args = (fstate, istate, x, t, n, gp, msyms)
+        before = sk.gardner_manchester_scan_f64.launches
+        got = sk.gardner_manchester_scan(*args, ring_floats=ring_floats)
+        torch.cuda.synchronize()
+        assert sk.gardner_manchester_scan_f64.launches == before + 1
+        _equal(got, sk.gardner_manchester_scan_ref(*args))
+        _equal(got, sk.gardner_manchester_scan_f64_serial(*args))
+        assert got[2].dtype == torch.float64 and int(got[-1][1]) > 0
+
+
 def _plain_kernels(monkeypatch):
     """The exact chain's kernel wrappers, as chain.chunk_step reaches them,
     replaced by their plain versions."""
@@ -194,8 +306,11 @@ def test_chunk_step_kernels_match_plain_on_card(card, mode, quirks,
     scan = (sk.gardner_manchester_scan_f64 if dt == np.float64
             else sk.gardner_manchester_scan)
     before = scan.launches
+    pll_before = pll_kernel.pll_scan_f64.launches
     got = run()
     assert scan.launches == before + 3
+    assert pll_kernel.pll_scan_f64.launches == pll_before + 3 * (
+        dt == np.float64)
     with monkeypatch.context() as m:
         _plain_kernels(m)
         want = run()

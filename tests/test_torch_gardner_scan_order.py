@@ -32,6 +32,14 @@ image; six lanes of an image larger than the forced ring, rows off
 with the ring the kernel would choose (resident) and a forced small one
 (recycled), checked to reach what it names.
 
+The float64 ``argos`` mode's kernel (``gardner_manchester_scan_f64``) is
+the same kernel instantiated in double: a 16-byte bulk copy holds 2
+doubles, so a row lies 0 or 1 double past a boundary and its ragged ends
+are 8-byte copies; the rounding add is 1.5 * 2^52 (below 2^30).  Its
+cases are the same on the ``argos`` mode's images (2,400 doubles a
+chunk) in float64, against the plain version bit for bit and against
+JAX's scans under x64 exactly.
+
 The card tests (``tests/test_torch_exact_cuda.py``) hold the kernel to the
 plain version and its serial twin on such cases.
 """
@@ -44,7 +52,7 @@ from project_desert_tortoise_tpu_torch import chain
 from project_desert_tortoise_tpu_torch.ops import fastmath
 from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
 from project_desert_tortoise_tpu_torch.utils.config import (
-    ARGOS_REALTIME, POES_TIP)
+    ARGOS, ARGOS_REALTIME, POES_TIP)
 
 torch.set_num_threads(1)
 
@@ -52,21 +60,27 @@ torch.set_num_threads(1)
 TILE_LOG2, SEGMENT, MIN_RING = 10, 256, 64
 MAX_SMEM, SMEM_PER_SM, CTA_RESERVE, MAX_CTAS = 232448, 233472, 1024, 8
 RINT_ADD, RINT_ADD_BITS, RINT_ADD_LIMIT = 12582912.0, 0x4B400000, 4194304.0
+RINT_ADD_D, RINT_ADD_LIMIT_D = 6755399441055744.0, 1073741824.0   # double
 
 
-def smem_bytes(tiles: int, ring: int) -> int:
-    """gs_smem_bytes: barriers, the ring (+4 for the shift), records."""
-    return ((tiles + 4) * 8 + 15) // 16 * 16 + (ring + 4) * 4 + 2 * SEGMENT * 9
+def smem_bytes(tiles: int, ring: int, size: int = 4) -> int:
+    """gs_smem_bytes<T> for elements of `size` bytes: barriers, the ring
+    (+16 bytes for the shift), records (index, symbol, bits)."""
+    return (((tiles + 4) * 8 + 15) // 16 * 16 + (ring + 16 // size) * size
+            + 2 * SEGMENT * (4 + size + 1))
 
 
-def scan_geom(B: int, cap: int, ring_floats: int = 0, n_sm: int = 132):
-    """scan_geom: (tile log2, tiles, resident, ring floats, CTAs an SM)."""
+def scan_geom(B: int, cap: int, ring_floats: int = 0, n_sm: int = 132,
+              size: int = 4):
+    """scan_geom<T>: (tile log2, tiles, resident, ring elements, CTAs an
+    SM) for elements of `size` bytes."""
     ctas = min(max(-(-B // n_sm), 1), MAX_CTAS)
     budget = min(MAX_SMEM, SMEM_PER_SM // ctas - CTA_RESERVE) - 4
     nt = -(-cap // (1 << TILE_LOG2))
-    whole = (cap + 3) & ~3
+    vec = 16 // size
+    whole = (cap + vec - 1) & ~(vec - 1)
     if (ring_floats <= 0 or ring_floats >= whole) and \
-            smem_bytes(nt, whole) <= budget:
+            smem_bytes(nt, whole, size) <= budget:
         return TILE_LOG2, nt, True, whole, ctas
 
     def tile_log2(ring):
@@ -76,7 +90,7 @@ def scan_geom(B: int, cap: int, ring_floats: int = 0, n_sm: int = 132):
         return min(lt, TILE_LOG2)
     ring, nxt = MIN_RING, 2 * MIN_RING
     while (ring_floats <= 0 or nxt <= ring_floats) and \
-            smem_bytes(nxt >> tile_log2(nxt), nxt) <= budget:
+            smem_bytes(nxt >> tile_log2(nxt), nxt, size) <= budget:
         ring, nxt = nxt, 2 * nxt
     lt = tile_log2(ring)
     return lt, ring >> lt, False, ring, ctas
@@ -84,6 +98,10 @@ def scan_geom(B: int, cap: int, ring_floats: int = 0, n_sm: int = 132):
 
 def rint_int(v: torch.Tensor, add: bool) -> int:
     """rint_int<ADD>: the add trick's bits, or the saturating conversion."""
+    if add and v.dtype == torch.float64:     # the low word of the sum
+        s = v + torch.tensor([RINT_ADD_D], dtype=torch.float64)
+        low = int(s.view(torch.int64)) & 0xFFFFFFFF
+        return low - (1 << 32) if low >= 1 << 31 else low
     if add:
         s = v + torch.tensor([RINT_ADD], dtype=torch.float32)
         return int(s.view(torch.int32)) - RINT_ADD_BITS
@@ -99,7 +117,8 @@ class Ring:
         self.row, self.cap, self.sh = row, row.numel(), sh
         self.nt = (self.cap + (1 << self.lt) - 1) >> self.lt
         self.mask = (self.tiles << self.lt) - 1
-        self.mem = torch.full((ring_floats + 4,), float("nan"))
+        self.mem = torch.full((ring_floats + 16 // row.element_size(),),
+                              float("nan"), dtype=row.dtype)
         self.lo = self.hi = 0
         self.counts = dict(refills=0, far_reads=0, waits_ahead=0)
         for k in range(min(self.tiles, self.nt)):
@@ -158,7 +177,7 @@ class Ring:
             self.counts["waits_ahead"] += kh > kt
             self.stage_to(kh)
         cur = self.read(ii)
-        h = self.read(hc) if in_img else torch.zeros(1)
+        h = self.read(hc) if in_img else torch.zeros(1, dtype=self.row.dtype)
         if not self.resident:
             if not in_img or kh < self.lo or kh >= self.hi:
                 kh = kt
@@ -169,7 +188,7 @@ class Ring:
 
 def timing_half(st, cur, hval, active, k):
     """The chain thread's half of a slot (next_sample, half_raw,
-    prev_bit), in the plain version's float32 operations."""
+    prev_bit), in the plain version's operations in the stream's dtype."""
     ns, half_raw, prev_bit = st
     err = torch.clamp(k.kp * (cur - prev_bit) * hval, k.neg_limit,
                       k.err_limit)
@@ -201,32 +220,34 @@ def manchester_half(m, cur, active, k):
 def scan_order(fstate, istate, x, t, n, p: sk.GardnerParams, max_syms: int,
                ring_floats: int = 0, row_offset: int = 0):
     """gardner_manchester_scan_ref's results in the kernel's order, lane by
-    lane, and each lane's counts.  row_offset: floats the image's first
+    lane, and each lane's counts.  row_offset: elements the image's first
     row lies past a 16-byte boundary."""
-    f32 = torch.float32
+    dt = x.dtype                     # the stream's: float32 or float64
+    size = x.element_size()
     B, cap = x.shape
-    geom = scan_geom(B, cap, ring_floats)
-    f32c = np.float32
-    per_slot = (abs(f32c(p.step_size)) + abs(f32c(p.err_limit))
-                + f32c(1.0))
+    geom = scan_geom(B, cap, ring_floats, size=size)
+    npt = np.float64 if size == 8 else np.float32
+    limit = RINT_ADD_LIMIT_D if size == 8 else RINT_ADD_LIMIT
+    per_slot = (abs(npt(p.step_size)) + abs(npt(p.err_limit))
+                + npt(1.0))
     outs = {k: [] for k in ("syms", "times", "valid", "bits", "emit")}
     finals, counts, stops = [], [], []
     for b in range(B):
         lane_state = tuple(s[b:b + 1].clone() for s in (*fstate, *istate))
         st, m = lane_state[:3], lane_state[3:]
         k = sk._slot_consts(p, st[0])
-        nf = n[b:b + 1].to(f32)
-        ring = Ring(x[b], geom, (row_offset + b * cap) & 3)
+        nf = n[b:b + 1].to(dt)
+        ring = Ring(x[b], geom, (row_offset + b * cap) & (16 // size - 1))
         lane = dict(filled=0, add_segments=0, segments=0)
         rows = {k: torch.empty(max_syms, dtype=d) for k, d in (
-            ("syms", f32), ("times", f32), ("valid", torch.bool),
+            ("syms", dt), ("times", dt), ("valid", torch.bool),
             ("bits", torch.uint8), ("emit", torch.bool))}
         stop = max_syms
         for s0 in range(0, max_syms, SEGMENT):
             s1 = min(s0 + SEGMENT, max_syms)
-            reach = f32c(s1 - s0) * per_slot + f32c(2.0)
-            add = bool(abs(f32c(float(st[0]))) + reach < RINT_ADD_LIMIT
-                       and abs(f32c(float(st[1]))) + reach < RINT_ADD_LIMIT)
+            reach = npt(s1 - s0) * per_slot + npt(2.0)
+            add = bool(abs(npt(float(st[0]))) + reach < limit
+                       and abs(npt(float(st[1]))) + reach < limit)
             lane["segments"] += 1
             lane["add_segments"] += add
             ridx, rsym = [], []
@@ -286,14 +307,15 @@ def scan_order(fstate, istate, x, t, n, p: sk.GardnerParams, max_syms: int,
     return out, counts, geom
 
 
-FS = {"poes_tip": 50000.0, "argos_realtime": 32000.0}
-MODES = {"poes_tip": POES_TIP, "argos_realtime": ARGOS_REALTIME}
+FS = {"poes_tip": 50000.0, "argos_realtime": 32000.0, "argos": 32000.0}
+MODES = {"poes_tip": POES_TIP, "argos_realtime": ARGOS_REALTIME,
+         "argos": ARGOS}
 STALE = ("inside", "past n", "past cap", "negative")
 
 
-def _symbols(B, cap, seed, step):
+def _symbols(B, cap, seed, step, dtype=np.float32):
     rng = np.random.default_rng(seed)
-    x = np.empty((B, cap), np.float32)
+    x = np.empty((B, cap), dtype)
     for b in range(B):
         sym = rng.choice([-1.0, 1.0], int(cap / step) + 2)
         pos = (np.arange(cap) + rng.uniform(0, step)) / step
@@ -301,15 +323,19 @@ def _symbols(B, cap, seed, step):
     return x
 
 
-def scan_case(case: str, seed: int = 0):
+def scan_case(case: str, seed: int = 0, dtype=np.float32):
     """(fstate, istate, x, t, n, params, max_syms) as numpy arrays, and
-    the first row's offset from a 16-byte boundary."""
-    mode = "argos_realtime" if case == "argos" else "poes_tip"
+    the first row's offset from a 16-byte boundary in elements.  float64:
+    the ``argos`` mode's images (case "argos" is then its quirks image)."""
+    if dtype == np.float64:
+        mode = "argos"
+    else:
+        mode = "argos_realtime" if case == "argos" else "poes_tip"
     cp = chain.make_params(MODES[mode], FS[mode], quirks=case != "no_quirks")
     p = sk.GardnerParams(cp.step_size, cp.gardner_err_limit, cp.gardner_gain,
                          cp.resync_threshold)
     rng = np.random.default_rng(seed)
-    chunk = 2400 if mode == "argos_realtime" else 2000
+    chunk = 2000 if mode == "poes_tip" else 2400
     cap_i = chunk * cp.interp
     if case == "lanes":               # larger than the forced ring
         B, cap = 6, 3 * cap_i + 1
@@ -317,13 +343,13 @@ def scan_case(case: str, seed: int = 0):
         B, cap = 2, chain.TAIL_MARGIN + cap_i
     else:
         B, cap = len(STALE), cap_i
-    x = _symbols(B, cap, seed, p.step_size)
-    t = (np.arange(1, cap + 1, dtype=np.float32) / np.float32(FS[mode])
-         + rng.uniform(0, 1, (B, 1)).astype(np.float32))
-    f = np.zeros((6, B), np.float32)   # ns, half_raw, prev_bit, cur, ...
+    x = _symbols(B, cap, seed, p.step_size, dtype)
+    t = (np.arange(1, cap + 1, dtype=dtype) / dtype(FS[mode])
+         + rng.uniform(0, 1, (B, 1)).astype(dtype))
+    f = np.zeros((6, B), dtype)        # ns, half_raw, prev_bit, cur, ...
     i = np.zeros((2, B), np.int32)     # clockmod, evenodd
     f[0] = rng.uniform(-0.6, p.step_size, B)
-    f[2:] = x[:, :4].T * np.float32(0.7)
+    f[2:] = x[:, :4].T * dtype(0.7)
     i[0] = rng.integers(0, 2, B)
     i[1] = rng.integers(0, 2, B)
     n = np.full(B, cap, np.int32)
@@ -331,10 +357,10 @@ def scan_case(case: str, seed: int = 0):
     if case == "lanes":
         n -= 97 * np.arange(B, dtype=np.int32)
         n[4] = cap // 3               # stops early: a long fill
-        f[1] = f[0] - np.float32(p.step_size / 2)
+        f[1] = f[0] - dtype(p.step_size / 2)
     elif case == "no_quirks":
         f[0] += chain.TAIL_MARGIN
-        f[1] = f[0] - np.float32(p.step_size / 2)
+        f[1] = f[0] - dtype(p.step_size / 2)
         n[1] = short
     else:
         n[1] = short
@@ -383,7 +409,13 @@ SMALL_RING = 512
 @pytest.mark.parametrize("ring", ["resident", "small"])
 @pytest.mark.parametrize("case", ["stale", "no_quirks", "argos", "lanes"])
 def test_scan_order_matches_plain_and_jax(case, ring):
-    args, offset = scan_case(case)
+    _check_scan_case(case, ring, np.float32)
+
+
+def _check_scan_case(case, ring, dtype):
+    """scan_order on a case against the plain version and JAX, and the
+    counts that show the case reaches what it names."""
+    args, offset = scan_case(case, dtype=dtype)
     targs = _torch(args)
     ring_floats = SMALL_RING if ring == "small" else 0
     got, counts, geom = scan_order(*targs, ring_floats=ring_floats,
@@ -419,6 +451,42 @@ def test_scan_order_matches_plain_and_jax(case, ring):
         assert int(got[-1][4]) < int(got[-1].max()) // 2   # the early stop
 
 
+@pytest.fixture
+def x64():
+    """JAX's x64 switch on for one test, off again after it."""
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+@pytest.mark.parametrize("ring", ["resident", "small"])
+@pytest.mark.parametrize("case", ["stale", "no_quirks", "argos", "lanes"])
+def test_scan_order_f64_matches_plain_and_jax_x64(x64, case, ring):
+    """The float64 kernel's order on the argos mode's images in double
+    ("argos": its quirks image, the mid-bit pointer stale inside it)."""
+    _check_scan_case(case, ring, np.float64)
+
+
+def test_scan_order_f64_beyond_the_add_limit():
+    """float64: next_sample and half_raw two thousand million samples out
+    (past 2^30): the segments round with the conversion, which saturates
+    past the int range; every slot inactive."""
+    args, _ = scan_case("stale", dtype=np.float64)
+    f = args[0]
+    f[0, ::2] = 2e9 + 0.5
+    f[1, ::2] = -3e9 - 0.5
+    targs = _torch(args)
+    got, counts, _ = scan_order(*targs, ring_floats=SMALL_RING)
+    want = sk.gardner_manchester_scan_ref(*targs)
+    for a, b in zip(_flat(got), _flat(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert counts[0]["add_segments"] == 0 and int(got[-1][0]) == 0
+    assert counts[1]["add_segments"] == counts[1]["segments"]
+
+
 def test_scan_order_beyond_the_add_limit():
     """next_sample and half_raw five million samples out: the segments
     round with the conversion, not the add; every slot inactive."""
@@ -452,6 +520,26 @@ def test_scan_geometry(B, cap, resident, ring, ctas):
         <= SMEM_PER_SM
     if not res:
         assert tiles << lt == ring_floats and tiles >= 4
+
+
+@pytest.mark.parametrize("B,cap,ring_floats,resident,ring", [
+    (1, 2400, 0, True, 2400),         # the argos mode's chunk
+    (1, 1680, 0, True, 1680),         # its final chunk on the pass
+    (1, 2416, 0, True, 2416),         # without quirks (16 carried)
+    (1, 2400, SMALL_RING, False, 512),
+    (1, 60000, 0, False, 16384),      # a long chunk (-c 60000)
+])
+def test_scan_geometry_f64(B, cap, ring_floats, resident, ring):
+    """The ring the float64 kernel chooses: doubles, 16 bytes two of them;
+    the argos chunk resident in 25 KB."""
+    lt, tiles, res, n_ring, ctas = scan_geom(B, cap, ring_floats, size=8)
+    assert (res, n_ring) == (resident, ring)
+    assert ctas * (smem_bytes(tiles, n_ring, 8) + CTA_RESERVE + 4) \
+        <= SMEM_PER_SM
+    if cap == 2400 and res:
+        assert smem_bytes(tiles, n_ring, 8) < 26 * 1024
+    if not res:
+        assert tiles << lt == n_ring and tiles >= 4
 
 
 def test_scan_wrapper_on_cpu_takes_the_ring_keyword():

@@ -154,9 +154,11 @@ def test_demodulate_blocked_batches_give_the_same_frames():
     t = W.time_axis(len(iq), fs, np.float32)
     plan = TB.BlockPlan(4096, 4096, 8192, 8)       # short blocks: CPU time
     assert -(-len(iq) // plan.core) == 10
-    one = TB.demodulate_blocked(iq, t, fs, POES_TIP, plan=plan, device="cpu")
+    one = TB.demodulate_blocked(iq, t, fs, POES_TIP, plan=plan,
+                                use_pallas="fused", device="cpu")
     split = TB.demodulate_blocked(iq, t, fs, POES_TIP, plan=plan,
-                                  batch_blocks=5, device="cpu")
+                                  batch_blocks=5, use_pallas="fused",
+                                  device="cpu")
     key = lambda f: (f.time, f.inverted, bytes(f.data))
     assert [key(f) for f in split] == [key(f) for f in one]
     assert len(one) >= 3

@@ -188,3 +188,63 @@ def test_agc_scan_matches_jax_on_order_inputs(kind, n):
                               p.attack, p.decay)
     assert np.abs(np.asarray(jy) - ty.numpy()).max() <= 1e-5
     assert np.abs(np.asarray(js.gain) - ts.gain.numpy()).max() <= 1e-5
+
+
+# The float64 ``argos`` mode (its exact chain's PLL, ``pll_scan_f64``):
+# the decoupled kernel instantiated in double runs the same stages in
+# double.  Held bit for bit to the plain version in float64, and to JAX's
+# XLA scan under x64 with tests/test_torch_argos_exact.py's tolerances:
+# the data arm, phase and frequency 1e-12 (XLA contracts the EMAs into
+# fused multiply-adds; its sin/cos may round otherwise), the lock signal
+# 1e-8 (q_rsqrt squeezes the sample's power through float32), ``locked``
+# equal.
+
+@pytest.fixture
+def x64():
+    """JAX's x64 switch on for one test, off again after it."""
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def _pll_case_f64(lanes, L, B):
+    """_pll_case's argos inputs and lane states in float64."""
+    params, jparams, z, st = _pll_case("argos", lanes, L, B)
+    st = pll_ops.PLLState(*(x.double() if x.is_floating_point() else x
+                            for x in st))
+    return params, jparams, tuple(x.double() for x in z), st
+
+
+@pytest.mark.parametrize("L", [1, 63, 1000, 2400])
+@pytest.mark.parametrize("lanes", LANES)
+def test_pll_scan_order_matches_plain_f64(lanes, L):
+    params, _, z, st = _pll_case_f64(lanes, L, 5)
+    got = pll_scan_order(params, st, *z)
+    assert got[1].dtype == got[2].dtype == torch.float64
+    _equal(got, pll_ops.pll_scan_ref(params, st, *z))
+
+
+def test_near_lanes_lock_inside_a_chunk_in_float64():
+    params, _, z, st = _pll_case_f64("near", 1000, 5)
+    _, _, lock = pll_ops.pll_scan_ref(params, st, *z)
+    locked = lock > params.lock_threshold
+    assert bool(locked.any(1).all())
+    assert bool((locked.int().argmax(1) % K != K - 1).any())
+
+
+@pytest.mark.parametrize("L", [1, 63, 1000, 2400])
+@pytest.mark.parametrize("lanes", LANES)
+def test_pll_scan_order_f64_matches_jax_x64(x64, lanes, L):
+    params, jparams, z, st = _pll_case_f64(lanes, L, 5)
+    tst, tout, tlock = pll_scan_order(params, st, *z)
+    gst, gout, glock = JP.pll_scan(
+        jparams, _jax_state(st), tuple(jnp.asarray(x.numpy()) for x in z))
+    assert np.asarray(gout).dtype == np.float64
+    assert np.abs(np.asarray(gout) - tout.numpy()).max() <= 1e-12
+    assert np.abs(np.asarray(glock) - tlock.numpy()).max() <= 1e-8
+    assert np.abs(np.asarray(gst.phase) - tst.phase.numpy()).max() <= 1e-12
+    assert np.abs(np.asarray(gst.freq) - tst.freq.numpy()).max() <= 1e-12
+    assert np.array_equal(np.asarray(gst.locked), tst.locked.numpy())

@@ -74,7 +74,7 @@ def test_generated_positions_match_the_staged_plane(monkeypatch):
     _, pad0 = TB.position_seeds(lo, 1)
     assert float(pad0[0]) == PLAN.head and not pad0[1:].any()
     staged = TB.demod_blocks(params, PLAN.total, zre, zim, FS, pos, fest,
-                             norm)
+                             norm, use_pallas="fused")
     # demod_frames' own call of demod_blocks, kept by a spy
     gen = []
 
@@ -84,7 +84,7 @@ def test_generated_positions_match_the_staged_plane(monkeypatch):
     demod_blocks = TB.demod_blocks
     monkeypatch.setattr(TB, "demod_blocks", spy)
     got = TB.demod_frames(params, PLAN, POES_TIP.framer, FS, zre, zim, lo,
-                          n, fest, norm)
+                          n, fest, norm, use_pallas="fused")
     bits_s, pos_s, n_s, avg_s = staged
     bits_g, pos_g, n_g, avg_g = gen[0]
     assert torch.equal(n_s, n_g) and int(n_s.sum()) > 100
