@@ -31,6 +31,22 @@ and drives the port's three entry points:
   ``gardner_manchester_scan_f64`` (the image in shared memory)), whose
   payloads must be the JAX float64 exact chain's (``argos_exact_cli``,
   split as ``exact_cli``);
+- the POES pass through the flat whole-file path (``flat_path``):
+  ``demod_frames_flat`` one-shot on branch False and on the fused branch
+  (int16 planes uploaded whole, windows cut on the card), each frames file
+  byte for byte ``demodulate_blocked``'s on that branch;
+  ``demod_frames_flat_pipelined`` in ``bench.py``'s end-to-end
+  configuration (fused, tgen, pack=-1, 4 slices); the planes scaled to 13
+  signed bits, packed to 13 bits, their frames those of the same planes
+  as int16; every payload once;
+- a synthetic 60-s POES recording through ``DemodSession`` with each of
+  the exact chain's other clocks (``clocks_exact``: ``"mm"`` with and
+  without the quirks, ``"upsampling_gardner"`` and ``"upsampling_mm"``,
+  float32 and float64, one lane, on ``mm_manchester_scan``,
+  ``upsampling_gardner_manchester_scan`` and
+  ``upsampling_mm_manchester_scan`` or their ``_f64`` instances), whose
+  payloads must be the JAX exact chain's (``CLOCK_REFERENCE``), the
+  upsampling clocks also at 7,000-sample chunks with the same lines;
 - the two ablation tools (``project_desert_tortoise_tpu_torch/tools``),
   every variant at 128 and at 4,224 lanes (``ablation`` lines);
 - multi-channel serving (``serving``): a ``ChannelBank`` of 256 POES
@@ -57,7 +73,7 @@ pointers), ``gardner_manchester_scan`` also at 352 lanes on the
 unwindowed layout of the POES blocks, each time against its serial twin
 ``gardner_manchester_scan_serial`` too (timed in the same run; a
 ``design`` line each), and ``DemodSession`` on a short clip on the card
-against the CPU and, on the clip's first 25,000 samples, against its
+against the CPU and, on the clip's first 12,500 samples, against its
 plain versions on the card (``exact_small``).  The float64 kernels are
 held to their plain versions at one lane from an unlocked start (and the
 PLL from a locked one), over a 2,400-sample chunk, the pass's final one
@@ -67,7 +83,11 @@ pointers and on the chunk-invariant image, ``pll_scan_f64`` and
 ``pll_scan_f64_serial`` and ``gardner_manchester_scan_f64_serial``
 (``argos_exact_kernels``: ``kernel_vs_plain`` and
 ``whole_chunk_vs_serial`` lines and a ``design`` line with the chain
-bounds at the FP64 latency that ``fp64_latency`` measures first).
+bounds at the FP64 latency that ``fp64_latency`` measures first).  The
+three clock kernels are held to their plain versions at one lane over one
+POES chunk's image, in float32 and float64, from a fresh and a carried
+state, over the whole image and a ragged final chunk (``clock_kernels``:
+their ms, bytes and chain bounds).
 
 It holds the decoupled ``fused_demod``, ``pll_fir_agc``, ``pll_scan`` and
 ``agc_scan`` and the windowed ``gardner_manchester`` to their serial twins
@@ -140,6 +160,26 @@ ARGOS_EXACT_REFERENCE_MISSED = (
     208, 214, 215, 216, 222, 229, 290, 306, 320, 343, 352, 381, 403, 404,
     439, 444, 453, 470, 474, 500, 536, 558, 575, 587)
 ARGOS_EXACT_REFERENCE_EXTRA = ("250e9fffffffff", "7da33fffffffff")
+# the exact chain's other clocks (clocks_exact): a synthetic 60-s POES
+# recording (CLOCK_FRAMES frames after the acquisition lead-in) through
+# DemodSession with each hand-built clock configuration (clock_cfg), in
+# these (clock, quirks) runs, float32 and float64, at the mode's chunk;
+# the upsampling clocks also at CLOCK_SECOND_CHUNK, whose lines must be
+# the same
+CLOCK_FRAMES = 600
+CLOCK_RUNS = (("mm", True), ("mm", False), ("upsampling_gardner", False),
+              ("upsampling_mm", False))
+CLOCK_SECOND_CHUNK = 7000
+# what the JAX package's exact chain (DemodSession with the same
+# configuration, float64 under x64) misses of those payloads, what else it
+# decodes (in hex; the lead-in apart) and what it decodes twice, by
+# (clock, quirks, dtype): each run misses the first two frames after the
+# lead-in (its clock still acquiring) and nothing else, decodes nothing
+# else and nothing twice.  tests/test_torch_clock_pass.py recomputes them
+# on the CPU
+CLOCK_REFERENCE = {(clock, quirks, dtype): ((0, 1), (), ())
+                   for clock, quirks in CLOCK_RUNS
+                   for dtype in ("float32", "float64")}
 # the exact chain's B=1 checks of pll_scan and agc_scan from an unlocked
 # start: poes_tip's and poes_tip_realtime's chunks and a short final one
 EXACT_CHECK_L = (10000, 2400, 1234)
@@ -150,6 +190,11 @@ EXACT_CHECK_L = (10000, 2400, 1234)
 # exact chain's phases joined the run, which then passed the 1,200 s limit
 # on a slower host)
 MAIN_CHECK_L = 8192
+# the same for the two kernels without Gardner windows, fused_demod and
+# pll_fir_agc, on the main blocks: 16 of their 256-sample chunks (8,192
+# until the exact chain's other clocks and the flat path joined the run,
+# which then took 799 s of the 1,200 s limit)
+FRONT_CHECK_L = 4096
 # floats of the forced small ring on which gardner_manchester_scan is
 # also checked (four tiles of 512: recycled, the stale pointer read from
 # device memory)
@@ -208,9 +253,23 @@ KERNELS = {
     "gardner_manchester_scan_f64_serial": (CSRC + "scan_kernels.cu",
                                            JAX + "ops/clock.py:58, " + JAX
                                            + "ops/manchester.py:34"),
+    # the exact chain's other clocks, each followed by its Manchester scan,
+    # and their double instances (JAX runs them under x64 there)
+    **{name + suffix: (CSRC + "scan_kernels.cu",
+                       JAX + f"ops/clock.py:{line}, " + JAX
+                       + "ops/manchester.py:34")
+       for name, line in (("mm_manchester_scan", 111),
+                          ("upsampling_gardner_manchester_scan", 272),
+                          ("upsampling_mm_manchester_scan", 344))
+       for suffix in ("", "_f64")},
     "ablate_kernel": (CSRC + "ablate_kernel.cu", "tools/ablate_kernel.py:32"),
     "ablate_fused": (CSRC + "ablate_fused.cu", "tools/ablate_fused.py:42"),
 }
+# the three clock kernels' wrappers in scan_kernels, float32 and float64
+CLOCK_KERNELS = tuple(f"{clock}_manchester_scan{suffix}"
+                      for clock in ("mm", "upsampling_gardner",
+                                    "upsampling_mm")
+                      for suffix in ("", "_f64"))
 # the kernels each main path launches: the branches of demod_blocks and
 # the two ablation tools
 PATH_KERNELS = {"fused": ("fused_demod",),
@@ -220,7 +279,21 @@ PATH_KERNELS = {"fused": ("fused_demod",),
                 "argos_exact": ("pll_scan_f64", "agc_scan_f64",
                                 "gardner_manchester_scan_f64"),
                 "ablate_kernel": ("ablate_kernel",),
-                "ablate_fused": ("ablate_fused",)}
+                "ablate_fused": ("ablate_fused",),
+                # the flat whole-file path (demod_frames_flat and the
+                # pipelined slices) on the fused branch and on branch False
+                "flat_fused": ("fused_demod",),
+                "flat_scan": ("pll_scan", "agc_scan", "gardner_manchester"),
+                # the exact chain under each other clock, in float32 and in
+                # float64
+                **{f"exact_{clock}": ("pll_scan", "agc_scan",
+                                      f"{clock}_manchester_scan")
+                   for clock in ("mm", "upsampling_gardner",
+                                 "upsampling_mm")},
+                **{f"exact_{clock}_f64": ("pll_scan_f64", "agc_scan_f64",
+                                          f"{clock}_manchester_scan_f64")
+                   for clock in ("mm", "upsampling_gardner",
+                                 "upsampling_mm")}}
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 and
 # fp64 (outside the tensor cores) flop/s
 HBM_BYTES_S = 3.35e12
@@ -269,6 +342,7 @@ def kernel_fns() -> dict:
             "pll_scan_f64_serial": pll_scan_f64_serial,
             "gardner_manchester_scan_f64_serial":
                 scan_kernels.gardner_manchester_scan_f64_serial,
+            **{name: getattr(scan_kernels, name) for name in CLOCK_KERNELS},
             "ablate_kernel": ablate_kernel.ablate_kernel,
             "ablate_fused": ablate_fused.ablate_fused}
 
@@ -1103,7 +1177,7 @@ def phase_fused_at_main_shape(mode_name: str, staged, fused_wall: float,
     with time generation (the path's mode) and with the staged position
     plane on the whole blocks, the two held to each other; then the
     path's mode held bit for bit to the plain version on the blocks' first
-    MAIN_CHECK_L samples (block 0's padded head among them), and for POES
+    FRONT_CHECK_L samples (block 0's padded head among them), and for POES
     the staged plane on the same samples."""
     from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
         fused_demod, fused_demod_ref, geometry)
@@ -1137,15 +1211,15 @@ def phase_fused_at_main_shape(mode_name: str, staged, fused_wall: float,
 
     if float(pad0.max()) <= 0:
         raise AssertionError("no padded block among the main blocks")
-    zc = tuple(x[:, :MAIN_CHECK_L].contiguous() for x in z)
+    zc = tuple(x[:, :FRONT_CHECK_L].contiguous() for x in z)
     time_pair("fused_demod", f"{mode_name} main blocks, time generation",
               lambda: gen(zc), lambda: gen(zc, ref=True),
-              [B, MAIN_CHECK_L], stats)
+              [B, FRONT_CHECK_L], stats)
     if mode_name == "poes":
-        pc = pos[:, :MAIN_CHECK_L].contiguous()
+        pc = pos[:, :FRONT_CHECK_L].contiguous()
         time_pair("fused_demod", "poes main blocks, staged plane",
                   lambda: plane(zc, pc), lambda: plane(zc, pc, ref=True),
-                  [B, MAIN_CHECK_L], stats)
+                  [B, FRONT_CHECK_L], stats)
     # float32 re, im in and the merged bit plane and bit time out (no time
     # plane with time generation); operations counted from the source
     # (sinf/cosf one each): PLL ~40 a sample, FIR 2 a tap, AGC 8 an
@@ -1406,8 +1480,9 @@ def phase_new_kernels_at_main_shape(mode_name: str, staged, stats: dict,
     versions on the inputs demod_blocks gives them on the pass: its lanes,
     warm PLL state and gains, its squelch and its Gardner layout (windows
     of window * interp), each bit-exact, on the blocks' first MAIN_CHECK_L
-    samples (two Gardner windows).  Also fir_interp on the card against the
-    float64 sum, which TF32 would miss (its error is reported beside)."""
+    samples (two Gardner windows; pll_fir_agc on the first FRONT_CHECK_L).
+    Also fir_interp on the card against the float64 sum, which TF32 would
+    miss (its error is reported beside)."""
     import torch
     from project_desert_tortoise_tpu_torch.ops import agc, clock, fir, pll
     from project_desert_tortoise_tpu_torch.ops import manchester as man
@@ -1423,9 +1498,11 @@ def phase_new_kernels_at_main_shape(mode_name: str, staged, stats: dict,
     z = tuple(x[:, :L].contiguous() for x in (zre, zim))
     pst, gain0 = blocked.warm_state(params, fest, fs, norm)
     case = f"{mode_name} main path blocks"
+    zf = tuple(x[:, :FRONT_CHECK_L].contiguous() for x in z)
     time_pair("pll_fir_agc", case,
-              lambda: pll_fir_agc(params, pst, gain0, z),
-              lambda: pll_fir_agc_ref(params, pst, gain0, z), [B, L], stats)
+              lambda: pll_fir_agc(params, pst, gain0, zf),
+              lambda: pll_fir_agc_ref(params, pst, gain0, zf),
+              [B, FRONT_CHECK_L], stats)
     pos = blocked.sample_positions(lo, n, plan.total, 1 if interp > 1 else 0)
     pos = pos[:, :L].contiguous()
     time_pair("pll_scan", case, lambda: pll_scan_kernel(params.pll, pst, z),
@@ -2101,10 +2178,11 @@ def state_diff(card, cpu, what: str) -> dict:
 
 EXACT_SMALL_MODES = ("poes_tip", "poes_tip no quirks", "poes_tip_realtime")
 # the first samples of exact_small's clip on which the session with the
-# plain versions on the card runs (~1 ms a sample there, host-bound): two
-# poes_tip chunks and a short final one, ten poes_tip_realtime chunks and a
-# short final one
-EXACT_SMALL_PLAIN_N = 25_000
+# plain versions on the card runs (~1 ms a sample there, host-bound): a
+# poes_tip chunk and a short final one, five poes_tip_realtime chunks and
+# a short final one (25,000 until the other clocks and the flat path
+# joined the run)
+EXACT_SMALL_PLAIN_N = 12_500
 
 
 def exact_small_session(name: str, device: str, n=None):
@@ -3171,6 +3249,369 @@ def phase_realtime(workdir: str) -> dict:
     return launches
 
 
+# --- the exact chain's other clocks and the flat whole-file path
+
+# dependent operations a symbol slot on each clock kernel's next-sample
+# chain (csrc/scan_kernels.cu), counted as GM_SLOT_CHAIN_OPS is: "mm"
+# (MmClock::slot) 16: rint, compare, float->int, two clamps, the read's
+# address and load, sign (compare, select), multiply, subtract, multiply,
+# add, two clamps, add, select; the upsampling ones (UpGardnerClock,
+# UpMmClock) 20: compare, select, add, float->int, two clamps, address,
+# load, the error (subtract or sign, two multiplies), two clamps, then the
+# split pointer: subtract, floor, subtract, add, floor, subtract, select.
+# The Manchester decision is off that chain.
+CLOCK_CHAIN_OPS = {"mm": 16, "upsampling_gardner": 20, "upsampling_mm": 20}
+# operations a slot, timing and Manchester (for the operations bound)
+CLOCK_SLOT_OPS = {"mm": 35, "upsampling_gardner": 45, "upsampling_mm": 40}
+
+
+def clock_cfg(cfg_mod, clock: str, dtype: str = "float32"):
+    """POES_TIP of `cfg_mod` (either package's utils/config.py) with the
+    exact chain's `clock` in the JAX tests' settings: "mm" with
+    error_limit 3 and gain 0.15 (tests/test_clock.py:118-121); the
+    upsampling clocks at level 4, cubic, gain 1, error_limit 2 behind a
+    plain low-pass at the input rate (tests/test_upsampling_clock.py:
+    18-27); in `dtype`."""
+    import dataclasses
+    P = dataclasses.replace(cfg_mod.POES_TIP, dtype=dtype)
+    if clock == "mm":
+        return dataclasses.replace(P, gardner=dataclasses.replace(
+            P.gardner, algorithm="mm", error_limit=3.0, gain=0.15))
+    return dataclasses.replace(
+        P, fir=cfg_mod.FIRConfig(cutoff_hz=11000.0, base_order=26,
+                                 target_rate_hz=None, interp=1),
+        gardner=dataclasses.replace(
+            P.gardner, algorithm=clock, upsample_level=4,
+            upsample_kind="cubic", gain=1.0, error_limit=2.0))
+
+
+def clock_recording(workdir: str):
+    """The 60-s POES recording of clocks_exact as a WAV: CLOCK_FRAMES
+    frames after an acquisition lead-in frame, 50 kHz.  Returns (path, the
+    payloads to recover, the lead-in's payload)."""
+    from project_desert_tortoise_tpu_torch.utils import synth, wav as W
+    iq, frames = synth.make_poes_recording(n_frames=CLOCK_FRAMES + 1,
+                                           fs=POES_FS)
+    wav = os.path.join(workdir, "clock_recording.wav")
+    W.write_iq_wav(wav, iq / (np.abs(iq).max() * 1.2), int(POES_FS))
+    return wav, [bytes(f) for f in frames[1:]], bytes(frames[0])
+
+
+def clock_images(clock: str, dtype, dev, ragged: bool, carried: bool):
+    """A clock kernel's arguments at one POES chunk: the chunk-invariant
+    image (TAIL_MARGIN + 10,000 samples at the mode's interpolation, for
+    the upsampling clocks at interp 1 upsampled 4 x, cubic), a fresh or a
+    carried state, the valid length the whole image or a ragged final
+    chunk's (7,409 samples), the parameters and max_syms."""
+    import torch
+    from project_desert_tortoise_tpu_torch import chain
+    from project_desert_tortoise_tpu_torch.ops import resample
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+    from project_desert_tortoise_tpu_torch.utils import config as C
+    params = chain.make_params(clock_cfg(C, clock), POES_FS)
+    m, L = chain.TAIL_MARGIN, C.POES_TIP.chunk_size
+    cap0 = m + L * params.interp
+    msyms = chain.max_symbols(cap0, params.step_size)
+    x = torch.tensor(sym_image(cap0, params.step_size, 3), dtype=dtype,
+                     device=dev)
+    n_in = m + (L - 2591) * params.interp if ragged else cap0
+    if clock == "mm":
+        p = sk.mm_params(params.fs_interp, params.baud,
+                         params.gardner_err_limit, params.gardner_gain,
+                         params.resync_threshold)
+        rows = ([3.4 + m, params.step_size * 1.0007, 0.8] if carried
+                else [m, params.step_size, 0.0])
+        n_valid = n_in
+    else:
+        up = params.upsample_level
+        x = resample.upsample(x, up, params.upsample_kind).contiguous()
+        p = sk.upsampling_params(params.step_size * up,
+                                 params.gardner_err_limit,
+                                 params.gardner_gain, params.resync_threshold)
+        n_valid = (n_in - chain.EDGE) * up
+        # split pointers shifted by the margin, as chunk_step shifts them
+        rows = [m * up - 3.0, 0.37] if carried else [m * up, 0.0]
+        if clock == "upsampling_gardner":       # the mid-bit pointer
+            rows += [m * up - 40.0, 0.86] if carried else [m * up, 0.0]
+        rows += [-0.6 if carried else 0.0]
+    cap = x.shape[1]
+    t = (torch.arange(1, cap + 1, device=dev, dtype=dtype)
+         / POES_FS)[None].contiguous()
+    man = [0.9, -0.8, 0.7] if carried else [0.0, 0.0, 0.0]
+    fstate = tuple(torch.full((1,), float(v), dtype=dtype, device=dev)
+                   for v in rows + man)
+    istate = (torch.zeros(1, dtype=torch.int32, device=dev),
+              torch.full((1,), int(carried), dtype=torch.int32, device=dev))
+    n = torch.full((1,), n_valid, dtype=torch.int32, device=dev)
+    return (fstate, istate, x, t, n, p, msyms)
+
+
+def phase_clock_kernels(stats: dict):
+    """The exact chain's three other clock kernels (mm_manchester_scan,
+    upsampling_gardner_manchester_scan, upsampling_mm_manchester_scan)
+    against their plain versions on the card, bit for bit, in float32 and
+    in float64 (the _f64 instances), at one lane over one POES chunk's
+    image (clock_images): from a fresh state over the whole image and from
+    a carried one over a ragged final chunk (tests/test_torch_clocks_cuda.py
+    has the other combinations and more lanes).  One `clock_kernel` line
+    each kernel: ms a launch (CUDA events, fresh state, whole image), the
+    bytes bound of those inputs (each value the chain reads, and the
+    outputs, once), the chain bound (CLOCK_CHAIN_OPS a slot up to the last
+    active one, at 4 cycles in float32 and at the measured FP64 latency in
+    float64, computed), the plain version's ms; the launches on the main
+    paths are the clocks_exact lines' and the kernels line's."""
+    import torch
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+
+    dev = torch.device("cuda")
+    for clock in ("mm", "upsampling_gardner", "upsampling_mm"):
+        for dtype in (torch.float32, torch.float64):
+            f64 = dtype == torch.float64
+            name = f"{clock}_manchester_scan" + ("_f64" if f64 else "")
+            kern = getattr(sk, f"{clock}_manchester_scan")  # routes float64
+            plain = getattr(sk, f"{clock}_manchester_scan_ref")
+            times = {}
+            for carried, ragged in ((False, False), (True, True)):
+                args = clock_images(clock, dtype, dev, ragged, carried)
+                case = (f"{'carried' if carried else 'fresh'} state, "
+                        f"{'ragged final chunk' if ragged else 'whole image'}")
+                times[case] = time_pair(
+                    name, f"exact chain, 1 lane, {case}",
+                    lambda: kern(*args), lambda: plain(*args),
+                    list(args[2].shape), stats)
+            args = clock_images(clock, dtype, dev, False, False)
+            ms, plain_ms, _ = times["fresh state, whole image"]
+            out = kern(*args)
+            count, msyms = int(out[-1][0]), args[-1]
+            w = 8.0 if f64 else 4.0
+            reads = 3.0 if clock == "upsampling_gardner" else 2.0
+            n_bytes = count * reads * w + msyms * (2 * w + 3)
+            cycles = chain_cycles_f64() if f64 else CHAIN_CYCLES
+            chain_ms = chain_bound_ms(min(count + 1, msyms),
+                                      CLOCK_CHAIN_OPS[clock], cycles)
+            b = bound(n_bytes, msyms * CLOCK_SLOT_OPS[clock],
+                      FP64_FLOP_S if f64 else FP32_FLOP_S)
+            # the chain bound is computed: on this line, not in the table
+            stats[name].update(ms=ms, shape=list(args[2].shape),
+                               max_syms=msyms, active_slots=count, **b)
+            emit("clock_kernel", kernel=name, shape=list(args[2].shape),
+                 max_syms=msyms, active_slots=count, ms=ms,
+                 plain_ms=plain_ms, chain_bound_ms=chain_ms,
+                 chain_ops_a_slot=CLOCK_CHAIN_OPS[clock],
+                 chain_cycles=cycles, bit_exact=True, card=card_line(), **b)
+
+
+def clock_payloads(frames, want, lead_in, key) -> dict:
+    """The run's payloads against CLOCK_REFERENCE[key]: raises unless the
+    missed, the extra and the repeated payloads are the reference's."""
+    got = [bytes(f.data) for f in frames]
+    missed, extra, repeated = payload_diff(got, want, lead_in)
+    ref = CLOCK_REFERENCE[key]
+    if (tuple(missed), tuple(extra), tuple(repeated)) != ref:
+        raise AssertionError(f"{key}: missed {missed[:20]}, extra "
+                             f"{extra[:10]}, repeated {repeated[:20]}; "
+                             f"the reference's {ref}")
+    return dict(frames=len(got), recovered_once=len(want) - len(missed)
+                - len(repeated), of=len(want), missed=missed, extra=extra,
+                repeated=repeated, as_reference=True)
+
+
+def phase_clocks_exact(workdir: str) -> collections.Counter:
+    """DemodSession on the card with each of the exact chain's other clocks
+    (clock_cfg, CLOCK_RUNS), float32 and float64, on the 60-s recording
+    (clock_recording) at the mode's chunk, one lane: each a main path
+    (exact_<clock>[_f64]) whose payloads must be the JAX exact chain's
+    (CLOCK_REFERENCE); the upsampling clocks (float32) also at
+    CLOCK_SECOND_CHUNK with the norm of the first run, their lines the
+    same as at 10,000.  Each kernel
+    launch is bracketed by CUDA events in the run (launch_events).
+    Returns the launches."""
+    import torch
+    from project_desert_tortoise_tpu_torch.models.demodulator import (
+        DemodSession)
+    from project_desert_tortoise_tpu_torch.ops.kernels import common
+    from project_desert_tortoise_tpu_torch.utils import config as C
+    from project_desert_tortoise_tpu_torch.utils import wav as W
+
+    wav, want, lead_in = clock_recording(workdir)
+    launches = collections.Counter()
+    lines, norms = {}, {}
+    for dtype in ("float32", "float64"):
+        iq, t, fs, _ = W.load_iq_wav(wav, np.dtype(dtype))
+        for clock, quirks in CLOCK_RUNS:
+            cfg = clock_cfg(C, clock, dtype)
+            chunks = (cfg.chunk_size,)
+            if clock.startswith("upsampling") and dtype == "float32":
+                chunks += (CLOCK_SECOND_CHUNK,)
+            for chunk in chunks:
+                path = f"exact_{clock}" + ("_f64" if dtype == "float64"
+                                           else "")
+                # the second chunk size takes the first's norm: the
+                # first-chunk probe depends on the chunk by definition
+                sess = DemodSession(cfg, fs, chunk_size=chunk, quirks=quirks,
+                                    norm_factor=norms.get((clock, dtype)),
+                                    device="cuda")
+                events = {}
+                with patched(common, "launch_events", events):
+                    t0 = time.time()
+                    res, counts = drive(path, lambda: sess.run(iq, t))
+                    wall = time.time() - t0
+                norms[clock, dtype] = sess.norm_factor
+                torch.cuda.synchronize()
+                ms = {k: sum(a.elapsed_time(b) for a, b in v) / len(v)
+                      for k, v in events.items()}
+                got = [f.hex_line() for f in res.frames]
+                same = None
+                if chunk != cfg.chunk_size:
+                    same = got == lines[clock, dtype]
+                    if not same:
+                        raise AssertionError(
+                            f"{clock}: the lines at {chunk}-sample chunks "
+                            f"differ from those at {cfg.chunk_size}")
+                else:
+                    lines[clock, dtype] = got
+                launches.update(counts)
+                emit("clocks_exact", clock=clock, quirks=quirks, dtype=dtype,
+                     chunk=chunk, samples=len(iq), wall_s=wall,
+                     launches={k: counts[k] for k in PATH_KERNELS[path]},
+                     kernel_event_ms_a_launch=ms,
+                     lines_as_at_mode_chunk=same, card=card_line(),
+                     **clock_payloads(res.frames, want, lead_in,
+                                      (clock, quirks, dtype)))
+        del iq, t
+    os.remove(wav)
+    return launches
+
+
+def phase_flat_path(wav: str, workdir: str, scan_out: str, fused_out: str,
+                    want, lead_in) -> collections.Counter:
+    """The flat whole-file path on the 12-minute POES pass (parallel/
+    blocked.py): ``demod_frames_flat`` one-shot on branch False and on the
+    fused branch, from the WAV's int16 planes uploaded whole (the windows
+    cut on the card), each frames file byte for byte the one
+    ``demodulate_blocked`` wrote on the same branch (the CLI's for False,
+    phase_branch_path's for "fused"); ``demod_frames_flat_pipelined`` in
+    bench.py's end-to-end configuration (bench.py:221-245: "fused",
+    tgen=True, pack=-1, 4 slices), whose frames must be the fused
+    one-shot's; then the planes scaled to 13 signed bits, pipelined with
+    pack=-1, which must choose width 13, their frames those of the same
+    scaled planes shipped as int16 (pack=0).  Every run must recover every
+    payload once.  Walls on the host clock; the upload seconds (the
+    planes' host-to-device copies, timed apart, synchronised) and bytes;
+    the pack width.  Returns the launches."""
+    import filecmp
+    import torch
+    from project_desert_tortoise_tpu_torch import chain
+    from project_desert_tortoise_tpu_torch.ops import agc
+    from project_desert_tortoise_tpu_torch.parallel import blocked
+    from project_desert_tortoise_tpu_torch.utils import wav as W
+    from project_desert_tortoise_tpu_torch.utils.output import FrameWriter
+
+    mode, _ = modes()["poes"]
+    dev = torch.device("cuda")
+    dt = np.dtype(np.float32)
+    iq, t, fs, _ = W.load_iq_wav(wav, mode.np_dtype())
+    n = len(iq)
+    params, plan = chain.make_params(mode, fs), blocked.default_plan(mode, fs)
+    B = -(-n // plan.core)
+    # the PCM samples: the loader's values are int16 / 32768, exactly
+    r16 = (iq.real * 32768.0).astype(np.int16)
+    i16 = (iq.imag * 32768.0).astype(np.int16)
+    norm = float(agc.static_gain(iq[:mode.chunk_size],
+                                 mode.static_gain_level, dt))
+    t_ext = np.concatenate([np.asarray(t, dt), [dt.type(
+        t[-1] + dt.type(1.0) / dt.type(fs))]])
+    del iq, t
+    launches = collections.Counter()
+
+    def write(frames, name):
+        path = os.path.join(workdir, name)
+        with FrameWriter(path, inverted_mark=mode.framer.inverted_mark) as w:
+            w.write_all(frames)
+        return path
+
+    def check(frames, what):
+        return payload_check("poes", [bytes(f.data) for f in frames], want,
+                             lead_in)
+    one_shot = {}
+    for br, ref in ((False, scan_out), ("fused", fused_out)):
+        def run():
+            t0 = time.perf_counter()
+            zre, zim = (torch.from_numpy(a).to(dev) for a in (r16, i16))
+            torch.cuda.synchronize()
+            up = time.perf_counter() - t0
+            frames = blocked._fetch_frames(blocked.demod_frames_flat(
+                params, mode.framer, plan, B, fs, 4096, br, zre, zim, norm),
+                t_ext)
+            return frames, up, time.perf_counter() - t0
+        (frames, up, wall), counts = drive(
+            "flat_fused" if br else "flat_scan", run)
+        launches.update(counts)
+        out = write(frames, f"flat_{br}.txt")
+        if not filecmp.cmp(out, ref, shallow=False):
+            raise AssertionError(f"demod_frames_flat ({br}) did not write "
+                                 "demodulate_blocked's frames")
+        one_shot[br] = frames
+        emit("flat_path", entry="demod_frames_flat", use_pallas=br, B=B,
+             samples=n, wall_s=wall, upload_s=up, upload_bytes=2 * r16.nbytes,
+             launches=counts, lines_as_demodulate_blocked=True,
+             card=card_line(), **check(frames, br))
+
+    def upload_s(re_, im_, pack):
+        """The pipelined slices' pinned host-to-device copies alone."""
+        _, slice_np, width = blocked.stage_flat_slices(plan, B, 4, re_, im_,
+                                                        pack)
+        total, n_bytes = 0.0, 0
+        for k in range(4):
+            planes = slice_np(k)[:2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for a in planes:
+                torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+                n_bytes += a.nbytes
+            torch.cuda.synchronize()
+            total += time.perf_counter() - t0
+        return total, n_bytes, width
+
+    def pipelined(re_, im_, pack, norm_gain, what, ref_frames):
+        t0 = time.perf_counter()
+        frames, counts = drive("flat_fused", lambda: (
+            blocked.demod_frames_flat_pipelined(
+                params, mode.framer, plan, B, fs, 4096, "fused", re_, im_,
+                t_ext, norm_gain, n_slices=4, tgen=True, pack=pack)))
+        wall = time.perf_counter() - t0
+        launches.update(counts)
+        up, n_bytes, width = upload_s(re_, im_, pack)
+        same = ([(f.time, f.inverted, bytes(f.data)) for f in frames]
+                == [(f.time, f.inverted, bytes(f.data)) for f in ref_frames]
+                if ref_frames is not None else None)
+        if same is False:
+            raise AssertionError(f"pipelined ({what}): frames differ")
+        emit("flat_path", entry="demod_frames_flat_pipelined", case=what,
+             use_pallas="fused", tgen=True, pack=pack, pack_width=width,
+             n_slices=4, B=B, wall_s=wall, upload_s=up, upload_bytes=n_bytes,
+             launches=counts, frames_as_reference=same, card=card_line(),
+             **check(frames, what))
+        return frames, width
+    _, width = pipelined(r16, i16, -1, norm, "full-scale int16 planes",
+                         one_shot["fused"])
+    if width != 0:
+        raise AssertionError(f"full-scale planes packed to {width} bits")
+    # the golden clip's level: 13 signed bits
+    scale = 4095.0 / max(int(np.abs(r16).max()), int(np.abs(i16).max()))
+    r13 = np.round(r16 * scale).astype(np.int16)
+    i13 = np.round(i16 * scale).astype(np.int16)
+    z13 = (r13[:mode.chunk_size] + 1j * i13[:mode.chunk_size]) / 32768.0
+    norm13 = float(agc.static_gain(z13, mode.static_gain_level, dt))
+    as_int16, _ = pipelined(r13, i13, 0, norm13, "13-bit planes as int16",
+                            None)
+    _, width = pipelined(r13, i13, -1, norm13, "13-bit planes packed",
+                         as_int16)
+    if width != 13:
+        raise AssertionError(f"13-bit planes packed to {width} bits")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3211,6 +3652,7 @@ def drive_all(exact_cpu, slice_cpu) -> int:
     phase_argos_kernels(stats["argos"])
     phase_fp64_latency()
     phase_argos_exact_kernels(stats["argos"])
+    phase_clock_kernels(stats["poes"])
     phase_exact_small(exact_cpu.result())
     launches = {"poes": collections.Counter(), "argos": collections.Counter()}
     staged = {}
@@ -3232,6 +3674,9 @@ def drive_all(exact_cpu, slice_cpu) -> int:
                 launches[mode_name].update(counts)
                 if br == "fused":
                     fused_out, fused_walls[mode_name] = br_out, wall
+            if mode_name == "poes":
+                launches["poes"].update(phase_flat_path(
+                    wav, workdir, out, fused_out, want, lead_in))
             staged[mode_name], t_ext = phase_stages(mode_name, wav, workdir,
                                                     walls[mode_name])
             if mode_name == "poes":
@@ -3246,6 +3691,7 @@ def drive_all(exact_cpu, slice_cpu) -> int:
                                                   api_lines))
         del planes
         launches["poes"].update(phase_realtime(workdir))
+        launches["poes"].update(phase_clocks_exact(workdir))
     ablation_launches = phase_ablation(stats["poes"])
     slice_frames = slice_cpu.result()
     phase_slice("poes", slice_frames)

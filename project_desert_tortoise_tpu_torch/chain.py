@@ -16,8 +16,12 @@ stream, the FIR a convolution.  With ``quirks=True`` it keeps the
 reference's buffer-image semantics (see ops/clock.py); with
 ``quirks=False`` it is chunk-size invariant.  The state and the chunk run
 in the mode's dtype: float32, or float64 for the ``argos`` mode (its
-kernels' double instances, as JAX runs that mode under x64).  The
-``"gardner"`` clock is ported; the other clock algorithms are not yet.
+kernels' double instances, as JAX runs that mode under x64).  The clock
+is the mode's ``clock_algorithm``: ``"gardner"`` (the reference's),
+``"mm"`` (Mueller & Muller, in both quirks modes), or, with
+``quirks=False`` only, ``"upsampling_gardner"`` and ``"upsampling_mm"``
+(the MATLAB variants on a value-upsampled stream, ``ops/resample.py``),
+each on its own kernel with the Manchester decision.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from project_desert_tortoise_tpu_torch.ops import clock as clock_ops
 from project_desert_tortoise_tpu_torch.ops import fir as fir_ops
 from project_desert_tortoise_tpu_torch.ops import manchester as man_ops
 from project_desert_tortoise_tpu_torch.ops import pll as pll_ops
+from project_desert_tortoise_tpu_torch.ops import resample
 from project_desert_tortoise_tpu_torch.ops.kernels import pll_kernel
 
 
@@ -113,18 +118,23 @@ def max_symbols(cap_interp: int, step_size: float) -> int:
     return int(cap_interp / step_size * 1.05) + 8
 
 
-def _check_ported(params: ChainParams) -> None:
-    if params.clock_algorithm != "gardner":
-        raise ValueError(f"clock algorithm {params.clock_algorithm!r}: not "
-                         "ported yet (the exact chain runs \"gardner\")")
+CLOCKS = ("gardner", "mm", "upsampling_gardner", "upsampling_mm")
+
+
+def _check_clock(params: ChainParams) -> None:
+    if params.clock_algorithm not in CLOCKS:
+        raise ValueError(f"unknown clock algorithm "
+                         f"{params.clock_algorithm!r}: expected one of "
+                         f"{CLOCKS}")
 
 
 def init_state(params: ChainParams, initial_gain: float, chunk_cap: int,
                batch_shape=(), *, device,
                dtype=torch.float32) -> ChainState:
     """The stream state at its start, `dtype` (the mode's: float32, or
-    float64) on `device`."""
-    _check_ported(params)
+    float64) on `device`; the upsampling clocks' pointers are split
+    (integer part, fraction) pairs (JAX ``chain.py:119-121``)."""
+    _check_clock(params)
     n_taps = len(params.taps)
     hist_len = -(-(n_taps - 1) // params.interp)
     cap_i = chunk_cap * params.interp
@@ -135,11 +145,79 @@ def init_state(params: ChainParams, initial_gain: float, chunk_cap: int,
         pll=pll_ops.init_state(params.pll, batch_shape, **kw),
         fir_hist=zeros(hist_len),
         agc=agc_ops.agc_init(initial_gain, batch_shape, **kw),
-        gardner=clock_ops.gardner_init(batch_shape, **kw),
+        gardner=(clock_ops.upsampling_init(batch_shape, **kw)
+                 if params.clock_algorithm.startswith("upsampling")
+                 else clock_ops.gardner_init(batch_shape, **kw)),
         manchester=man_ops.manchester_init(batch_shape, **kw),
         x_img=zeros(cap_i),
         t_img=zeros(cap_i),
     )
+
+
+def _timing(params: ChainParams, g_state, m_state, x, t, n, msyms):
+    """Timing recovery and the Manchester decision over buffer images
+    (JAX ``_timing``, ``chain.py:128-147``, then ``manchester_scan``):
+    Gardner, or Mueller & Muller, whose adaptive step rides in half_raw's
+    slot (0 means not yet set: Fs/baud, as the C static starts,
+    MMClockRecovery.c).  Returns what
+    ``clock_ops.gardner_manchester_scan`` returns."""
+    if params.clock_algorithm == "gardner":
+        return clock_ops.gardner_manchester_scan(
+            g_state, m_state, x, t, n, params.step_size,
+            params.gardner_err_limit, params.gardner_gain,
+            params.resync_threshold, msyms)
+    # the python float takes the state's dtype: no host copy a chunk
+    ss0 = torch.where(g_state.half_raw == 0, params.step_size,
+                      g_state.half_raw)
+    return clock_ops.mm_manchester_scan(
+        g_state._replace(half_raw=ss0), m_state, x, t, n, params.fs_interp,
+        params.baud, params.gardner_err_limit, params.gardner_gain,
+        params.resync_threshold, msyms)
+
+
+# input samples the upsampling clocks stop short of a chunk's end: the
+# cubic kernel reads one future sample, and the carried margin (TAIL_MARGIN
+# >= EDGE + the kernel's tail) presents them again with full context in the
+# next chunk (JAX chain.py:227-233)
+EDGE = 2
+
+
+def _upsampling_timing(params: ChainParams, g_state, m_state, x_ext,
+                       t_ext, n_i: int, msyms: int):
+    """The upsampling clocks over one chunk-invariant chunk (JAX
+    ``chain.py:213-262``): upsample the post-AGC stream and its time axis
+    L x, shift the split pointers' integer parts by the margin, run the
+    clock on the dense stream up to EDGE input samples short of the end,
+    and shift them back into next-chunk-relative coordinates (integer
+    parts: exact).  Returns what ``clock_ops.gardner_manchester_scan``
+    returns."""
+    m, L = TAIL_MARGIN, params.upsample_level
+    x_up = resample.upsample(x_ext, L, params.upsample_kind)
+    ts_i = float(np.float64(1.0) / params.fs_interp)
+    t_up = resample.uniform_times(t_ext, L, ts_i / L)
+    step_u = params.step_size * L
+    n_lim = (m + n_i - EDGE) * L
+
+    def shift(p2, delta):
+        return torch.stack([p2[..., 0] + float(delta), p2[..., 1]], -1)
+    if params.clock_algorithm == "upsampling_gardner":
+        g_in = clock_ops.GardnerState(
+            next_sample=shift(g_state.next_sample, m * L),
+            half_raw=shift(g_state.half_raw, m * L),
+            prev_bit=g_state.prev_bit)
+        scan = clock_ops.upsampling_gardner_manchester_scan
+    else:       # upsampling_mm: fixed step and a sign-law nudge
+        g_in = g_state._replace(next_sample=shift(g_state.next_sample,
+                                                  m * L))
+        scan = clock_ops.upsampling_mm_manchester_scan
+    g_out, *rest = scan(g_in, m_state, x_up, t_up, n_lim, step_u,
+                        params.gardner_err_limit, params.gardner_gain,
+                        params.resync_threshold, msyms)
+    back = -(m + n_i) * L
+    if params.clock_algorithm == "upsampling_gardner":
+        g_out = g_out._replace(half_raw=shift(g_out.half_raw, back))
+    return (g_out._replace(next_sample=shift(g_out.next_sample, back)),
+            *rest)
 
 
 class ChunkOutput(NamedTuple):
@@ -170,7 +248,7 @@ def chunk_step(params: ChainParams, state: ChainState, iq_re, iq_im, t,
     the state's chunk capacity; t_next[i] = time of input sample i+1.  The
     leading axes are streams, one kernel lane each.  Returns (state,
     ChunkOutput)."""
-    _check_ported(params)
+    _check_clock(params)
     lead = tuple(iq_re.shape[:-1])
     n = iq_re.shape[-1]
     interp = params.interp
@@ -204,7 +282,10 @@ def chunk_step(params: ChainParams, state: ChainState, iq_re, iq_im, t,
         y = agc_ops.squelch(y, locksig, params.squelch_threshold)
 
     n_i = n * interp
-    g_in = clock_ops.GardnerState(*map(lanes, state.gardner))
+    # a lane's pointers: (B,), or (B, 2) split pairs for the upsampling
+    # clocks
+    g_in = clock_ops.GardnerState(*(s.reshape((-1,) + tuple(
+        s.shape[len(lead):])) for s in state.gardner))
     m_in = man_ops.ManchesterState(*map(lanes, state.manchester))
     msyms = max_symbols(cap_i, params.step_size)
     if params.quirks:
@@ -213,7 +294,7 @@ def chunk_step(params: ChainParams, state: ChainState, iq_re, iq_im, t,
         # chunk's buffer image at its stale absolute index
         x_img = torch.cat([y, rows(state.x_img)[:, n_i:]], dim=-1)
         t_img = torch.cat([t_out, rows(state.t_img)[:, n_i:]], dim=-1)
-        n_scan = n_i
+        timing = _timing(params, g_in, m_in, x_img, t_img, n_i, msyms)
     else:
         # chunk-size-invariant streaming: carry a small tail of the previous
         # chunk so the pending mid-bit read resolves to the true stream
@@ -222,19 +303,25 @@ def chunk_step(params: ChainParams, state: ChainState, iq_re, iq_im, t,
         m = TAIL_MARGIN
         x_img = torch.cat([rows(state.x_img)[:, -m:], y], dim=-1)
         t_img = torch.cat([rows(state.t_img)[:, -m:], t_out], dim=-1)
-        g_in = g_in._replace(next_sample=g_in.next_sample + m,
-                             half_raw=g_in.half_raw + m)
-        n_scan = m + n_i
+        if params.clock_algorithm.startswith("upsampling"):
+            timing = _upsampling_timing(params, g_in, m_in, x_img, t_img,
+                                        n_i, msyms)
+        else:
+            gardner = params.clock_algorithm == "gardner"
+            # for "mm" half_raw carries the adaptive step, not a pointer:
+            # no margin offset there
+            g_in = g_in._replace(
+                next_sample=g_in.next_sample + m,
+                half_raw=g_in.half_raw + m if gardner else g_in.half_raw)
+            timing = _timing(params, g_in, m_in, x_img, t_img, m + n_i,
+                             msyms)
+            if gardner:
+                # the scan subtracted (m + n_i) from next_sample; bring
+                # half_raw into the same next-chunk-relative coordinates
+                timing = (timing[0]._replace(
+                    half_raw=timing[0].half_raw - (m + n_i)), *timing[1:])
     (gardner_state, man_state, syms, sym_times, sym_valid, sym_count, bits,
-     bit_times, bit_mask) = clock_ops.gardner_manchester_scan(
-        g_in, m_in, x_img, t_img, n_scan, params.step_size,
-        params.gardner_err_limit, params.gardner_gain,
-        params.resync_threshold, msyms)
-    if not params.quirks:
-        # the scan subtracted (m + n_i) from next_sample; bring half_raw
-        # into the same next-chunk-relative coordinates
-        gardner_state = gardner_state._replace(
-            half_raw=gardner_state.half_raw - n_scan)
+     bit_times, bit_mask) = timing
 
     if params.quirks and not lead:
         # Gardner/Manchester write their outputs over the head of the shared
@@ -272,7 +359,9 @@ def from_jax(obj, device="cpu"):
     float64 where the JAX array is float64 (a state of the ``argos`` mode
     under x64), else float32, ``locked`` bool, the Manchester
     ``clockmod``/``evenodd`` int32; a chain state's stream states convert
-    so, and its FIR history and buffer images too.  Works by field names,
+    so, and its FIR history and buffer images too.  A clock state keeps its
+    shapes: the upsampling clocks' (..., 2) split pointers, and the ``"mm"``
+    clock's adaptive step in the half_raw slot.  Works by field names,
     so jax need not be importable here.
     """
     def arr(v, dtype=None):

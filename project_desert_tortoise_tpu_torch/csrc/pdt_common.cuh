@@ -43,6 +43,8 @@ __device__ __forceinline__ float max(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double max(double a, double b) {
   return fmax(a, b);
 }
+__device__ __forceinline__ float floor(float x) { return floorf(x); }
+__device__ __forceinline__ double floor(double x) { return ::floor(x); }
 __device__ __forceinline__ float rint(float x) { return rintf(x); }
 __device__ __forceinline__ double rint(double x) { return ::rint(x); }
 __device__ __forceinline__ int to_int_rz(float x) { return __float2int_rz(x); }

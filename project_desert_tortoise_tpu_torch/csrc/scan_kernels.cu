@@ -92,9 +92,25 @@
 // (gardner_manchester_scan_f64_serial), the serial kernel in double, is
 // its card-side oracle and timing baseline, on no path.
 //
+// The exact chain's other clocks, each followed by the Manchester
+// decision in the same slot: mm_manchester_scan (JAX ops/clock.py::mm_scan
+// :111-148, the Mueller & Muller clock with its adaptive step),
+// upsampling_gardner_manchester_scan (:272-341) and
+// upsampling_mm_manchester_scan (:344-383), the MATLAB variants on a
+// value-upsampled stream with split (integer part, fraction) pointers;
+// each then ops/manchester.py::manchester_scan (:34-74).  They replace XLA
+// scans, no TPU kernel; a scan in plain PyTorch would run one Python step
+// a slot on the card.  The simple design: one thread steps one lane over
+// the image in device memory, writing every slot, float and double
+// instances (pdt_mm_scan, pdt_mm_scan_f64, ...).  At one lane a chunk is
+// ~3,500 slots over a 40 KB-160 KB image, nothing at 3.35 TB/s: each is
+// bound by its chain of dependent operations a slot, the image read (from
+// L2 after its first touch) among them.
+//
 // Numerics as in pdt_common.cuh.
 
 #include <algorithm>
+#include <cstring>
 
 #include "front_stages.cuh"
 
@@ -1240,6 +1256,275 @@ int launch_scan_serial(const T* x, const T* t, const int* n_valid,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// --- the other clocks of the exact chain, one thread a lane
+
+// the M&M clock's constants: the adaptive step's clamp, the loop gain,
+// the Manchester resync threshold (ops/kernels/scan_kernels.py::MMParams)
+template <typename T>
+struct MmParamsT {
+  T step_min, step_max, kp, resync_threshold;
+};
+
+// the upsampling clocks' constants: the step and the half step as (integer
+// part, fraction), the error limit, the loop gain, the Manchester resync
+// threshold (scan_kernels.py::UpsamplingParams)
+template <typename T>
+struct UpParamsT {
+  T step_int, step_frac, half_int, half_frac, err_limit, kp,
+      resync_threshold;
+};
+
+// a split pointer renormalised so that the fraction lies in [0, 1)
+// (clock.py:266-269)
+template <typename T>
+__device__ __forceinline__ void split_norm(T i, T f, T& oi, T& of) {
+  const T k = num::floor(f);
+  oi = i + k;
+  of = f - k;
+}
+
+__device__ __forceinline__ int clamp_index(int i, int cap) {
+  return min(max(i, 0), cap - 1);
+}
+
+// Each clock's timing half of a slot.  kRows: its timing rows at the head
+// of st_f (the Manchester rows cur, prev, prevprev follow); slot() reads
+// the slot's on-time value into cur, advances the state where the slot is
+// active and returns the on-time index (its time's).
+//
+// mm (clock.py:128-141): rows next_sample, step, prev_bit; reads at
+// rint(next_sample); next_sample rolled over by n at the end (:146).
+template <typename T>
+struct MmClock {
+  static constexpr int kRows = 3;
+  using Params = MmParamsT<T>;
+  T ns, ss, prev;
+
+  __device__ void load(const T* f, int B, int b) {
+    ns = f[b];
+    ss = f[B + b];
+    prev = f[2 * B + b];
+  }
+  __device__ int slot(const T* __restrict__ xr, int cap, T nf, T,
+                      const Params& p, bool& active, T& cur) {
+    const T idxf = num::rint(ns);
+    active = idxf < nf;
+    const int ii = clamp_index(num::to_int_rz(idxf), cap);
+    cur = xr[ii];
+    const T err = sgn(prev) * cur - sgn(cur) * prev;
+    const T ss_new = num::min(num::max(ss + p.kp * err, p.step_min),
+                              p.step_max);
+    const T ns_new = ns + ss_new;
+    if (active) {
+      ns = ns_new;
+      prev = cur;
+      ss = ss_new;
+    }
+    return ii;
+  }
+  __device__ void store(T* f, int B, int b, int n) const {
+    f[b] = ns - static_cast<T>(n);
+    f[B + b] = ss;
+    f[2 * B + b] = prev;
+  }
+};
+
+// upsampling Gardner (clock.py:305-335): rows next_sample int, frac,
+// half_raw int, frac, prev_bit; reads at int + (frac >= 0.5), the mid-bit
+// read 0 outside [0, cap); no rollover (the chain shifts the integer
+// parts).
+template <typename T>
+struct UpGardnerClock {
+  static constexpr int kRows = 5;
+  using Params = UpParamsT<T>;
+  T ni, nf, hi, hf, prev;
+
+  __device__ void load(const T* f, int B, int b) {
+    ni = f[b];
+    nf = f[B + b];
+    hi = f[2 * B + b];
+    hf = f[3 * B + b];
+    prev = f[4 * B + b];
+  }
+  __device__ int slot(const T* __restrict__ xr, int cap, T n_f, T capf,
+                      const Params& p, bool& active, T& cur) {
+    const T idx = ni + (nf >= T(0.5) ? T(1) : T(0));
+    active = idx < n_f;
+    const int ii = clamp_index(num::to_int_rz(idx), cap);
+    cur = xr[ii];
+    const T hidx = hi + (hf >= T(0.5) ? T(1) : T(0));
+    const bool in_img = hidx >= T(0) && hidx < capf;
+    const T hval = in_img ? xr[clamp_index(num::to_int_rz(hidx), cap)]
+                          : T(0);
+    T err = p.kp * (cur - prev) * hval;
+    err = num::min(num::max(err, -p.err_limit), p.err_limit);
+    T ai, af, nhi, nhf, nni, nnf;
+    split_norm<T>(ni, nf - err, ai, af);                        // -= Error
+    split_norm<T>(ai + p.half_int, af + p.half_frac, nhi, nhf);  // + step/2
+    split_norm<T>(ai + p.step_int, af + p.step_frac, nni, nnf);  // + step
+    if (active) {
+      ni = nni;
+      nf = nnf;
+      hi = nhi;
+      hf = nhf;
+      prev = cur;
+    }
+    return ii;
+  }
+  __device__ void store(T* f, int B, int b, int) const {
+    f[b] = ni;
+    f[B + b] = nf;
+    f[2 * B + b] = hi;
+    f[3 * B + b] = hf;
+    f[4 * B + b] = prev;
+  }
+};
+
+// upsampling M&M (clock.py:362-377): rows next_sample int, frac, prev_bit;
+// a fixed step and the clipped sign-law error added to the pointer.
+template <typename T>
+struct UpMmClock {
+  static constexpr int kRows = 3;
+  using Params = UpParamsT<T>;
+  T ni, nf, prev;
+
+  __device__ void load(const T* f, int B, int b) {
+    ni = f[b];
+    nf = f[B + b];
+    prev = f[2 * B + b];
+  }
+  __device__ int slot(const T* __restrict__ xr, int cap, T n_f, T,
+                      const Params& p, bool& active, T& cur) {
+    const T idx = ni + (nf >= T(0.5) ? T(1) : T(0));
+    active = idx < n_f;
+    const int ii = clamp_index(num::to_int_rz(idx), cap);
+    cur = xr[ii];
+    T err = p.kp * (sgn(prev) * cur - sgn(cur) * prev);
+    err = num::min(num::max(err, -p.err_limit), p.err_limit);
+    T ai, af, nni, nnf;
+    split_norm<T>(ni, nf + err, ai, af);                        // += Error
+    split_norm<T>(ai + p.step_int, af + p.step_frac, nni, nnf);  // + step
+    if (active) {
+      ni = nni;
+      nf = nnf;
+      prev = cur;
+    }
+    return ii;
+  }
+  __device__ void store(T* f, int B, int b, int) const {
+    f[b] = ni;
+    f[B + b] = nf;
+    f[2 * B + b] = prev;
+  }
+};
+
+// One lane of a clock followed by the Manchester decision, max_syms slots
+// over the lane's (cap,) images x and t in device memory: each slot's
+// on-time value is its soft symbol, its time the bit's time; an inactive
+// slot freezes the state.  st_f rows: the clock's kRows, then Manchester
+// cur, prev, prevprev; st_i rows: clockmod, evenodd.
+template <typename T, typename Clock>
+__device__ __forceinline__ void clock_manchester_lane(
+    const T* __restrict__ x, const T* __restrict__ t,
+    const int* __restrict__ n_valid, const T* __restrict__ st_f_in,
+    const int* __restrict__ st_i_in, T* __restrict__ syms,
+    T* __restrict__ times, uint8_t* __restrict__ valid,
+    uint8_t* __restrict__ bits, uint8_t* __restrict__ emit,
+    T* __restrict__ st_f_out, int* __restrict__ st_i_out,
+    int* __restrict__ count, int B, int cap, int max_syms,
+    const typename Clock::Params& p) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  constexpr int r = Clock::kRows;
+  Clock c;
+  c.load(st_f_in, B, b);
+  SlotStateT<T> m;            // the Manchester fields only
+  m.m_cur = st_f_in[r * B + b];
+  m.m_prev = st_f_in[(r + 1) * B + b];
+  m.m_prevprev = st_f_in[(r + 2) * B + b];
+  m.clockmod = st_i_in[b];
+  m.evenodd = st_i_in[B + b];
+  const int n = n_valid[b];
+  const T nf = static_cast<T>(n);
+  const T capf = static_cast<T>(cap);
+  const T* xr = x + static_cast<size_t>(b) * cap;
+  const T* tr = t + static_cast<size_t>(b) * cap;
+  const size_t row = static_cast<size_t>(b) * max_syms;
+  int active_slots = 0;
+  for (int s = 0; s < max_syms; ++s) {
+    bool active;
+    T cur;
+    const int ii = c.slot(xr, cap, nf, capf, p, active, cur);
+    const int be = manchester_slot(m, cur, active, p.resync_threshold);
+    const size_t o = row + s;
+    syms[o] = cur;
+    times[o] = tr[ii];
+    valid[o] = active ? 1 : 0;
+    bits[o] = static_cast<uint8_t>(be & 1);
+    emit[o] = static_cast<uint8_t>(be >> 1);
+    active_slots += active ? 1 : 0;
+  }
+  c.store(st_f_out, B, b, n);
+  st_f_out[r * B + b] = m.m_cur;
+  st_f_out[(r + 1) * B + b] = m.m_prev;
+  st_f_out[(r + 2) * B + b] = m.m_prevprev;
+  st_i_out[b] = m.clockmod;
+  st_i_out[B + b] = m.evenodd;
+  count[b] = active_slots;
+}
+
+#define PDT_CLOCK_KERNEL(NAME, CLOCK)                                       \
+  template <typename T>                                                     \
+  __global__ void __launch_bounds__(kThreads) NAME(                         \
+      const T* __restrict__ x, const T* __restrict__ t,                     \
+      const int* __restrict__ n_valid, const T* __restrict__ st_f_in,       \
+      const int* __restrict__ st_i_in, T* __restrict__ syms,                \
+      T* __restrict__ times, uint8_t* __restrict__ valid,                   \
+      uint8_t* __restrict__ bits, uint8_t* __restrict__ emit,               \
+      T* __restrict__ st_f_out, int* __restrict__ st_i_out,                 \
+      int* __restrict__ count, int B, int cap, int max_syms,                \
+      const typename CLOCK<T>::Params p) {                                  \
+    clock_manchester_lane<T, CLOCK<T>>(x, t, n_valid, st_f_in, st_i_in,     \
+                                       syms, times, valid, bits, emit,      \
+                                       st_f_out, st_i_out, count, B, cap,   \
+                                       max_syms, p);                        \
+  }
+
+PDT_CLOCK_KERNEL(mm_manchester_scan, MmClock)
+PDT_CLOCK_KERNEL(upsampling_gardner_manchester_scan, UpGardnerClock)
+PDT_CLOCK_KERNEL(upsampling_mm_manchester_scan, UpMmClock)
+#undef PDT_CLOCK_KERNEL
+
+template <typename T, typename Clock>
+using ClockKernel = void (*)(const T*, const T*, const int*, const T*,
+                             const int*, T*, T*, uint8_t*, uint8_t*,
+                             uint8_t*, T*, int*, int*, int, int, int,
+                             typename Clock::Params);
+
+// a clock kernel, one thread a lane; params: the n_params values of
+// Clock::Params in order
+template <typename T, typename Clock>
+int launch_clock(ClockKernel<T, Clock> kernel, const T* x, const T* t,
+                 const int* n_valid, const T* st_f_in, const int* st_i_in,
+                 T* syms, T* times, uint8_t* valid, uint8_t* bits,
+                 uint8_t* emit, T* st_f_out, int* st_i_out, int* count,
+                 int B, int cap, int max_syms, const T* params,
+                 int n_params, void* stream) {
+  using Params = typename Clock::Params;
+  if (n_params != static_cast<int>(sizeof(Params) / sizeof(T)) || B <= 0 ||
+      cap <= 0 || max_syms <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p;
+  memcpy(&p, params, sizeof(Params));
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
+      st_f_out, st_i_out, count, B, cap, max_syms, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // AGC over lane-major float32 x (B, n) from gains g_in (B,).  Writes
@@ -1447,3 +1732,42 @@ extern "C" int pdt_gardner_scan_f64_serial(
                             valid, bits, emit, st_f_out, st_i_out, count, B,
                             cap, max_syms, params, n_params, stream);
 }
+
+// The clock kernels' entry points, as pdt_gardner_scan_serial: one thread
+// a lane over lane-major (B, cap) images x, t; n_valid (B,) int32 valid
+// lengths; st_f rows: the clock's timing rows, then Manchester cur, prev,
+// prevprev; st_i rows: clockmod, evenodd.  Writes syms, times (B,
+// max_syms), valid, bits, emit (B, max_syms) uint8, the final state and
+// count (B,) int32, the active slots.  Returns the cudaError_t of the
+// launch.  pdt_X_scan is the float instance, pdt_X_scan_f64 the double
+// one (double images, state, outputs and params).
+//  - pdt_mm_scan: the M&M clock; timing rows next_sample (rolled over by
+//    n_valid), step, prev_bit; params the 4 values of MmParamsT.
+//  - pdt_upsampling_gardner_scan: rows next_sample int, frac, half_raw
+//    int, frac, prev_bit (not rolled over); params the 7 of UpParamsT.
+//  - pdt_upsampling_mm_scan: rows next_sample int, frac, prev_bit (not
+//    rolled over); params the 7 of UpParamsT.
+#define PDT_CLOCK_ENTRY(ENTRY, T, KERNEL, CLOCK)                          \
+  extern "C" int ENTRY(const T* x, const T* t, const int* n_valid,        \
+                       const T* st_f_in, const int* st_i_in, T* syms,     \
+                       T* times, uint8_t* valid, uint8_t* bits,           \
+                       uint8_t* emit, T* st_f_out, int* st_i_out,         \
+                       int* count, int B, int cap, int max_syms,          \
+                       const T* params, int n_params, void* stream) {     \
+    return launch_clock<T, CLOCK<T>>(                                     \
+        KERNEL<T>, x, t, n_valid, st_f_in, st_i_in, syms, times, valid,   \
+        bits, emit, st_f_out, st_i_out, count, B, cap, max_syms, params,  \
+        n_params, stream);                                                \
+  }
+
+PDT_CLOCK_ENTRY(pdt_mm_scan, float, mm_manchester_scan, MmClock)
+PDT_CLOCK_ENTRY(pdt_mm_scan_f64, double, mm_manchester_scan, MmClock)
+PDT_CLOCK_ENTRY(pdt_upsampling_gardner_scan, float,
+                upsampling_gardner_manchester_scan, UpGardnerClock)
+PDT_CLOCK_ENTRY(pdt_upsampling_gardner_scan_f64, double,
+                upsampling_gardner_manchester_scan, UpGardnerClock)
+PDT_CLOCK_ENTRY(pdt_upsampling_mm_scan, float, upsampling_mm_manchester_scan,
+                UpMmClock)
+PDT_CLOCK_ENTRY(pdt_upsampling_mm_scan_f64, double,
+                upsampling_mm_manchester_scan, UpMmClock)
+#undef PDT_CLOCK_ENTRY

@@ -1,5 +1,7 @@
 """Symbol timing: the Gardner step size, and Gardner timing with the
-Manchester decision over the interpolated stream, windowed or whole.
+Manchester decision over the interpolated stream, windowed or whole; the
+exact chain's other clocks, Mueller & Muller and the two upsampling
+variants, each with the Manchester decision.
 
 Twins of ``project_desert_tortoise_tpu/ops/clock.py``: ``gardner_step_size``,
 ``GardnerState``, ``gardner_init``, ``gardner_manchester_windowed``
@@ -9,7 +11,14 @@ here, :func:`gardner_manchester_scan`, as one kernel computes both.  The
 windowed recurrence runs in the kernel
 ``ops/kernels/scan_kernels.py::gardner_manchester`` on the card, the whole
 one in ``scan_kernels.py::gardner_manchester_scan``; on the fused path it
-runs inside the fused kernel instead.
+runs inside the fused kernel instead.  ``mm_scan`` (``clock.py:111-148``),
+``upsampling_gardner_scan`` (``:272-341``) and ``upsampling_mm_scan``
+(``:344-383``) are likewise each one function with the Manchester scan
+after them, :func:`mm_manchester_scan`,
+:func:`upsampling_gardner_manchester_scan` and
+:func:`upsampling_mm_manchester_scan`, on their kernels in
+``scan_kernels.py``; the upsampling ones keep split (integer part,
+fraction) pointers, ``upsampling_init`` (``clock.py:45-49``).
 
 Reference quirks kept from the JAX scan: the fractional pointer rolls over
 between chunks without the pending mid-bit pointer
@@ -39,6 +48,16 @@ def gardner_init(batch_shape=(), *, device,
                  dtype=torch.float32) -> GardnerState:
     z = torch.zeros(batch_shape, dtype=dtype, device=device)
     return GardnerState(next_sample=z, half_raw=z, prev_bit=z)
+
+
+def upsampling_init(batch_shape=(), *, device,
+                    dtype=torch.float32) -> GardnerState:
+    """State of the upsampling clocks: next_sample and half_raw shaped
+    (..., 2) = [integer part (an exact float), fraction in [0, 1)]."""
+    z2 = torch.zeros(tuple(batch_shape) + (2,), dtype=dtype, device=device)
+    return GardnerState(next_sample=z2, half_raw=z2.clone(),
+                        prev_bit=torch.zeros(batch_shape, dtype=dtype,
+                                             device=device))
 
 
 def gardner_step_size(fs: float, baud: float, dtype=np.float32) -> float:
@@ -114,3 +133,102 @@ def gardner_manchester_scan(g_state: GardnerState,
             man_ops.ManchesterState(clockmod=clockmod, evenodd=evenodd,
                                     cur=cur, prev=prev, prevprev=prevprev),
             syms, times, valid, count, bits, times, emit)
+
+
+def _valid_lengths(n, B: int, device):
+    """n (an int, filled on the device: no host copy) as (B,) int32."""
+    if isinstance(n, int):
+        n = torch.full((B,), n, dtype=torch.int32, device=device)
+    return n.to(torch.int32).expand(B).contiguous()
+
+
+def _man_rows(m_state: man_ops.ManchesterState, dtype):
+    i32 = torch.int32
+    return ((m_state.cur.to(dtype), m_state.prev.to(dtype),
+             m_state.prevprev.to(dtype)),
+            (m_state.clockmod.to(i32), m_state.evenodd.to(i32)))
+
+
+def _man_state(f_man, i_man) -> man_ops.ManchesterState:
+    cur, prev, prevprev = f_man
+    clockmod, evenodd = i_man
+    return man_ops.ManchesterState(clockmod=clockmod, evenodd=evenodd,
+                                   cur=cur, prev=prev, prevprev=prevprev)
+
+
+def mm_manchester_scan(g_state: GardnerState,
+                       m_state: man_ops.ManchesterState, x, t, n, fs: float,
+                       baud: float, step_range: float, kp: float,
+                       resync_threshold: float, max_syms: int):
+    """Mueller & Muller timing with its adaptive step (JAX ``mm_scan``,
+    ``common/MMClockRecovery.c``) over `max_syms` slots of (B, cap) buffer
+    images, then the Manchester decision.  The step rides in half_raw's
+    slot of `g_state`, as the chain carries it (the caller replaces 0 with
+    Fs/baud).  Returns what :func:`gardner_manchester_scan` returns, with
+    next_sample rolled over by n and the step in half_raw."""
+    B, dt = x.shape[0], x.dtype
+    f_man, i_man = _man_rows(m_state, dt)
+    fstate = tuple(s.to(dt) for s in g_state) + f_man
+    p = scan_kernels.mm_params(fs, baud, step_range, kp, resync_threshold)
+    f, i, syms, times, valid, bits, emit, count = \
+        scan_kernels.mm_manchester_scan(fstate, i_man, x, t,
+                                        _valid_lengths(n, B, x.device), p,
+                                        max_syms)
+    return (GardnerState(*f[:3]), _man_state(f[3:], i), syms, times, valid,
+            count, bits, times, emit)
+
+
+def upsampling_gardner_manchester_scan(g_state: GardnerState,
+                                       m_state: man_ops.ManchesterState, x,
+                                       t, n, step_size: float,
+                                       err_limit: float, kp: float,
+                                       resync_threshold: float,
+                                       max_syms: int):
+    """Gardner timing on an upsampled stream with split (integer part,
+    fraction) pointers (JAX ``upsampling_gardner_scan``,
+    ``UpsamplingGardenerClockRecovery2.m:60-95``), then the Manchester
+    decision.  g_state: next_sample and half_raw (B, 2); step_size in
+    upsampled samples.  Reads at int + (frac >= 0.5); the pointers are not
+    rolled over.  Returns what :func:`gardner_manchester_scan` returns."""
+    B, dt = x.shape[0], x.dtype
+    ns, half = g_state.next_sample.to(dt), g_state.half_raw.to(dt)
+    f_man, i_man = _man_rows(m_state, dt)
+    fstate = (ns[:, 0], ns[:, 1], half[:, 0], half[:, 1],
+              g_state.prev_bit.to(dt)) + f_man
+    p = scan_kernels.upsampling_params(step_size, err_limit, kp,
+                                       resync_threshold)
+    f, i, syms, times, valid, bits, emit, count = \
+        scan_kernels.upsampling_gardner_manchester_scan(
+            tuple(s.contiguous() for s in fstate), i_man, x, t,
+            _valid_lengths(n, B, x.device), p, max_syms)
+    g = GardnerState(next_sample=torch.stack(f[:2], -1),
+                     half_raw=torch.stack(f[2:4], -1), prev_bit=f[4])
+    return (g, _man_state(f[5:], i), syms, times, valid, count, bits, times,
+            emit)
+
+
+def upsampling_mm_manchester_scan(g_state: GardnerState,
+                                  m_state: man_ops.ManchesterState, x, t, n,
+                                  step_size: float, err_limit: float,
+                                  kp: float, resync_threshold: float,
+                                  max_syms: int):
+    """M&M timing on an upsampled stream with a fixed step and a split
+    next-sample pointer (JAX ``upsampling_mm_scan``,
+    ``UpsamplingMMClockRecovery.m``: ``nextSample += Error; nextSample +=
+    stepSize``), then the Manchester decision.  half_raw is carried
+    through unchanged.  Otherwise as
+    :func:`upsampling_gardner_manchester_scan`."""
+    B, dt = x.shape[0], x.dtype
+    ns = g_state.next_sample.to(dt)
+    f_man, i_man = _man_rows(m_state, dt)
+    fstate = (ns[:, 0], ns[:, 1], g_state.prev_bit.to(dt)) + f_man
+    p = scan_kernels.upsampling_params(step_size, err_limit, kp,
+                                       resync_threshold)
+    f, i, syms, times, valid, bits, emit, count = \
+        scan_kernels.upsampling_mm_manchester_scan(
+            tuple(s.contiguous() for s in fstate), i_man, x, t,
+            _valid_lengths(n, B, x.device), p, max_syms)
+    g = GardnerState(next_sample=torch.stack(f[:2], -1),
+                     half_raw=g_state.half_raw, prev_bit=f[2])
+    return (g, _man_state(f[3:], i), syms, times, valid, count, bits, times,
+            emit)

@@ -1,5 +1,6 @@
-"""The per-lane recurrences of the scan branch and the exact chain: the AGC
-and Gardner timing with the Manchester decision.
+"""The per-lane recurrences of the scan branch and the exact chain: the AGC,
+and symbol timing (Gardner, and the exact chain's other clocks) with the
+Manchester decision.
 
 Counterparts of the JAX package's XLA scans ``ops/agc.py::agc_scan``
 (``agc.py:65-98``), ``ops/clock.py::gardner_manchester_windowed``
@@ -39,6 +40,12 @@ per launch at the main path's size, so each is a hand-written kernel in
   order of operations in the stream's dtype (float32; float64 for the
   first and the third), so on the card they agree with the kernels bit for
   bit.
+- :func:`mm_manchester_scan`, :func:`upsampling_gardner_manchester_scan`
+  and :func:`upsampling_mm_manchester_scan` are the exact chain's other
+  clocks (JAX ``clock.py::mm_scan``, ``upsampling_gardner_scan``,
+  ``upsampling_mm_scan``, each followed by ``manchester_scan``): one thread
+  a lane over the image in device memory, float32, and float64 through
+  their ``_f64`` instances; ``*_ref`` are their plain versions.
 """
 
 from __future__ import annotations
@@ -225,29 +232,39 @@ def _plain_slot(st, cur, hval, active, k: _SlotConsts):
     resync and decision on this symbol.  st: (next_sample, half_raw,
     prev_bit, Manchester cur, prev, prevprev, clockmod, evenodd); an
     active slot advances it.  Returns (state, bit uint8, emit)."""
-    ns, half_raw, prev_bit, m_cur, m_prev, m_prevprev, clockmod, evenodd = st
+    ns, half_raw, prev_bit = st[:3]
     err = torch.clamp(k.kp * (cur - prev_bit) * hval, k.neg_limit,
                       k.err_limit)
     ns_adj = ns - err
     half_new = ns_adj + k.half_step
     ns_new = ns_adj + k.step
+    keep = lambda new, old: torch.where(active, new, old)
+    man, bit, emit = _plain_manchester(st[3:], cur, active, k.thr, k.one_u8)
+    return ((keep(ns_new, ns), keep(half_new, half_raw), keep(cur, prev_bit),
+             *man), bit, emit)
 
-    # Manchester on this symbol (ManchesterDecode.c:27-97)
+
+def _plain_manchester(mst, cur, active, thr, one_u8):
+    """The Manchester decision on one slot's symbol `cur`
+    (``manchester.py:43-70``, ManchesterDecode.c:27-97) with (B,) lane
+    tensors `thr` (the resync threshold) and `one_u8` (uint8 ones).  mst:
+    (cur, prev, prevprev, clockmod, evenodd); an active slot advances it.
+    Returns (mst, bit uint8, emit)."""
+    m_cur, m_prev, m_prevprev, clockmod, evenodd = mst
     prevprev, prev = m_prev, m_cur
     mismatch = evenodd != clockmod
-    strong = (torch.abs(prevprev) > k.thr) & (torch.abs(prev) > k.thr)
+    strong = (torch.abs(prevprev) > thr) & (torch.abs(prev) > thr)
     resync = mismatch & (fastmath.sign(prevprev)
                          == fastmath.sign(prev)) & strong
     cm = torch.where(resync, evenodd, clockmod)
     boundary = evenodd == cm
     use_prev = torch.abs(prev) > torch.abs(cur)
     bit = torch.where(use_prev, (prev > 0).to(torch.uint8),
-                      k.one_u8 - (cur > 0).to(torch.uint8))
+                      one_u8 - (cur > 0).to(torch.uint8))
     keep = lambda new, old: torch.where(active, new, old)
-    st = (keep(ns_new, ns), keep(half_new, half_raw), keep(cur, prev_bit),
-          keep(cur, m_cur), keep(prev, m_prev), keep(prevprev, m_prevprev),
-          keep(cm, clockmod), keep((evenodd + 1) & 1, evenodd))
-    return st, bit, active & boundary
+    mst = (keep(cur, m_cur), keep(prev, m_prev), keep(prevprev, m_prevprev),
+           keep(cm, clockmod), keep((evenodd + 1) & 1, evenodd))
+    return mst, bit, active & boundary
 
 
 def _plain_result(st, n):
@@ -584,3 +601,270 @@ def gardner_scan_launch_config(B: int, cap: int, ring_floats: int = 0,
              else "pdt_gardner_scan_config")
     return kernel_config(device, entry, B, cap, ring_floats,
                          fields=GARDNER_SCAN_CONFIG_FIELDS)
+
+
+# --- the other clocks of the exact chain: "mm", "upsampling_gardner" and
+# "upsampling_mm", each followed by the Manchester decision
+
+
+class MMParams(NamedTuple):
+    """The Mueller & Muller clock's constants (JAX ``clock.py:122-123``):
+    the adaptive step's clamp [step_min, step_max] = fs / (baud +- range),
+    the loop gain and the Manchester resync threshold."""
+    step_min: float
+    step_max: float
+    kp: float
+    resync_threshold: float
+
+
+def mm_params(fs: float, baud: float, step_range: float, kp: float,
+              resync_threshold: float) -> MMParams:
+    """The step clamp computed in double, as JAX computes it before
+    rounding it to the stream's dtype."""
+    return MMParams(fs / (baud + step_range), fs / (baud - step_range), kp,
+                    resync_threshold)
+
+
+class UpsamplingParams(NamedTuple):
+    """The upsampling clocks' constants (JAX ``clock.py:296-300``): the step
+    and the half step, each split in double into an integer part and a
+    fraction, the error limit, the loop gain and the Manchester resync
+    threshold.  The M&M variant reads no half step."""
+    step_int: float
+    step_frac: float
+    half_int: float
+    half_frac: float
+    err_limit: float
+    kp: float
+    resync_threshold: float
+
+
+def upsampling_params(step_size: float, err_limit: float, kp: float,
+                      resync_threshold: float) -> UpsamplingParams:
+    hs = step_size / 2.0
+    return UpsamplingParams(
+        float(np.floor(step_size)), float(step_size - np.floor(step_size)),
+        float(np.floor(hs)), float(hs - np.floor(hs)), err_limit, kp,
+        resync_threshold)
+
+
+def _read(img, i):
+    """img[b, i[b]] for each lane, i an int32 (B,) index."""
+    return torch.gather(img, 1, i.to(torch.int64)[:, None])[:, 0]
+
+
+def _split_norm(i, f):
+    """A split pointer renormalised so that the fraction lies in [0, 1)
+    (JAX ``clock.py:266-269``)."""
+    k = torch.floor(f)
+    return i + k, f - k
+
+
+def _mm_timing(p: MMParams, like):
+    """The M&M clock's slot (JAX ``clock.py:128-141``) over timing rows
+    (next_sample, step, prev_bit): returns step(rows, x, n_f) -> (rows,
+    cur, on-time index, active)."""
+    c = lambda v: lane_const(v, like)
+    kp, smin, smax = c(p.kp), c(p.step_min), c(p.step_max)
+
+    def step(rows, x, n_f):
+        ns, ss, prev = rows
+        idxf = torch.round(ns)
+        active = idxf < n_f
+        ii = torch.clamp(idxf.to(torch.int32), 0, x.shape[1] - 1)
+        cur = _read(x, ii)
+        err = fastmath.sign(prev) * cur - fastmath.sign(cur) * prev
+        ss_new = torch.clamp(ss + kp * err, smin, smax)
+        ns_new = ns + ss_new
+        keep = lambda new, old: torch.where(active, new, old)
+        return ((keep(ns_new, ns), keep(ss_new, ss), keep(cur, prev)), cur,
+                ii, active)
+    return step
+
+
+def _upsampling_timing(p: UpsamplingParams, like, gardner: bool):
+    """An upsampling clock's slot over split pointers: Gardner (JAX
+    ``clock.py:305-335``, timing rows next_sample int, frac, half_raw
+    int, frac, prev_bit) or M&M (``clock.py:362-377``, rows next_sample
+    int, frac, prev_bit).  Reads at int + (frac >= 0.5).  Returns
+    step(rows, x, n_f) -> (rows, cur, on-time index, active)."""
+    c = lambda v: lane_const(v, like)
+    kp, lim, zero, half = c(p.kp), c(p.err_limit), c(0.0), c(0.5)
+    si, sf, hsi, hsf = (c(p.step_int), c(p.step_frac), c(p.half_int),
+                        c(p.half_frac))
+
+    def step(rows, x, n_f):
+        cap = x.shape[1]
+        if gardner:
+            ni, nf, hi, hf, prev = rows
+        else:
+            ni, nf, prev = rows
+        idx = ni + (nf >= half).to(ni.dtype)
+        active = idx < n_f
+        ii = torch.clamp(idx.to(torch.int32), 0, cap - 1)
+        cur = _read(x, ii)
+        keep = lambda new, old: torch.where(active, new, old)
+        if gardner:
+            hidx = hi + (hf >= half).to(hi.dtype)
+            in_img = (hidx >= zero) & (hidx < c(cap))
+            hval = torch.where(in_img, _read(x, torch.clamp(
+                hidx.to(torch.int32), 0, cap - 1)), zero)
+            err = torch.clamp(kp * (cur - prev) * hval, -lim, lim)
+            ai, af = _split_norm(ni, nf - err)            # -= Error
+            nhi, nhf = _split_norm(ai + hsi, af + hsf)    # + step/2
+            nni, nnf = _split_norm(ai + si, af + sf)      # + step
+            rows = (keep(nni, ni), keep(nnf, nf), keep(nhi, hi),
+                    keep(nhf, hf), keep(cur, prev))
+        else:
+            err = torch.clamp(kp * (fastmath.sign(prev) * cur
+                                    - fastmath.sign(cur) * prev), -lim, lim)
+            ai, af = _split_norm(ni, nf + err)            # += Error
+            nni, nnf = _split_norm(ai + si, af + sf)      # + step
+            rows = (keep(nni, ni), keep(nnf, nf), keep(cur, prev))
+        return rows, cur, ii, active
+    return step
+
+
+def _clock_manchester_ref(timing, n_rows: int, fstate, istate, x, t, n,
+                          thr: float, max_syms: int, rollover: bool):
+    """The plain clock + Manchester scan: `timing`'s slot over the first
+    `n_rows` rows of fstate, then the Manchester decision on its symbol,
+    max_syms slots over all lanes at once; next_sample rolled over by n
+    where `rollover` (the M&M clock, JAX ``clock.py:146``).  Returns what
+    :func:`gardner_manchester_scan` returns."""
+    i32 = torch.int32
+    like = fstate[0]
+    dt = pll_ops.stream_dtype(like)
+    thr = lane_const(thr, like)
+    one_u8 = torch.ones(like.shape, dtype=torch.uint8, device=like.device)
+    rows, man = tuple(fstate[:n_rows]), (*fstate[n_rows:], *istate)
+    n_f, x, t = n.to(dt), x.to(dt), t.to(dt)
+    syms, times, valid, bits, emits = [], [], [], [], []
+    for _ in range(max_syms):
+        rows, cur, ii, active = timing(rows, x, n_f)
+        man, bit, emit = _plain_manchester(man, cur, active, thr, one_u8)
+        syms.append(cur)
+        times.append(_read(t, ii))
+        valid.append(active)
+        bits.append(bit)
+        emits.append(emit)
+    if rollover:
+        rows = (rows[0] - n_f, *rows[1:])
+    valid = torch.stack(valid, 1)
+    return ((*rows, *man[:3]), tuple(man[3:]), torch.stack(syms, 1),
+            torch.stack(times, 1), valid, torch.stack(bits, 1),
+            torch.stack(emits, 1), valid.sum(1, dtype=i32))
+
+
+def mm_manchester_scan_ref(fstate, istate, x, t, n, p: MMParams,
+                           max_syms: int):
+    """Plain PyTorch version of :func:`mm_manchester_scan`: JAX's
+    ``mm_scan`` then ``manchester_scan`` (``clock.py:111-148``,
+    ``manchester.py:34-74``), slot by slot over all lanes at once, in the
+    state's dtype."""
+    return _clock_manchester_ref(_mm_timing(p, fstate[0]), 3, fstate,
+                                 istate, x, t, n, p.resync_threshold,
+                                 max_syms, rollover=True)
+
+
+def upsampling_gardner_manchester_scan_ref(fstate, istate, x, t, n,
+                                           p: UpsamplingParams,
+                                           max_syms: int):
+    """Plain PyTorch version of :func:`upsampling_gardner_manchester_scan`:
+    JAX's ``upsampling_gardner_scan`` then ``manchester_scan``
+    (``clock.py:272-341``)."""
+    return _clock_manchester_ref(_upsampling_timing(p, fstate[0], True), 5,
+                                 fstate, istate, x, t, n,
+                                 p.resync_threshold, max_syms,
+                                 rollover=False)
+
+
+def upsampling_mm_manchester_scan_ref(fstate, istate, x, t, n,
+                                      p: UpsamplingParams, max_syms: int):
+    """Plain PyTorch version of :func:`upsampling_mm_manchester_scan`:
+    JAX's ``upsampling_mm_scan`` then ``manchester_scan``
+    (``clock.py:344-383``)."""
+    return _clock_manchester_ref(_upsampling_timing(p, fstate[0], False), 3,
+                                 fstate, istate, x, t, n,
+                                 p.resync_threshold, max_syms,
+                                 rollover=False)
+
+
+def _clock_wrapper(name: str, entry: str, ref, f64=None,
+                   dtype=torch.float32):
+    """A clock kernel's wrapper that launches `entry` (one thread a lane)
+    on `dtype` tensors on the card and counts its launches.  The float32
+    wrapper runs `ref` on CPU tensors and hands float64 tensors on the card
+    to `f64`, the double instance's wrapper; that one (dtype float64)
+    raises on CPU tensors."""
+    def wrapper(fstate, istate, x, t, n, p, max_syms: int):
+        dev = x.device
+        if not on_card(name, dev):
+            if dtype == torch.float64:
+                raise ValueError(f"{name} runs on a CUDA device only")
+            return ref(fstate, istate, x, t, n, p, max_syms)
+        if f64 is not None and x.dtype == torch.float64:
+            return f64(fstate, istate, x, t, n, p, max_syms)
+        out = _launch_scan(entry, fstate, istate, x, t, n, p, max_syms,
+                           dtype=dtype)
+        wrapper.launches += 1
+        return out
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.launches = 0
+    return wrapper
+
+
+mm_manchester_scan_f64 = _clock_wrapper(
+    "mm_manchester_scan_f64", "pdt_mm_scan_f64", mm_manchester_scan_ref,
+    dtype=torch.float64)
+mm_manchester_scan = _clock_wrapper(
+    "mm_manchester_scan", "pdt_mm_scan", mm_manchester_scan_ref,
+    mm_manchester_scan_f64)
+mm_manchester_scan.__doc__ = """The M&M clock with its adaptive step, then
+the Manchester decision, over whole (B, cap) buffer images `x`, `t`,
+max_syms slots (JAX ``mm_scan`` + ``manchester_scan``).  fstate: six (B,)
+planes in the images' dtype (next_sample, step, prev_bit, Manchester cur,
+prev, prevprev); istate: (clockmod, evenodd) int32; n: (B,) int32 valid
+lengths; p: :func:`mm_params`.  Returns (fstate, istate, syms, times,
+valid, bits uint8, emit, count) as :func:`gardner_manchester_scan`,
+next_sample rolled over by n.  CPU tensors run
+:func:`mm_manchester_scan_ref`; float64 tensors on the card launch
+:func:`mm_manchester_scan_f64`."""
+mm_manchester_scan_f64.__doc__ = """:func:`mm_manchester_scan` in float64,
+the kernel's double instance.  CUDA tensors only."""
+
+upsampling_gardner_manchester_scan_f64 = _clock_wrapper(
+    "upsampling_gardner_manchester_scan_f64",
+    "pdt_upsampling_gardner_scan_f64", upsampling_gardner_manchester_scan_ref,
+    dtype=torch.float64)
+upsampling_gardner_manchester_scan = _clock_wrapper(
+    "upsampling_gardner_manchester_scan", "pdt_upsampling_gardner_scan",
+    upsampling_gardner_manchester_scan_ref,
+    upsampling_gardner_manchester_scan_f64)
+upsampling_gardner_manchester_scan.__doc__ = """The Gardner clock on an
+upsampled stream with split (integer part, fraction) pointers, then the
+Manchester decision (JAX ``upsampling_gardner_scan`` +
+``manchester_scan``).  fstate: eight (B,) planes (next_sample int, frac,
+half_raw int, frac, prev_bit, Manchester cur, prev, prevprev); p:
+:func:`upsampling_params` of the upsampled step.  The pointers are not
+rolled over (the chain shifts their integer parts).  Otherwise as
+:func:`mm_manchester_scan`."""
+upsampling_gardner_manchester_scan_f64.__doc__ = """
+:func:`upsampling_gardner_manchester_scan` in float64, the kernel's double
+instance.  CUDA tensors only."""
+
+upsampling_mm_manchester_scan_f64 = _clock_wrapper(
+    "upsampling_mm_manchester_scan_f64", "pdt_upsampling_mm_scan_f64",
+    upsampling_mm_manchester_scan_ref, dtype=torch.float64)
+upsampling_mm_manchester_scan = _clock_wrapper(
+    "upsampling_mm_manchester_scan", "pdt_upsampling_mm_scan",
+    upsampling_mm_manchester_scan_ref, upsampling_mm_manchester_scan_f64)
+upsampling_mm_manchester_scan.__doc__ = """The M&M clock on an upsampled
+stream with a fixed step and a split next-sample pointer, then the
+Manchester decision (JAX ``upsampling_mm_scan`` + ``manchester_scan``).
+fstate: six (B,) planes (next_sample int, frac, prev_bit, Manchester cur,
+prev, prevprev).  Otherwise as
+:func:`upsampling_gardner_manchester_scan`."""
+upsampling_mm_manchester_scan_f64.__doc__ = """
+:func:`upsampling_mm_manchester_scan` in float64, the kernel's double
+instance.  CUDA tensors only."""

@@ -43,6 +43,7 @@ import torch
 
 from project_desert_tortoise_tpu_torch import chain as chain_lib
 from project_desert_tortoise_tpu_torch.ops import agc as agc_ops
+from project_desert_tortoise_tpu_torch.ops import bitpack
 from project_desert_tortoise_tpu_torch.ops import clock as clock_ops
 from project_desert_tortoise_tpu_torch.ops import fir as fir_ops
 from project_desert_tortoise_tpu_torch.ops import framer as framer_ops
@@ -313,6 +314,181 @@ def demod_frames(params: chain_lib.ChainParams, plan: BlockPlan, framer_cfg,
     cs = lo + plan.head
     bounds = torch.stack([cs, torch.clamp(cs + plan.core, max=n)], 1)
     return framer_ops.stitch_frames(fb, bounds, B * plan.max_frames, chan)
+
+
+def demod_frames_flat(params: chain_lib.ChainParams, framer_cfg,
+                      plan: BlockPlan, B: int, fs: float, window: int,
+                      use_pallas, re_flat, im_flat, norm_gain: float,
+                      n: Optional[int] = None, lo0: Optional[int] = None,
+                      pre_staged: bool = False, pack_bits: int = 0):
+    """Whole-file demodulation from flat sample planes already on the
+    device: the B overlapping block windows are cut there, then
+    :func:`coarse_carrier_est` and :func:`demod_frames` (JAX
+    ``demod_frames_flat``, ``blocked.py:364-455``).  Returns the stitched
+    (positions, inverted, data, count) of :func:`demod_frames`;
+    :func:`_fetch_frames` labels them with the time axis on the host (no
+    time plane is uploaded: the kernels report sample positions).
+
+    re_flat/im_flat: (n,) float32 or int16 (int16 stays int16 through the
+    windowing, converted with the exact /32768 downstream), or, with
+    ``pack_bits`` > 0, (ng, pack_bits) int32 words of ``ops/bitpack.py``
+    covering ng*32 samples, unpacked on the device to int16.  Window k is
+    ``[k*core, k*core + total)`` of the plane led by ``head`` zeros (the
+    stream start), or, with ``pre_staged`` (the pipelined slices), of the
+    plane as it is: it already starts with block 0's head region; samples
+    past the plane read as zero.  n: samples in the recording (default:
+    the plane's), which bounds the last core and marks positions past it;
+    lo0: the global index of window 0's first sample (default -head, the
+    whole file; a slice's is its first block's start less head).  The
+    carrier estimate's line spacing is JAX's flat path's, fs * interp /
+    (2 * step_size)."""
+    total, core, head = plan.total, plan.core, plan.head
+    if pack_bits:
+        ns = re_flat.shape[0] * bitpack.GROUP
+        # the unpacked values fit int16 by construction (pack_bits <= 16)
+        re_flat = bitpack.unpack(re_flat, pack_bits, ns).to(torch.int16)
+        im_flat = bitpack.unpack(im_flat, pack_bits, ns).to(torch.int16)
+    if n is None:
+        n = re_flat.shape[0]
+    if lo0 is None:
+        lo0 = -head
+    plen = (B - 1) * core + total
+    hn = 0 if pre_staged else head
+
+    def windows(x):
+        # the zero-led plane, cut or zero-extended to plen, then all B
+        # windows as one strided view and one copy
+        x = x[:plen - hn]
+        p = torch.nn.functional.pad(x, (hn, plen - hn - x.shape[0]))
+        return p.unfold(0, total, core).contiguous()
+
+    brs, bis = windows(re_flat), windows(im_flat)
+    dev = brs.device
+    lo = lo0 + core * torch.arange(B, dtype=torch.int64, device=dev)
+    line_spacing = fs * params.interp / (2.0 * params.step_size)
+    fest = coarse_carrier_est(brs, bis, fs, line_spacing)
+    return demod_frames(params, plan, framer_cfg, fs, brs, bis, lo, n, fest,
+                        norm_gain, window, use_pallas)
+
+
+def stage_flat_slices(plan: BlockPlan, B: int, n_slices: int, re16, im16,
+                      pack: int = 0):
+    """Host staging of :func:`demod_frames_flat_pipelined` (JAX
+    ``stage_flat_slices``, ``blocked.py:511-573``): every slice ships the
+    same ``[head | Bs*core + tail]`` layout for ``demod_frames_flat(
+    pre_staged=True)``; the host leads the stream with head zeros, and
+    slices overlap by head + tail samples.
+
+    Returns (Bs, slice_np, pack_bits): ``slice_np(k)`` cuts slice k's
+    (re, im, lo0), the planes as numpy arrays (int32 words where packed),
+    lo0 the global index of its first sample.  pack: 0 ships the planes as
+    they are, -1 the minimal lossless width of the data (integer planes
+    only; a width of 16 ships int16), w > 0 that width; the returned
+    pack_bits (0 when off or useless) is what ``demod_frames_flat`` takes.
+    JAX's time plane, seeds and bounds have no counterpart: the port
+    stitches on positions."""
+    core, head, total = plan.core, plan.head, plan.total
+    if n_slices < 1 or B % n_slices != 0:
+        raise ValueError(f"B={B} must divide into n_slices={n_slices}")
+    Bs = B // n_slices
+    span = (Bs - 1) * core + total
+    if pack and np.dtype(re16.dtype).kind != "i":
+        pack = 0                      # packing is for PCM integer planes
+    if pack == -1:
+        pack = bitpack.pack_width(re16, im16)
+    if pack >= 16:
+        pack = 0                      # full-width data: ship int16 as-is
+    zlead = np.zeros(head, re16.dtype)
+    rr = np.concatenate([zlead, re16])
+    ii = np.concatenate([zlead, im16])
+
+    def cut_np(a, s0):
+        seg = a[s0:s0 + span]
+        if len(seg) < span:
+            seg = np.concatenate([seg, np.zeros(span - len(seg), a.dtype)])
+        return seg
+
+    def slice_np(k):
+        s0 = k * Bs * core
+        re_k, im_k = cut_np(rr, s0), cut_np(ii, s0)
+        if pack:
+            re_k = bitpack.pack(re_k, pack).view(np.int32)
+            im_k = bitpack.pack(im_k, pack).view(np.int32)
+        return re_k, im_k, s0 - head
+
+    return Bs, slice_np, pack
+
+
+def demod_frames_flat_pipelined(params: chain_lib.ChainParams, framer_cfg,
+                                plan: BlockPlan, B: int, fs: float,
+                                window: int, use_pallas, re16, im16,
+                                t_ext, norm_gain: float, n_slices: int = 4,
+                                tgen: bool = False, pack: int = 0,
+                                *, device="cuda") -> List[Frame]:
+    """Sliced whole-file demodulation with the upload of slice k+1
+    overlapping the compute of slice k (JAX
+    ``demod_frames_flat_pipelined``, ``blocked.py:458-508``): the planes
+    are cut into ``n_slices`` slices of B/n_slices blocks
+    (:func:`stage_flat_slices`), each copied from pinned host memory with
+    ``non_blocking`` copies on a copy stream while the compute stream runs
+    the slice before (it waits on the copy's event before it reads them);
+    slice k-1's frames are fetched after slice k is dispatched.  Returns
+    the frames in stream order, labelled by `t_ext` (n+1,), the
+    reference's float32 accumulated axis.
+
+    re16/im16: (n,) int16 (or float32) host planes.  pack as
+    :func:`stage_flat_slices`.  tgen: JAX's in-kernel time generation, for
+    the fused branch only (``ValueError`` elsewhere, as JAX's
+    ``demod_blocks``); the port generates positions on the fused branch
+    either way and uploads no time plane on any.  A CUDA `device` runs the
+    kernels, the CPU their plain versions (the planes then go unpinned,
+    on one stream)."""
+    dev = resolve_device(device)
+    if tgen and branch(use_pallas) != "fused":
+        raise ValueError("tgen=True (in-kernel time generation) requires "
+                         "the fused branch: use_pallas='fused'")
+    n = len(re16)
+    Bs, slice_np, pack = stage_flat_slices(plan, B, n_slices, re16, im16,
+                                           pack)
+    cuda = dev.type == "cuda"
+    copy_stream = torch.cuda.Stream(dev) if cuda else None
+
+    def upload(k):
+        """Slice k's planes on the device, the pinned host copies they
+        come from (alive until the copy is done) and the copy's event."""
+        re_k, im_k, lo0 = slice_np(k)
+        host = [torch.from_numpy(a) for a in (re_k, im_k)]
+        if not cuda:
+            return host, None, None, lo0
+        host = [h.pin_memory() for h in host]
+        with torch.cuda.stream(copy_stream):
+            planes = [h.to(dev, non_blocking=True) for h in host]
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        return planes, host, done, lo0
+
+    frames: List[Frame] = []
+    pending = None
+    nxt = upload(0)
+    for k in range(n_slices):
+        planes, host, done, lo0 = nxt
+        if cuda:
+            compute = torch.cuda.current_stream(dev)
+            compute.wait_event(done)
+            for p in planes:           # allocated on the copy stream
+                p.record_stream(compute)
+        out = demod_frames_flat(params, framer_cfg, plan, Bs, fs, window,
+                                use_pallas, *planes, norm_gain, n=n,
+                                lo0=lo0, pre_staged=True, pack_bits=pack)
+        if k + 1 < n_slices:
+            nxt = upload(k + 1)        # cut and copied during slice k
+        # fetch slice k-1 only after dispatching slice k
+        if pending is not None:
+            frames.extend(_fetch_frames(pending[0], t_ext))
+        pending = (out, host)          # the host copy lives to the fetch
+    frames.extend(_fetch_frames(pending[0], t_ext))
+    frames.sort(key=lambda f: f.time)
+    return frames
 
 
 def _fetch_frames(stitched, t_ext) -> List[Frame]:

@@ -72,13 +72,23 @@ def save_session(sess: DemodSession, path: str):
         f.write(buf.getvalue())
 
 
-def load_session(path: str, *, device="cuda") -> DemodSession:
-    """The session saved at `path` (by either package), on `device`."""
+def load_session(path: str, mode_cfg=None, *, device="cuda") -> DemodSession:
+    """The session saved at `path` (by either package), on `device`.
+
+    The file names its mode, and the registry's configuration of that
+    name is used unless `mode_cfg` is given: the configuration a session
+    was built with by hand (another clock, ``dataclasses.replace`` of a
+    registered mode), whose name must be the saved one.  The state's
+    leaves keep their saved shapes, the upsampling clocks' (2,) split
+    pointers among them."""
     from project_desert_tortoise_tpu_torch.models.registry import get_mode
 
     z = np.load(path)
     meta = json.loads(bytes(z["meta_json"]).decode())
-    cfg = get_mode(meta["mode"])
+    if mode_cfg is not None and mode_cfg.name != meta["mode"]:
+        raise ValueError(f"the checkpoint is of mode {meta['mode']!r}, "
+                         f"not {mode_cfg.name!r}")
+    cfg = mode_cfg or get_mode(meta["mode"])
     sess = DemodSession(cfg, meta["fs"], chunk_size=meta["chunk_size"],
                         norm_factor=meta["norm_factor"], quirks=False,
                         device=device)

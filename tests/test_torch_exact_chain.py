@@ -140,9 +140,18 @@ def test_from_jax_carries_a_chain_state():
 
 
 def test_unported_clock_and_dtype_are_refused():
-    params = TC.make_params(POES_TIP, 50000.0)._replace(clock_algorithm="mm")
-    with pytest.raises(ValueError, match="not ported"):
-        TC.init_state(params, 1.0, 100, device="cpu")
+    # every clock of the JAX package is ported (tests/test_torch_clocks.py
+    # holds them against JAX); a clock neither package has is refused
+    params = TC.make_params(POES_TIP, 50000.0)
+    with pytest.raises(ValueError, match="unknown clock"):
+        TC.init_state(params._replace(clock_algorithm="early_late"), 1.0,
+                      100, device="cpu")
+    mm = TC.init_state(params._replace(clock_algorithm="mm"), 1.0, 100,
+                       device="cpu")
+    assert mm.gardner.half_raw.shape == ()     # the step rides there
+    up = TC.init_state(params._replace(clock_algorithm="upsampling_mm"), 1.0,
+                       100, device="cpu")
+    assert up.gardner.next_sample.shape == (2,)        # split pointers
     upsampling = dataclasses.replace(POES_TIP, gardner=dataclasses.replace(
         POES_TIP.gardner, algorithm="upsampling_gardner"))
     for make in (JC.make_params, TC.make_params):   # as JAX refuses it

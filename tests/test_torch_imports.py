@@ -54,7 +54,8 @@ def test_port_imports_with_jax_blocked():
                               "apps.demod_serve", "models.argos",
                               "telemetry.minorframes", "telemetry.tip",
                               "telemetry.argos", "utils.png",
-                              "apps.telemetry_explorer")} <= mods
+                              "apps.telemetry_explorer", "ops.resample",
+                              "ops.bitpack")} <= mods
 
 
 def test_no_port_file_imports_jax():
