@@ -87,7 +87,12 @@ bounds at the FP64 latency that ``fp64_latency`` measures first).  The
 three clock kernels are held to their plain versions at one lane over one
 POES chunk's image, in float32 and float64, from a fresh and a carried
 state, over the whole image and a ragged final chunk (``clock_kernels``:
-their ms, bytes and chain bounds).
+their ms, bytes and chain bounds); the two on the whole-image kernel,
+``mm_manchester_scan`` and ``upsampling_gardner_manchester_scan``, also
+against their serial twins (``*_serial``, ``*_f64_serial``) and on a
+forced small ring (``whole_chunk_vs_serial`` and ``design`` lines, the
+chain bounds at the float add and ``ld.shared`` latencies that
+``fp64_latency`` measures).
 
 It holds the decoupled ``fused_demod``, ``pll_fir_agc``, ``pll_scan`` and
 ``agc_scan`` and the windowed ``gardner_manchester`` to their serial twins
@@ -254,22 +259,30 @@ KERNELS = {
                                            JAX + "ops/clock.py:58, " + JAX
                                            + "ops/manchester.py:34"),
     # the exact chain's other clocks, each followed by its Manchester scan,
-    # and their double instances (JAX runs them under x64 there)
+    # and their double instances (JAX runs them under x64 there); the
+    # serial twins of the two on the whole-image kernel, kept in the same
+    # way
     **{name + suffix: (CSRC + "scan_kernels.cu",
                        JAX + f"ops/clock.py:{line}, " + JAX
                        + "ops/manchester.py:34")
        for name, line in (("mm_manchester_scan", 111),
                           ("upsampling_gardner_manchester_scan", 272),
                           ("upsampling_mm_manchester_scan", 344))
-       for suffix in ("", "_f64")},
+       for suffix in ("", "_f64", "_serial", "_f64_serial")
+       if "upsampling_mm" not in name or "serial" not in suffix},
     "ablate_kernel": (CSRC + "ablate_kernel.cu", "tools/ablate_kernel.py:32"),
     "ablate_fused": (CSRC + "ablate_fused.cu", "tools/ablate_fused.py:42"),
 }
-# the three clock kernels' wrappers in scan_kernels, float32 and float64
+# the three clock kernels' wrappers in scan_kernels, float32 and float64,
+# and the serial twins of the two on the whole-image kernel
 CLOCK_KERNELS = tuple(f"{clock}_manchester_scan{suffix}"
                       for clock in ("mm", "upsampling_gardner",
                                     "upsampling_mm")
                       for suffix in ("", "_f64"))
+WHOLE_IMAGE_CLOCKS = ("mm", "upsampling_gardner")
+CLOCK_TWINS = tuple(f"{clock}_manchester_scan{suffix}_serial"
+                    for clock in WHOLE_IMAGE_CLOCKS
+                    for suffix in ("", "_f64"))
 # the kernels each main path launches: the branches of demod_blocks and
 # the two ablation tools
 PATH_KERNELS = {"fused": ("fused_demod",),
@@ -342,7 +355,8 @@ def kernel_fns() -> dict:
             "pll_scan_f64_serial": pll_scan_f64_serial,
             "gardner_manchester_scan_f64_serial":
                 scan_kernels.gardner_manchester_scan_f64_serial,
-            **{name: getattr(scan_kernels, name) for name in CLOCK_KERNELS},
+            **{name: getattr(scan_kernels, name)
+               for name in CLOCK_KERNELS + CLOCK_TWINS},
             "ablate_kernel": ablate_kernel.ablate_kernel,
             "ablate_fused": ablate_fused.ablate_fused}
 
@@ -351,9 +365,9 @@ def drive(path, fn):
     """Run one main path: every kernel count set to 0 just before fn(),
     read just after; fails unless each kernel of the path launched and no
     other did (the serial kernels among them, gardner_manchester_serial,
-    gardner_manchester_scan_serial and the float64 twins
-    pll_scan_f64_serial and gardner_manchester_scan_f64_serial too).  Returns (fn's result,
-    {kernel: launches})."""
+    gardner_manchester_scan_serial, the float64 twins pll_scan_f64_serial
+    and gardner_manchester_scan_f64_serial and the clocks' CLOCK_TWINS
+    too).  Returns (fn's result, {kernel: launches})."""
     import torch
     fns = kernel_fns()
     for f in fns.values():
@@ -419,18 +433,22 @@ GM_SLOT_CHAIN_OPS, E_SYMBOL_CHAIN_OPS = 17, 16
 # (chain_cycles_f64(): the least of a double add's, multiply's and
 # compare-select's, so a lower bound).
 PLL_F64_SERIAL_CHAIN_OPS = PLL_CHAIN_OPS + 6
-# cycles a step of each dependent double operation's chain, as measured by
-# phase_fp64_latency (csrc/fp64_latency.cu's kinds, in order)
-FP64_LATENCY_KINDS = ("add", "mul", "fma", "select", "sin", "cos",
-                      "sincos")
-FP64_CYCLES = {}
+# cycles a step of each dependent operation's chain, as measured by
+# phase_fp64_latency (csrc/fp64_latency.cu's kinds, in order): the double
+# add, multiply, FMA, compare-select, sin, cos and sin/cos pair, the float
+# add, a shared-memory load whose address is the previous load's value,
+# and a float add and floor (FRND.FLOOR: the upsampling clocks' split
+# pointers renormalise through two a slot)
+LATENCY_KINDS = ("add", "mul", "fma", "select", "sin", "cos", "sincos",
+                 "f32_add", "ld_shared", "f32_add_floor")
+LATENCY_CYCLES = {}
 
 
 def chain_cycles_f64() -> float:
     """The latency the float64 chain bounds count for each dependent
     operation: the least of the measured add, multiply and compare-select
     latencies (phase_fp64_latency must have run)."""
-    return min(FP64_CYCLES[k] for k in ("add", "mul", "select"))
+    return min(LATENCY_CYCLES[k] for k in ("add", "mul", "select"))
 
 
 def max_sm_clock_hz() -> float:
@@ -1818,16 +1836,19 @@ def phase_exact_kernels(stats: dict):
 
 ARGOS_EXACT_CHECK_L = (2400, 1680, 1234)   # the argos chunk, the pass's
                                            # final one, a short one
-FP64_LATENCY_STEPS = {"sin": 2048, "cos": 2048, "sincos": 2048}
+LATENCY_STEPS = {"sin": 2048, "cos": 2048, "sincos": 2048}
 
 
 def phase_fp64_latency():
-    """The latency of dependent double operations on the card
+    """The latency of dependent operations on the card
     (csrc/fp64_latency.cu): one thread runs a chain of 16,384 steps of one
     kind (2,048 of sin, cos and the sin/cos pair, each with an add), the
     clock64() cycles over the steps, the least of three runs, into
-    FP64_CYCLES.  The float64 chain bounds count chain_cycles_f64(), the
-    least of the add, multiply and compare-select latencies."""
+    LATENCY_CYCLES: the double kinds, the float add and the dependent
+    shared-memory load.  The float64 chain bounds count chain_cycles_f64(),
+    the least of the double add, multiply and compare-select latencies;
+    the redesigned clock kernels' and the ablation tools' chain bounds the
+    float add's, the floor's and the load's (whole_image_chain_cycles)."""
     import torch
     from project_desert_tortoise_tpu_torch.ops.kernels.common import launch
 
@@ -1836,17 +1857,19 @@ def phase_fp64_latency():
                        device=dev)
     out = torch.zeros(1, dtype=torch.float64, device=dev)
     cycles = torch.zeros(1, dtype=torch.int64, device=dev)
-    for kind, name in enumerate(FP64_LATENCY_KINDS):
-        steps = FP64_LATENCY_STEPS.get(name, 16384)
+    for kind, name in enumerate(LATENCY_KINDS):
+        steps = LATENCY_STEPS.get(name, 16384)
         runs = []
         for _ in range(3):
             launch(dev, "pdt_fp64_latency", kind, inp.data_ptr(),
                    out.data_ptr(), cycles.data_ptr(), steps)
             torch.cuda.synchronize()
             runs.append(int(cycles[0]) / steps)
-        FP64_CYCLES[name] = min(runs)
-    emit("fp64_latency", cycles_a_step=dict(FP64_CYCLES),
-         chain_cycles_f64=chain_cycles_f64(), card=card_line())
+        LATENCY_CYCLES[name] = min(runs)
+    emit("fp64_latency", cycles_a_step=dict(LATENCY_CYCLES),
+         chain_cycles_f64=chain_cycles_f64(),
+         chain_cycles_f32=LATENCY_CYCLES["f32_add"],
+         ld_shared_cycles=LATENCY_CYCLES["ld_shared"], card=card_line())
 
 
 def phase_argos_exact_kernels(stats: dict):
@@ -1980,7 +2003,7 @@ def phase_argos_exact_kernels(stats: dict):
     gm_case = (L, "quirks, stale inside the image")
     gm_ms, gm_serial_ms = serial[("gardner_manchester_scan_f64",) + gm_case]
     serial_cycles = pll_serial_ms * 1e-3 / L * clock
-    sincos = FP64_CYCLES["sincos"] - FP64_CYCLES["add"]
+    sincos = LATENCY_CYCLES["sincos"] - LATENCY_CYCLES["add"]
     cycles = chain_cycles_f64()
     chains = {
         "pll_scan_f64 (stage A, locked)": chain_bound_ms(
@@ -1992,7 +2015,7 @@ def phase_argos_exact_kernels(stats: dict):
         "gardner_manchester_scan_f64": chain_bound_ms(
             msyms, GM_SLOT_CHAIN_OPS, cycles)}
     emit("design", mode="argos exact chain (float64)", card=card_line(),
-         chain_cycles_f64=cycles, fp64_cycles_a_step=dict(FP64_CYCLES),
+         chain_cycles_f64=cycles, fp64_cycles_a_step=dict(LATENCY_CYCLES),
          pll_scan_f64=dict(pk.launch_config(dtype=f64), shape=[1, L],
                            ms_locked=pll_ms,
                            ms_unlocked=serial["pll_scan_f64", L,
@@ -2429,6 +2452,39 @@ ABLATE_KERNEL_OPS = {"empty_c1": 1, "empty_c8": 8, "empty_c73": 73,
                      "store3": 4}
 ABLATE_FUSED_OPS = {"pll": (40, 6), "fir": (2 * 78 + 8 * 3, 4),
                     "ring": (0, 32), "gm": (3 * 32 + 30, 1), "store": (0, 0)}
+# dependent operations a step on each variant's longest loop-carried chain,
+# counted from the same bodies.  ablate_kernel: empty_c* 1 (each
+# carried value's add, the values independent); mac26, mac78 2 a
+# multiply-add (-fmad=false: a multiply, then an add); pll 18, the serial
+# PLL step's (PLL_F64_SERIAL_CHAIN_OPS: the phase update and the lock
+# signal that feeds back through `locked`; sinf/cosf and q_rsqrt not
+# counted); ring16 17 (the newest value through the 16 compare-selects of
+# the read, then the add; the shift is register renaming); store3 0 (no
+# carried value changes).  ablate_fused, per stage on and stubbed: the PLL
+# 18 or 1; the FIR stage's three AGC gains 3 x AGC_CHAIN_OPS or the
+# gain's 1; the rings 0 (a shift) or 1; Gardner's next_sample 31 (rintf,
+# float->int, the clamp at 0, the age's subtract and clamps, the 16
+# compare-selects of the ring read, subtract, two multiplies, two clamps,
+# subtract, add, select) or 1; the stores 0.  The stages' chains are
+# independent recurrences, so a variant's is the longest of them.  The
+# chain bound is computed at the measured float add latency, not measured:
+# on the ablation_chain lines, not in the table.
+ABLATE_KERNEL_CHAIN_OPS = {"empty_c1": 1, "empty_c8": 1, "empty_c73": 1,
+                           "mac26": 52, "mac78": 156,
+                           "pll": PLL_F64_SERIAL_CHAIN_OPS, "ring16": 17,
+                           "store3": 0}
+ABLATE_FUSED_CHAIN_OPS = {"pll": (PLL_F64_SERIAL_CHAIN_OPS, 1),
+                          "fir": (3 * AGC_CHAIN_OPS, 1), "ring": (0, 1),
+                          "gm": (31, 1), "store": (0, 0)}
+
+
+def ablation_chain_ops(tool, name: str) -> int:
+    """A variant's counted chain a step (ABLATE_*_CHAIN_OPS)."""
+    if tool.__name__.endswith("ablate_kernel"):
+        return ABLATE_KERNEL_CHAIN_OPS[name]
+    flags = tool.VARIANTS[name]
+    return max(on if s in flags else off
+               for s, (on, off) in ABLATE_FUSED_CHAIN_OPS.items())
 
 
 def ablation_bound(tool, name: str, steps: int, B: int) -> dict:
@@ -2506,10 +2562,24 @@ def phase_ablation(stats: dict) -> dict:
     # the plain versions at the check shape of that lane count
     default_steps = {"ablate_kernel": 131072, "ablate_fused": 118784}
     s_max = max(ABLATION_S)
+    cycles = LATENCY_CYCLES["f32_add"]
     for tool in (AK, AF):
         tname = tool.__name__.rsplit(".", 1)[1]
         L, B = default_steps[tname], s_max * 128
         bounds = [ablation_bound(tool, v, L, B) for v in tool.VARIANTS]
+        # every lane's chain runs beside the others' (one warp an SM at
+        # s_max): a run's chain bound is one lane's
+        ops = {v: ablation_chain_ops(tool, v) for v in tool.VARIANTS}
+        chain = {v: chain_bound_ms(L, k, cycles) for v, k in ops.items()}
+        variant_ms = {v: ns[tname, v, s_max] * L * 1e-6
+                      for v in tool.VARIANTS}
+        emit("ablation_chain", tool=tname, S=s_max, steps=L,
+             chain_ops_a_step=ops, chain_cycles=cycles,
+             chain_bound_ms=chain, chain_bound_ms_sum=sum(chain.values()),
+             ms=variant_ms, ms_sum=sum(variant_ms.values()),
+             share_of_chain_bound={v: chain[v] / variant_ms[v]
+                                   for v in tool.VARIANTS},
+             card=card_line())
         by = collections.Counter()
         for b in bounds:
             by[b["bound_by"]] += b["bound_ms"]
@@ -3263,6 +3333,37 @@ def phase_realtime(workdir: str) -> dict:
 CLOCK_CHAIN_OPS = {"mm": 16, "upsampling_gardner": 20, "upsampling_mm": 20}
 # operations a slot, timing and Manchester (for the operations bound)
 CLOCK_SLOT_OPS = {"mm": 35, "upsampling_gardner": 45, "upsampling_mm": 40}
+# The redesigned clock kernels' chains (the whole-image kernel's
+# chain_segment overloads for MmScan and UpGardnerScan,
+# csrc/scan_kernels.cu), a slot as (floating-point, integer, floor)
+# dependent operations besides its one shared-memory load.  "mm",
+# float32, 12 + 4 + 0: the rounding add, the integer subtract, two clamps
+# and the address; the load; sign (compare, select, subtract), multiply,
+# subtract, multiply, add, two clamps, add, select.  float64 12 + 3 (the
+# rounding add's low word is the integer: no subtract).
+# "upsampling_gardner" 14 + 3 + 2: compare, select, add, float->int, two
+# clamps, the address; the load; subtract, two multiplies, two clamps,
+# subtract, floor, subtract, add, floor, subtract, select.  Each
+# floating-point operation at the float add's latency (float32) or
+# chain_cycles_f64() (float64), each integer one at the float add's, a
+# float floor at its own (the measured floor-and-add less the add; in
+# float64 a floating-point operation), the load at the dependent
+# ld.shared latency, each as phase_fp64_latency measures it
+# (whole_image_chain_cycles).
+WHOLE_IMAGE_CHAIN_OPS = {("mm", False): (12, 4, 0), ("mm", True): (12, 3, 0),
+                         ("upsampling_gardner", False): (14, 3, 2),
+                         ("upsampling_gardner", True): (14, 3, 2)}
+
+
+def whole_image_chain_cycles(clock: str, f64: bool) -> float:
+    """Cycles a slot on a redesigned clock kernel's chain, at the measured
+    latencies (phase_fp64_latency must have run)."""
+    fp, n_int, floors = WHOLE_IMAGE_CHAIN_OPS[clock, f64]
+    f32 = LATENCY_CYCLES["f32_add"]
+    floor = (chain_cycles_f64() if f64
+             else LATENCY_CYCLES["f32_add_floor"] - f32)
+    return (fp * (chain_cycles_f64() if f64 else f32) + n_int * f32
+            + floors * floor + LATENCY_CYCLES["ld_shared"])
 
 
 def clock_cfg(cfg_mod, clock: str, dtype: str = "float32"):
@@ -3353,17 +3454,27 @@ def phase_clock_kernels(stats: dict):
     in float64 (the _f64 instances), at one lane over one POES chunk's
     image (clock_images): from a fresh state over the whole image and from
     a carried one over a ragged final chunk (tests/test_torch_clocks_cuda.py
-    has the other combinations and more lanes).  One `clock_kernel` line
-    each kernel: ms a launch (CUDA events, fresh state, whole image), the
-    bytes bound of those inputs (each value the chain reads, and the
-    outputs, once), the chain bound (CLOCK_CHAIN_OPS a slot up to the last
-    active one, at 4 cycles in float32 and at the measured FP64 latency in
+    has the other combinations and more lanes).  The two on the
+    whole-image kernel (WHOLE_IMAGE_CLOCKS) also against their serial twins
+    in both cases, both timed in this run (`whole_chunk_vs_serial` lines),
+    and on a forced small ring (SMALL_RING, SMALL_RING_F64); one `design`
+    line each: the launch configuration the card reports, the times and
+    the chain bound at the measured latencies (whole_image_chain_cycles, a
+    slot up to the first inactive one).  One `clock_kernel` line each
+    kernel: ms a launch (CUDA events, fresh state, whole image), the bytes
+    bound of those inputs (each value the chain reads, and the outputs,
+    once), the chain bound (upsampling_mm_manchester_scan: CLOCK_CHAIN_OPS
+    a slot at 4 cycles in float32 and at the measured FP64 latency in
     float64, computed), the plain version's ms; the launches on the main
     paths are the clocks_exact lines' and the kernels line's."""
     import torch
     from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
 
     dev = torch.device("cuda")
+    cases = ((False, False), (True, True))
+    case_of = lambda carried, ragged: (
+        f"{'carried' if carried else 'fresh'} state, "
+        f"{'ragged final chunk' if ragged else 'whole image'}")
     for clock in ("mm", "upsampling_gardner", "upsampling_mm"):
         for dtype in (torch.float32, torch.float64):
             f64 = dtype == torch.float64
@@ -3371,34 +3482,93 @@ def phase_clock_kernels(stats: dict):
             kern = getattr(sk, f"{clock}_manchester_scan")  # routes float64
             plain = getattr(sk, f"{clock}_manchester_scan_ref")
             times = {}
-            for carried, ragged in ((False, False), (True, True)):
+            for carried, ragged in cases:
                 args = clock_images(clock, dtype, dev, ragged, carried)
-                case = (f"{'carried' if carried else 'fresh'} state, "
-                        f"{'ragged final chunk' if ragged else 'whole image'}")
+                case = case_of(carried, ragged)
                 times[case] = time_pair(
                     name, f"exact chain, 1 lane, {case}",
                     lambda: kern(*args), lambda: plain(*args),
                     list(args[2].shape), stats)
             args = clock_images(clock, dtype, dev, False, False)
-            ms, plain_ms, _ = times["fresh state, whole image"]
+            ms, plain_ms, _ = times[case_of(False, False)]
             out = kern(*args)
             count, msyms = int(out[-1][0]), args[-1]
+            shape = list(args[2].shape)
+            computed = min(count + 1, msyms)   # up to the first inactive
             w = 8.0 if f64 else 4.0
             reads = 3.0 if clock == "upsampling_gardner" else 2.0
             n_bytes = count * reads * w + msyms * (2 * w + 3)
-            cycles = chain_cycles_f64() if f64 else CHAIN_CYCLES
-            chain_ms = chain_bound_ms(min(count + 1, msyms),
-                                      CLOCK_CHAIN_OPS[clock], cycles)
+            if clock in WHOLE_IMAGE_CLOCKS:
+                chain = dict(
+                    chain_ops_a_slot=dict(zip(
+                        ("floating_point", "integer", "floor"),
+                        WHOLE_IMAGE_CHAIN_OPS[clock, f64]), ld_shared=1),
+                    chain_cycles_a_slot=whole_image_chain_cycles(clock, f64))
+                chain["chain_bound_ms"] = chain_bound_ms(
+                    computed, 1, chain["chain_cycles_a_slot"])
+                clock_vs_serial(clock, name, dtype, cases, case_of, chain,
+                                stats)
+            else:
+                cycles = chain_cycles_f64() if f64 else CHAIN_CYCLES
+                chain = dict(chain_bound_ms=chain_bound_ms(
+                    computed, CLOCK_CHAIN_OPS[clock], cycles),
+                    chain_ops_a_slot=CLOCK_CHAIN_OPS[clock],
+                    chain_cycles=cycles)
             b = bound(n_bytes, msyms * CLOCK_SLOT_OPS[clock],
                       FP64_FLOP_S if f64 else FP32_FLOP_S)
             # the chain bound is computed: on this line, not in the table
-            stats[name].update(ms=ms, shape=list(args[2].shape),
-                               max_syms=msyms, active_slots=count, **b)
-            emit("clock_kernel", kernel=name, shape=list(args[2].shape),
-                 max_syms=msyms, active_slots=count, ms=ms,
-                 plain_ms=plain_ms, chain_bound_ms=chain_ms,
-                 chain_ops_a_slot=CLOCK_CHAIN_OPS[clock],
-                 chain_cycles=cycles, bit_exact=True, card=card_line(), **b)
+            stats[name].update(ms=ms, shape=shape, max_syms=msyms,
+                               active_slots=count, **b)
+            emit("clock_kernel", kernel=name, shape=shape, max_syms=msyms,
+                 active_slots=count, ms=ms, plain_ms=plain_ms, **chain,
+                 bit_exact=True, card=card_line(), **b)
+
+
+def clock_vs_serial(clock: str, name: str, dtype, cases, case_of,
+                    chain: dict, stats: dict):
+    """A redesigned clock kernel against its serial twin on the
+    clock_images cases, bit for bit, both timed in this run (old, new,
+    new, old), and on the forced small ring; one `whole_chunk_vs_serial`
+    line a case, one `design` line (the launch configurations, the fresh
+    whole-image case's times, `chain`)."""
+    import torch
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+
+    dev = torch.device("cuda")
+    f64 = dtype == torch.float64
+    kern = getattr(sk, f"{clock}_manchester_scan")
+    twin = getattr(sk, name + "_serial")
+    small = SMALL_RING_F64 if f64 else SMALL_RING
+    times = {}
+    for carried, ragged in cases:
+        args = clock_images(clock, dtype, dev, ragged, carried)
+        case = case_of(carried, ragged)
+        ms, ms_old, got, want = old_new_ms(lambda: kern(*args),
+                                           lambda: twin(*args), reps=10)
+        check_equal(got, want, f"{name} vs serial ({case})")
+        check_equal(kern(*args, ring_floats=small), want,
+                    f"{name}, small ring, vs serial ({case})")
+        times[case] = ms, ms_old
+        emit("whole_chunk_vs_serial", kernel=name, case=case,
+             shape=list(args[2].shape), bit_exact=True,
+             small_ring_bit_exact=True, ms=ms, serial_ms=ms_old,
+             speedup=ms_old / ms, card=card_line())
+    args = clock_images(clock, dtype, dev, False, False)
+    B, cap = args[2].shape
+    ms, ms_old = times[case_of(False, False)]
+    emit("design", mode=f"exact chain, {clock} clock"
+         + (" (float64)" if f64 else ""), card=card_line(),
+         **{name: dict(sk.clock_scan_launch_config(clock, B, cap,
+                                                   dtype=dtype),
+                       shape=[B, cap], max_syms=args[-1], ms=ms,
+                       serial_ms=ms_old, **chain,
+                       latency_cycles=dict(LATENCY_CYCLES),
+                       small_ring=sk.clock_scan_launch_config(
+                           clock, B, cap, small, dtype=dtype))})
+    stats[name + "_serial"] = dict(ms=ms_old, shape=[B, cap],
+                                   redesigned_ms=ms, max_abs_err=0.0)
+    stats.setdefault(name, {})["isolated"] = dict(ms=ms, serial_ms=ms_old,
+                                                  shape=[B, cap])
 
 
 def clock_payloads(frames, want, lead_in, key) -> dict:
@@ -3712,7 +3882,9 @@ def drive_all(exact_cpu, slice_cpu) -> int:
     # the serial twins compute the same function as the redesigned kernels:
     # the same bound and plain version
     for mode_name, st in stats.items():
-        exact = (("gardner_manchester_scan",) if mode_name == "poes" else
+        exact = (("gardner_manchester_scan", *(
+            t[:-len("_serial")] for t in CLOCK_TWINS))
+                 if mode_name == "poes" else
                  ("pll_scan_f64", "gardner_manchester_scan_f64"))
         for k in ("fused_demod", "pll_fir_agc", "pll_scan", "agc_scan",
                   "gardner_manchester", *exact):

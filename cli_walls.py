@@ -4,7 +4,7 @@
 two or more checkouts of the repository timed in turns on one card.
 
     python3 cli_walls.py ROOT [ROOT ...] [--pairs N] [--scan-branch]
-                         [--exact] [--modes poes argos]
+                         [--exact] [--gardner-scan] [--modes poes argos]
 
 Each ROOT is a checkout.  One worker process a root imports that root's
 ``project_desert_tortoise_tpu_torch`` and runs the CLI on request; each
@@ -18,7 +18,13 @@ both alike.  A run is timed from WAV load to written file, as
 to the frame list, as that branch's ``main_path`` lines are.  ``--exact``
 times the CLIs without ``--fast`` (the exact chain; for ARGOS the float64
 ``argos`` mode), as ``chip_smoke.py``'s ``exact_cli`` and
-``argos_exact_cli`` lines are; ``--modes`` picks the passes.  Beside each
+``argos_exact_cli`` lines are; ``--gardner-scan`` times the exact chain's
+Gardner kernel alone (``gardner_manchester_scan`` at one lane of a
+chunk's quirks image with its mid-bit pointer stale inside it, as
+``chip_smoke.py``'s ``exact_kernels`` has it: float32 for ``poes``, the
+float64 instance for ``argos``), its mean device seconds a launch over
+200 launches by CUDA events, in place of a wall; ``--modes`` picks the
+passes.  Beside each
 wall the worker reports what its process did in that time: CPU seconds
 (user and system), major page faults (reads that waited on the disk) and
 involuntary context switches (time the process was ready but another had
@@ -66,6 +72,37 @@ def cli(mode, wav, out, fast=True):
         return done.code
     raise AssertionError("demod_argos.main returned without an exit code")
 
+def gardner_scan(mode):
+    import numpy as np, torch
+    from project_desert_tortoise_tpu_torch import chain
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+    cfg, fs = (POES_TIP, 50000.0) if mode == "poes" else (ARGOS, 32000.0)
+    dt, dev = getattr(torch, cfg.dtype), torch.device("cuda")
+    p = chain.make_params(cfg, fs, quirks=True)
+    cap = cfg.chunk_size * p.interp
+    rng = np.random.default_rng(1)
+    sym = rng.choice([-1.0, 1.0], int(cap / p.step_size) + 2)
+    pos = (np.arange(cap) + rng.uniform(0, p.step_size)) / p.step_size
+    x = torch.tensor(sym[pos.astype(int)] + 0.1 * rng.standard_normal(cap),
+                     dtype=dt, device=dev)[None]
+    t = (torch.arange(1, cap + 1, dtype=dt, device=dev) / fs)[None]
+    f = lambda v: torch.full((1,), v, dtype=dt, device=dev)
+    i = lambda v: torch.full((1,), v, dtype=torch.int32, device=dev)
+    args = ((f(7.3), f(cap - 9.6), f(0.4), f(0.9), f(-0.8), f(0.7)),
+            (i(0), i(1)), x, t, i(cap),
+            sk.GardnerParams(p.step_size, p.gardner_err_limit,
+                             p.gardner_gain, p.resync_threshold),
+            chain.max_symbols(cap, p.step_size))
+    sk.gardner_manchester_scan(*args)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(20_000_000)      # the launches queue behind it
+    start.record()
+    for _ in range(200):
+        sk.gardner_manchester_scan(*args)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / 200 * 1e-3
+
 def scan_branch(mode, wav):
     cfg = POES_TIP if mode == "poes" else ARGOS
     iq, t, fs, _ = W.load_iq_wav(wav, cfg.np_dtype())
@@ -80,9 +117,12 @@ for line in sys.stdin:
     t0 = time.time()
     with contextlib.redirect_stdout(io.StringIO()), \
             contextlib.redirect_stderr(io.StringIO()):
-        rc = (scan_branch(mode, wav) if kind == "scan"
-              else cli(mode, wav, out, fast=kind == "fast"))
-    wall = time.time() - t0
+        if kind == "gardner":
+            rc, device_s = 0, gardner_scan(mode)
+        else:
+            rc = (scan_branch(mode, wav) if kind == "scan"
+                  else cli(mode, wav, out, fast=kind == "fast"))
+    wall = device_s if kind == "gardner" else time.time() - t0
     r1 = resource.getrusage(resource.RUSAGE_SELF)
     print(json.dumps({
         "rc": rc, "wall_s": wall,
@@ -140,17 +180,22 @@ def main(argv=None) -> int:
                     "the CLIs")
     ap.add_argument("--exact", action="store_true",
                     help="the CLIs without --fast (the exact chain)")
+    ap.add_argument("--gardner-scan", action="store_true",
+                    help="the exact chain's Gardner kernel's device "
+                    "seconds a launch in place of a wall")
     ap.add_argument("--modes", nargs="+", choices=("poes", "argos"),
                     default=["poes", "argos"], help="the passes to time")
     args = ap.parse_args(argv)
-    kind = "scan" if args.scan_branch else "exact" if args.exact else "fast"
+    kind = ("scan" if args.scan_branch else "exact" if args.exact
+            else "gardner" if args.gardner_scan else "fast")
     order = (args.roots + args.roots[::-1]) * args.pairs
     walls = {}
     workers = {root: Worker(root) for root in args.roots}
     try:
         with tempfile.TemporaryDirectory() as workdir:
             for mode in args.modes:
-                wav = synth_pass(mode, workdir)[0]
+                wav = (synth_pass(mode, workdir)[0] if kind != "gardner"
+                       else os.devnull)
                 out = os.path.join(workdir, "out.txt")
                 for w in workers.values():
                     w.run(mode, wav, out, kind)   # warm-up
@@ -160,7 +205,8 @@ def main(argv=None) -> int:
                     print(json.dumps({"mode": mode, "root": root,
                                       "kind": kind, "turn": turn, **r}),
                           flush=True)
-                os.remove(wav)
+                if kind != "gardner":
+                    os.remove(wav)
     finally:
         for w in workers.values():
             w.close()

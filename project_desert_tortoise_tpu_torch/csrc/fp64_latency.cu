@@ -1,8 +1,8 @@
-// Latency of dependent double operations on Hopper (sm_90a): the cycles a
-// step of a loop-carried chain costs, which bound the float64 kernels'
-// serial chains (pll_kernel.cu's stage A, the AGC gain, the Gardner slot).
-// No path runs it: chip_smoke.py measures with it and computes the float64
-// chain bounds from what it reports.
+// Latency of dependent operations on Hopper (sm_90a): the cycles a step of
+// a loop-carried chain costs, which bound the kernels' serial chains
+// (pll_kernel.cu's stage A, the AGC gain, the clocks' slots).  No path
+// runs it: chip_smoke.py measures with it and computes the chain bounds
+// from what it reports.
 //
 // One thread runs `steps` dependent steps of one kind of operation and
 // reads clock64() before and after; each step's input is the previous
@@ -10,7 +10,12 @@
 // multiply, a fused multiply-add, a compare-select (x < c ? x : d), and
 // the data arm's libdevice sin, cos and the sin/cos pair of one argument
 // as pll_terms computes them (each with an add to keep the argument in
-// range).  Built with the other kernels (-fmad=false, no fast math).
+// range); and, for the float32 kernels and the whole-image clock kernels,
+// a float add, a shared-memory load whose address is the previous load's
+// value (ld.shared.u32 chasing a ring of 256 addresses) and a float floor
+// with an add (floorf(x + c): FRND.FLOOR and FADD, the split pointers'
+// renormalisation).  Built
+// with the other kernels (-fmad=false, no fast math).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -18,7 +23,8 @@
 namespace {
 
 enum Kind {
-  kAdd = 0, kMul, kFma, kSelect, kSin, kCos, kSinCos, kKinds
+  kAdd = 0, kMul, kFma, kSelect, kSin, kCos, kSinCos, kAddF32, kLdShared,
+  kFloorF32, kKinds
 };
 
 constexpr int kUnroll = 16;
@@ -54,10 +60,63 @@ __global__ void latency_kernel(const double* __restrict__ in,
   cycles[0] = t1 - t0;
 }
 
+// the float add's chain (FLOOR: floorf(x + c) a step): x0 and c rounded
+// to float
+template <bool FLOOR>
+__global__ void add_f32_kernel(const double* __restrict__ in,
+                               double* __restrict__ out,
+                               long long* __restrict__ cycles, int steps) {
+  float x = static_cast<float>(in[0]);
+  const float c = static_cast<float>(in[1]);
+  const long long t0 = clock64();
+#pragma unroll 1
+  for (int i = 0; i < steps; i += kUnroll) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) x = FLOOR ? floorf(x + c) : x + c;
+  }
+  const long long t1 = clock64();
+  out[0] = x;
+  cycles[0] = t1 - t0;
+}
+
+constexpr int kChase = 256;   // addresses in the shared-memory ring
+
+// the shared-memory load's chain: each load's value is the next address
+__global__ void ld_shared_kernel(const double* __restrict__ in,
+                                 double* __restrict__ out,
+                                 long long* __restrict__ cycles,
+                                 int steps) {
+  __shared__ unsigned ring[kChase];
+  for (int k = 0; k < kChase; ++k) {
+    ring[k] = static_cast<unsigned>(
+        __cvta_generic_to_shared(ring + (k + 1) % kChase));
+  }
+  __syncwarp();
+  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(ring));
+  const long long t0 = clock64();
+#pragma unroll 1
+  for (int i = 0; i < steps; i += kUnroll) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      asm volatile("ld.shared.u32 %0, [%0];\n" : "+r"(a) :: "memory");
+    }
+  }
+  const long long t1 = clock64();
+  out[0] = static_cast<double>(a);
+  cycles[0] = t1 - t0;
+}
+
 template <int KIND>
 cudaError_t launch(const double* in, double* out, long long* cycles,
                    int steps, cudaStream_t st) {
-  latency_kernel<KIND><<<1, 1, 0, st>>>(in, out, cycles, steps);
+  if constexpr (KIND == kAddF32 || KIND == kFloorF32) {
+    add_f32_kernel<KIND == kFloorF32><<<1, 1, 0, st>>>(in, out, cycles,
+                                                       steps);
+  } else if constexpr (KIND == kLdShared) {
+    ld_shared_kernel<<<1, 1, 0, st>>>(in, out, cycles, steps);
+  } else {
+    latency_kernel<KIND><<<1, 1, 0, st>>>(in, out, cycles, steps);
+  }
   return cudaGetLastError();
 }
 
@@ -65,7 +124,9 @@ cudaError_t launch(const double* in, double* out, long long* cycles,
 
 // Runs a chain of `steps` (a multiple of 16) dependent steps of `kind`
 // (0 add, 1 multiply, 2 fused multiply-add, 3 compare-select, 4 sin, 5 cos,
-// 6 the sin/cos pair) on one thread from in = (x0, c, d) (device memory);
+// 6 the sin/cos pair, all double; 7 a float add; 8 a shared-memory load
+// chasing addresses; 9 a float add and floor) on one thread from in =
+// (x0, c, d) (device memory);
 // writes the result to out[0] and the chain's clock64() cycles to
 // cycles[0].  Returns the cudaError_t of the launch.
 extern "C" int pdt_fp64_latency(int kind, const double* in, double* out,
@@ -83,6 +144,9 @@ extern "C" int pdt_fp64_latency(int kind, const double* in, double* out,
     case kSin: e = launch<kSin>(in, out, cycles, steps, st); break;
     case kCos: e = launch<kCos>(in, out, cycles, steps, st); break;
     case kSinCos: e = launch<kSinCos>(in, out, cycles, steps, st); break;
+    case kAddF32: e = launch<kAddF32>(in, out, cycles, steps, st); break;
+    case kLdShared: e = launch<kLdShared>(in, out, cycles, steps, st); break;
+    case kFloorF32: e = launch<kFloorF32>(in, out, cycles, steps, st); break;
   }
   return static_cast<int>(e);
 }

@@ -84,7 +84,7 @@
 // symbol slots, nothing at 3.35 TB/s: each is bound by its chain of
 // dependent double operations.  agc_scan_f64 is the serial AGC kernel
 // instantiated in double, one thread a lane.  gardner_manchester_scan_f64
-// is gardner_scan_kernel instantiated in double: the image resident in
+// is pdt_gardner_scan's kernel in double: the image resident in
 // shared memory (a bulk copy moves 16-byte bodies of 2 doubles, the
 // ragged ends 8-byte cp.async copies), the chain thread off device
 // memory, the mover warps storing the records; its rint is one double add
@@ -100,12 +100,28 @@
 // value-upsampled stream with split (integer part, fraction) pointers;
 // each then ops/manchester.py::manchester_scan (:34-74).  They replace XLA
 // scans, no TPU kernel; a scan in plain PyTorch would run one Python step
-// a slot on the card.  The simple design: one thread steps one lane over
-// the image in device memory, writing every slot, float and double
-// instances (pdt_mm_scan, pdt_mm_scan_f64, ...).  At one lane a chunk is
-// ~3,500 slots over a 40 KB-160 KB image, nothing at 3.35 TB/s: each is
-// bound by its chain of dependent operations a slot, the image read (from
-// L2 after its first touch) among them.
+// a slot on the card.  At one lane a POES chunk is ~3,300 slots over a
+// 120 KB-320 KB image, nothing at 3.35 TB/s: each is bound by its chain
+// of dependent operations a slot, the read of the image among them.
+// pdt_gardner_scan's kernel is a template over a clock policy
+// (scan_kernel<T, RESIDENT, Clock>): GardnerScan, and MmScan and
+// UpGardnerScan for pdt_mm_scan and pdt_upsampling_gardner_scan (float and
+// double instances), so that their chain thread reads the image from the
+// ring in shared memory (M&M one read a slot; upsampling Gardner the
+// on-time and the mid-bit read, the mid-bit 0 outside [0, cap) as
+// Gardner's) and the Manchester decision and the stores run on the
+// movers.  The float32 POES images (120 KB, 160 KB) are resident; the
+// float64 ones (240 KB, 320 KB) exceed a CTA's shared memory and recycle
+// a ring of 16 tiles.  Both pointers move forward (M&M's step is clamped
+// to [step_min, step_max] > 0; upsampling Gardner's advances by the step
+// less an error of at most err_limit), and a read behind or outside the
+// staged tiles reads device memory, so even a pointer that moved back
+// would read right.  The simple design, one thread stepping one lane over
+// the image in device memory and writing every slot, stays as their
+// serial twins (pdt_mm_scan_serial, pdt_upsampling_gardner_scan_serial
+// and the _f64_serial ones), the card-side oracles and timing baselines,
+// on no path; upsampling_mm_manchester_scan still runs it
+// (pdt_upsampling_mm_scan).
 //
 // Numerics as in pdt_common.cuh.
 
@@ -234,7 +250,7 @@ struct SlotStateT {
 using SlotState = SlotStateT<float>;
 
 // The timing half of a symbol slot (clock.py:220-232), for
-// gardner_scan_kernel's chain thread: the error from the slot's on-time
+// the whole-image kernel's chain thread: the error from the slot's on-time
 // value cur and mid-bit value hval; an active slot advances next_sample,
 // half_raw and prev_bit.
 template <typename T>
@@ -254,7 +270,7 @@ __device__ __forceinline__ void timing_slot(SlotStateT<T>& g, Arg<T> cur,
 }
 
 // The Manchester half (ManchesterDecode.c:27-97), for
-// gardner_scan_kernel's mover: the decision on the slot's symbol cur.
+// the whole-image kernel's mover: the decision on the slot's symbol cur.
 // Returns the bit, plus 2 where it is emitted; an active slot advances the
 // Manchester state.  Nothing of it feeds the timing half.
 template <typename T>
@@ -661,7 +677,8 @@ gardner_scan_serial_kernel(const T* __restrict__ x, const T* __restrict__ t,
   count[b] = active_slots;
 }
 
-// --- gardner_scan_kernel: the same scan, the image staged in shared memory
+// --- the whole-image kernel: the same scan, the image staged in shared
+// memory
 
 constexpr int kGsThreads = 128;    // warp 0: the chain; warps 1-3: movers
 constexpr int kGsMovers = kGsThreads - 32;
@@ -871,7 +888,7 @@ struct Ring {
 // and its value (the soft symbol) into the segment's records, up to and
 // including the first inactive slot, whose index it returns (-1 if every
 // slot was active).  The timing half only: the Manchester decision needs
-// the records alone and runs on a mover (gardner_scan_kernel).  Both
+// the records alone and runs on a mover (scan_kernel).  Both
 // reads are issued from the ring before the test that sends a slot to
 // Ring::slow, so the test runs beside the loads; it reads the clamped
 // indices only.  ADD: next_sample and half_raw stay below kRintAddLimit
@@ -915,20 +932,390 @@ __device__ __forceinline__ int chain_segment(SlotStateT<T>& g,
   return -1;
 }
 
-// T = double is gardner_manchester_scan_f64, the float64 exact chain's;
-// ring_floats: the ring's elements of T
-template <typename T, bool RESIDENT>
+// --- the exact chain's other clocks: their states and slot halves
+
+// the M&M clock's constants: the adaptive step's clamp, the loop gain,
+// the Manchester resync threshold (ops/kernels/scan_kernels.py::MMParams)
+template <typename T>
+struct MmParamsT {
+  T step_min, step_max, kp, resync_threshold;
+};
+
+// the upsampling clocks' constants: the step and the half step as (integer
+// part, fraction), the error limit, the loop gain, the Manchester resync
+// threshold (scan_kernels.py::UpsamplingParams)
+template <typename T>
+struct UpParamsT {
+  T step_int, step_frac, half_int, half_frac, err_limit, kp,
+      resync_threshold;
+};
+
+// a split pointer renormalised so that the fraction lies in [0, 1)
+// (clock.py:266-269)
+template <typename T>
+__device__ __forceinline__ void split_norm(T i, T f, T& oi, T& of) {
+  const T k = num::floor(f);
+  oi = i + k;
+  of = f - k;
+}
+
+__device__ __forceinline__ int clamp_index(int i, int cap) {
+  return min(max(i, 0), cap - 1);
+}
+
+// Each clock's timing half of a slot.  kRows: its timing rows at the head
+// of st_f (the Manchester rows cur, prev, prevprev follow); advance()
+// updates the state from the slot's on-time value (and mid-bit value)
+// where the slot is active; slot() is the serial kernels' whole timing
+// half: it reads the on-time value from the image in device memory into
+// cur, advances the state and returns the on-time index (its time's).
+// The whole-image kernel computes the indices itself and reads through
+// its ring (the chain_segment overloads of MmScan and UpGardnerScan).
+//
+// mm (clock.py:128-141): rows next_sample, step, prev_bit; reads at
+// rint(next_sample); next_sample rolled over by n at the end (:146).
+template <typename T>
+struct MmClock {
+  static constexpr int kRows = 3;
+  using Params = MmParamsT<T>;
+  T ns, ss, prev;
+
+  __device__ void load(const T* f, int B, int b) {
+    ns = f[b];
+    ss = f[B + b];
+    prev = f[2 * B + b];
+  }
+  __device__ void advance(Arg<T> cur, bool active, const Params& p) {
+    const T err = sgn(prev) * cur - sgn(cur) * prev;
+    const T ss_new = num::min(num::max(ss + p.kp * err, p.step_min),
+                              p.step_max);
+    const T ns_new = ns + ss_new;
+    if (active) {
+      ns = ns_new;
+      prev = cur;
+      ss = ss_new;
+    }
+  }
+  __device__ int slot(const T* __restrict__ xr, int cap, T nf, T,
+                      const Params& p, bool& active, T& cur) {
+    const T idxf = num::rint(ns);
+    active = idxf < nf;
+    const int ii = clamp_index(num::to_int_rz(idxf), cap);
+    cur = xr[ii];
+    advance(cur, active, p);
+    return ii;
+  }
+  __device__ void store(T* f, int B, int b, int n) const {
+    f[b] = ns - static_cast<T>(n);
+    f[B + b] = ss;
+    f[2 * B + b] = prev;
+  }
+};
+
+// upsampling Gardner (clock.py:305-335): rows next_sample int, frac,
+// half_raw int, frac, prev_bit; reads at int + (frac >= 0.5), the mid-bit
+// read 0 outside [0, cap); no rollover (the chain shifts the integer
+// parts).
+template <typename T>
+struct UpGardnerClock {
+  static constexpr int kRows = 5;
+  using Params = UpParamsT<T>;
+  T ni, nf, hi, hf, prev;
+
+  __device__ void load(const T* f, int B, int b) {
+    ni = f[b];
+    nf = f[B + b];
+    hi = f[2 * B + b];
+    hf = f[3 * B + b];
+    prev = f[4 * B + b];
+  }
+  // the on-time and mid-bit read indices, as values of T
+  __device__ T on_time() const { return ni + (nf >= T(0.5) ? T(1) : T(0)); }
+  __device__ T mid_bit() const { return hi + (hf >= T(0.5) ? T(1) : T(0)); }
+  __device__ void advance(Arg<T> cur, Arg<T> hval, bool active,
+                          const Params& p) {
+    T err = p.kp * (cur - prev) * hval;
+    err = num::min(num::max(err, -p.err_limit), p.err_limit);
+    T ai, af, nhi, nhf, nni, nnf;
+    split_norm<T>(ni, nf - err, ai, af);                        // -= Error
+    split_norm<T>(ai + p.half_int, af + p.half_frac, nhi, nhf);  // + step/2
+    split_norm<T>(ai + p.step_int, af + p.step_frac, nni, nnf);  // + step
+    if (active) {
+      ni = nni;
+      nf = nnf;
+      hi = nhi;
+      hf = nhf;
+      prev = cur;
+    }
+  }
+  __device__ int slot(const T* __restrict__ xr, int cap, T n_f, T capf,
+                      const Params& p, bool& active, T& cur) {
+    const T idx = on_time();
+    active = idx < n_f;
+    const int ii = clamp_index(num::to_int_rz(idx), cap);
+    cur = xr[ii];
+    const T hidx = mid_bit();
+    const bool in_img = hidx >= T(0) && hidx < capf;
+    const T hval = in_img ? xr[clamp_index(num::to_int_rz(hidx), cap)]
+                          : T(0);
+    advance(cur, hval, active, p);
+    return ii;
+  }
+  __device__ void store(T* f, int B, int b, int) const {
+    f[b] = ni;
+    f[B + b] = nf;
+    f[2 * B + b] = hi;
+    f[3 * B + b] = hf;
+    f[4 * B + b] = prev;
+  }
+};
+
+// upsampling M&M (clock.py:362-377): rows next_sample int, frac, prev_bit;
+// a fixed step and the clipped sign-law error added to the pointer.
+template <typename T>
+struct UpMmClock {
+  static constexpr int kRows = 3;
+  using Params = UpParamsT<T>;
+  T ni, nf, prev;
+
+  __device__ void load(const T* f, int B, int b) {
+    ni = f[b];
+    nf = f[B + b];
+    prev = f[2 * B + b];
+  }
+  __device__ int slot(const T* __restrict__ xr, int cap, T n_f, T,
+                      const Params& p, bool& active, T& cur) {
+    const T idx = ni + (nf >= T(0.5) ? T(1) : T(0));
+    active = idx < n_f;
+    const int ii = clamp_index(num::to_int_rz(idx), cap);
+    cur = xr[ii];
+    T err = p.kp * (sgn(prev) * cur - sgn(cur) * prev);
+    err = num::min(num::max(err, -p.err_limit), p.err_limit);
+    T ai, af, nni, nnf;
+    split_norm<T>(ni, nf + err, ai, af);                        // += Error
+    split_norm<T>(ai + p.step_int, af + p.step_frac, nni, nnf);  // + step
+    if (active) {
+      ni = nni;
+      nf = nnf;
+      prev = cur;
+    }
+    return ii;
+  }
+  __device__ void store(T* f, int B, int b, int) const {
+    f[b] = ni;
+    f[B + b] = nf;
+    f[2 * B + b] = prev;
+  }
+};
+
+// A lane's carried state under one of these clocks: the clock's timing
+// rows, then the Manchester fields.  st_f rows: the clock's kRows, then
+// Manchester cur, prev, prevprev; st_i rows: clockmod, evenodd.
+template <typename T, typename Clock>
+struct ClockLane {
+  Clock k;
+  SlotStateT<T> m;            // the Manchester fields only
+
+  __device__ void load(const T* f, const int* i, int B, int b) {
+    constexpr int r = Clock::kRows;
+    k.load(f, B, b);
+    m.m_cur = f[r * B + b];
+    m.m_prev = f[(r + 1) * B + b];
+    m.m_prevprev = f[(r + 2) * B + b];
+    m.clockmod = i[b];
+    m.evenodd = i[B + b];
+  }
+  __device__ void store_timing(T* f, int B, int b, int n) const {
+    k.store(f, B, b, n);
+  }
+  __device__ void store_manchester(T* f, int* i, int B, int b) const {
+    constexpr int r = Clock::kRows;
+    f[r * B + b] = m.m_cur;
+    f[(r + 1) * B + b] = m.m_prev;
+    f[(r + 2) * B + b] = m.m_prevprev;
+    i[b] = m.clockmod;
+    i[B + b] = m.evenodd;
+  }
+};
+
+// The Manchester decision of a ClockLane (manchester_slot on its fields)
+template <typename T, typename C>
+__device__ __forceinline__ int manchester_slot(ClockLane<T, C>& g, Arg<T> cur,
+                                               bool active, Arg<T> thr) {
+  return manchester_slot(g.m, cur, active, thr);
+}
+
+// --- the whole-image kernel's clock policies
+//
+// Each names the lane's State (its load(), store_timing() on the chain
+// thread, store_manchester() on the Manchester mover), the constants
+// Consts built from the launch's Params (with the Manchester threshold
+// thr), per_slot(): how far next_sample can move in a slot, and lead()
+// and trail(): the pointers that must stay below the rounding add's limit
+// over a segment for rint_int<true> to be exact.  The chain thread's loop
+// over a segment is chain_segment<ADD>, overloaded on the State: each
+// slot's clamped on-time index and its value (the soft symbol) into the
+// segment's records, up to and including the first inactive slot, whose
+// index it returns (-1 if every slot was active).  Each overload issues
+// its slot's reads from the ring before the test that sends the slot to
+// Ring::slow, so the test runs beside the loads; it reads the clamped
+// indices only.  (Gardner's kernel compiles to the machine code it had
+// before the template, sass_diff.py shows; the kernel's calls are written
+// as they were for that.)
+
+// Gardner (gardner_manchester_scan): the SlotStateT chain_segment.
+template <typename T>
+struct GardnerScan {
+  using Params = GardnerParamsT<T>;
+  using Consts = GardnerConstsT<T>;
+  using State = SlotStateT<T>;
+
+  // how far next_sample and half_raw can move in a slot, with half an
+  // ulp (< 0.25 below the limit) for each of its two adds
+  static __device__ __forceinline__ T per_slot(const Consts& c) {
+    return num::abs(c.step) + num::abs(c.err_limit) + T(1);
+  }
+  static __device__ __forceinline__ T lead(const State& g) { return g.ns; }
+  static __device__ __forceinline__ T trail(const State& g) {
+    return g.half_raw;
+  }
+};
+
+// the clocks' constants with the Manchester threshold as thr
+template <typename T>
+struct MmConstsT : MmParamsT<T> {
+  T thr;
+  __device__ explicit MmConstsT(const MmParamsT<T>& p)
+      : MmParamsT<T>(p), thr(p.resync_threshold) {}
+};
+
+template <typename T>
+struct UpConstsT : UpParamsT<T> {
+  T thr;
+  __device__ explicit UpConstsT(const UpParamsT<T>& p)
+      : UpParamsT<T>(p), thr(p.resync_threshold) {}
+};
+
+// M&M (mm_manchester_scan): one read a slot, at rint(next_sample)
+// clamped to [0, cap - 1] (clock.py:131-133); ADD rounds next_sample as
+// Gardner's chain does, below the same limit.
+template <typename T>
+struct MmScan {
+  using Params = MmParamsT<T>;
+  using Consts = MmConstsT<T>;
+  using State = ClockLane<T, MmClock<T>>;
+
+  // a slot moves next_sample by the clamped step, with half an ulp for
+  // its add
+  static __device__ __forceinline__ T per_slot(const Consts& c) {
+    return num::max(num::abs(c.step_min), num::abs(c.step_max)) + T(1);
+  }
+  static __device__ __forceinline__ T lead(const State& g) { return g.k.ns; }
+  static __device__ __forceinline__ T trail(const State& g) { return g.k.ns; }
+};
+
+template <bool ADD, typename T, bool RESIDENT>
+__device__ __forceinline__ int chain_segment(
+    ClockLane<T, MmClock<T>>& g, Ring<T, RESIDENT>& r, int* ridx, T* rsym,
+    int s0, int s1, int n, const MmConstsT<T>& c) {
+  MmClock<T>& k = g.k;
+  const int cap_m1 = r.cap - 1;
+  const T nf = static_cast<T>(n);
+  const int len = s1 - s0;
+  const unsigned tile = 1u << r.lt;
+  int lo_lim = r.lo << r.lt, hi_lim = r.hi << r.lt;
+  for (int j = 0; j < len; ++j) {
+    const int ir = rint_int<ADD>(k.ns);
+    const bool active = ADD ? ir < n : num::rint(k.ns) < nf;    // :131
+    const int ii = min(max(ir, 0), cap_m1);
+    T cur = ld_shared(r.addr(ii), T());
+    const bool staged =
+        ii < hi_lim &&
+        (RESIDENT || static_cast<unsigned>(ii - lo_lim) < tile);
+    if (__builtin_expect(!staged, 0)) {
+      T unused;
+      r.slow(ii, ii, false, cur, unused);
+      lo_lim = r.lo << r.lt;
+      hi_lim = r.hi << r.lt;
+    }
+    ridx[j] = ii;
+    rsym[j] = cur;
+    k.advance(cur, active, c);
+    if (!active) return s0 + j;
+  }
+  return -1;
+}
+
+// Upsampling Gardner (upsampling_gardner_manchester_scan): the on-time
+// read at int + (frac >= 0.5) clamped to [0, cap - 1], the mid-bit read 0
+// unless its index lies in [0, cap) (clock.py:311-319).  The indices are
+// values of T converted as the serial kernel converts them: no rounding
+// add (an infinite reach never passes the limit).
+template <typename T>
+struct UpGardnerScan {
+  using Params = UpParamsT<T>;
+  using Consts = UpConstsT<T>;
+  using State = ClockLane<T, UpGardnerClock<T>>;
+
+  static __device__ __forceinline__ T per_slot(const Consts&) {
+    return T(INFINITY);
+  }
+  static __device__ __forceinline__ T lead(const State& g) { return g.k.ni; }
+  static __device__ __forceinline__ T trail(const State& g) { return g.k.ni; }
+};
+
+template <bool ADD, typename T, bool RESIDENT>
+__device__ __forceinline__ int chain_segment(
+    ClockLane<T, UpGardnerClock<T>>& g, Ring<T, RESIDENT>& r, int* ridx,
+    T* rsym, int s0, int s1, int n, const UpConstsT<T>& c) {
+  UpGardnerClock<T>& k = g.k;
+  const int cap_m1 = r.cap - 1;
+  const T n_f = static_cast<T>(n);
+  const T capf = static_cast<T>(r.cap);
+  const int len = s1 - s0;
+  const unsigned tile = 1u << r.lt;
+  int lo_lim = r.lo << r.lt, hi_lim = r.hi << r.lt;
+  for (int j = 0; j < len; ++j) {
+    const T idx = k.on_time();
+    const bool active = idx < n_f;                            // :312
+    const int ii = min(max(num::to_int_rz(idx), 0), cap_m1);
+    const T hidx = k.mid_bit();
+    const bool in_img = hidx >= T(0) && hidx < capf;          // :317
+    const int hc = min(max(num::to_int_rz(hidx), 0), cap_m1);
+    T cur = ld_shared(r.addr(ii), T());
+    T h = ld_shared(r.addr(hc), T());
+    const bool staged =
+        max(ii, hc) < hi_lim &&
+        (RESIDENT || static_cast<unsigned>(min(ii, hc) - lo_lim) < tile);
+    if (__builtin_expect(!staged, 0)) {
+      r.slow(ii, hc, in_img, cur, h);
+      lo_lim = r.lo << r.lt;
+      hi_lim = r.hi << r.lt;
+    }
+    ridx[j] = ii;
+    rsym[j] = cur;
+    k.advance(cur, in_img ? h : T(0), active, c);
+    if (!active) return s0 + j;
+  }
+  return -1;
+}
+
+// The whole-image kernel: a clock followed by the Manchester decision over
+// a lane's image staged in the ring, one lane a CTA.  T = double is the
+// float64 exact chain's instance; ring_floats: the ring's elements of T.
+// Clock: GardnerScan (gardner_manchester_scan and its _f64 instance),
+// MmScan (mm_manchester_scan), UpGardnerScan
+// (upsampling_gardner_manchester_scan).
+template <typename T, bool RESIDENT, typename Clock>
 __global__ void __launch_bounds__(kGsThreads, 1)
-gardner_scan_kernel(const T* __restrict__ x, const T* __restrict__ t,
-                    const int* __restrict__ n_valid,
-                    const T* __restrict__ st_f_in,
-                    const int* __restrict__ st_i_in, T* __restrict__ syms,
-                    T* __restrict__ times, uint8_t* __restrict__ valid,
-                    uint8_t* __restrict__ bits, uint8_t* __restrict__ emit,
-                    T* __restrict__ st_f_out, int* __restrict__ st_i_out,
-                    int* __restrict__ count, int B, int cap, int max_syms,
-                    int lt, int tiles, int ring_floats,
-                    const GardnerParamsT<T> p) {
+scan_kernel(const T* __restrict__ x, const T* __restrict__ t,
+            const int* __restrict__ n_valid, const T* __restrict__ st_f_in,
+            const int* __restrict__ st_i_in, T* __restrict__ syms,
+            T* __restrict__ times, uint8_t* __restrict__ valid,
+            uint8_t* __restrict__ bits, uint8_t* __restrict__ emit,
+            T* __restrict__ st_f_out, int* __restrict__ st_i_out,
+            int* __restrict__ count, int B, int cap, int max_syms, int lt,
+            int tiles, int ring_floats, const typename Clock::Params p) {
   extern __shared__ __align__(128) unsigned char gs_sm[];
   __shared__ int stop_slot;          // the first inactive slot, or max_syms
   uint64_t* full = reinterpret_cast<uint64_t*>(gs_sm);
@@ -953,17 +1340,15 @@ gardner_scan_kernel(const T* __restrict__ x, const T* __restrict__ t,
     stop_slot = max_syms;
   }
   __syncthreads();
-  SlotStateT<T> g;
-  const GardnerConstsT<T> c(p);
+  typename Clock::State g;
+  const typename Clock::Consts c(p);
 
   if (tid == 0) {
     // the chain: the timing half of every slot up to the first inactive
     g.load(st_f_in, st_i_in, B, b);
     const int n = n_valid[b];
     Ring<T, RESIDENT> r(xr, ring, full, lt, tiles, cap);
-    // how far next_sample and half_raw can move in a slot, with half an
-    // ulp (< 0.25 below the limit) for each of its two adds
-    const T per_slot = num::abs(c.step) + num::abs(c.err_limit) + T(1);
+    const T per_slot = Clock::per_slot(c);
     const T limit = rint_add_limit(T());
     int stop = max_syms;
     for (int j = 0, s0 = 0; s0 < max_syms; ++j, s0 += kGsSegment) {
@@ -973,8 +1358,8 @@ gardner_scan_kernel(const T* __restrict__ x, const T* __restrict__ t,
       const T reach = (s1 - s0) * per_slot + T(2);
       int* ri = ridx + q * kGsSegment;
       T* rs = rsym + q * kGsSegment;
-      const int s = num::abs(g.ns) + reach < limit &&
-                            num::abs(g.half_raw) + reach < limit
+      const int s = num::abs(Clock::lead(g)) + reach < limit &&
+                            num::abs(Clock::trail(g)) + reach < limit
                         ? chain_segment<true>(g, r, ri, rs, s0, s1, n, c)
                         : chain_segment<false>(g, r, ri, rs, s0, s1, n, c);
       if (s >= 0) stop = stop_slot = s;
@@ -1060,18 +1445,27 @@ cudaError_t gm_smem(int window, int margin, int spw, size_t* bytes) {
   return e;
 }
 
-template <typename T>
+// a whole-image launch's arguments, with `Params` the n_params values of T
+template <typename T, typename Params>
 bool bad_scan_args(int n_params, int B, int cap, int max_syms) {
-  return n_params != static_cast<int>(sizeof(GardnerParamsT<T>) / sizeof(T))
-         || B <= 0 || cap <= 0 || max_syms <= 0;
+  return n_params != static_cast<int>(sizeof(Params) / sizeof(T)) ||
+         B <= 0 || cap <= 0 || max_syms <= 0;
 }
 
-// The ring of a gardner_scan_kernel<T> launch.  The budget: an SM's
-// shared memory shared by ceil(B / SMs) CTAs (at most kGsMaxCtasPerSm).
-// The whole image where it fits in the budget (and in ring_floats
-// elements, if that is not 0); else the largest power-of-two ring that
-// does, in tiles of 1,024 elements, or of a quarter of the ring where that
-// is smaller.
+// a clock's constants from their n_params values in order
+template <typename Params, typename T>
+Params clock_params(const T* params) {
+  Params p;
+  memcpy(&p, params, sizeof(Params));
+  return p;
+}
+
+// The ring of a scan_kernel<T, ...> launch, under any clock.  The budget:
+// an SM's shared memory shared by ceil(B / SMs) CTAs (at most
+// kGsMaxCtasPerSm).  The whole image where it fits in the budget (and in
+// ring_floats elements, if that is not 0); else the largest power-of-two
+// ring that does, in tiles of 1,024 elements, or of a quarter of the ring
+// where that is smaller.
 struct ScanGeom {
   int lt, tiles, resident, ring_floats, smem, ctas;
 };
@@ -1123,40 +1517,42 @@ ScanGeom scan_geom(int B, int cap, int ring_floats) {
 // The kernel instantiation of a geometry, with its dynamic shared memory
 // limit raised to the launch's above the default 48 KB; the error if the
 // card refuses that size (then cleared).
-template <typename T, bool RESIDENT>
+template <typename T, bool RESIDENT, typename Clock>
 cudaError_t gs_prepare(const ScanGeom& g) {
   if (g.smem <= 48 * 1024) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
-      gardner_scan_kernel<T, RESIDENT>,
+      scan_kernel<T, RESIDENT, Clock>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (e != cudaSuccess) cudaGetLastError();
   return e;
 }
 
-// the whole-image kernel, one CTA a lane, its ring chosen by scan_geom
-template <typename T>
+// the whole-image kernel under a clock policy, one CTA a lane, its ring
+// chosen by scan_geom; params: the n_params values of Clock::Params
+template <typename T, typename Clock>
 int launch_scan(const T* x, const T* t, const int* n_valid,
                 const T* st_f_in, const int* st_i_in, T* syms, T* times,
                 uint8_t* valid, uint8_t* bits, uint8_t* emit, T* st_f_out,
                 int* st_i_out, int* count, int B, int cap, int max_syms,
                 int ring_floats, const T* params, int n_params,
                 void* stream) {
-  if (bad_scan_args<T>(n_params, B, cap, max_syms)) {
+  using Params = typename Clock::Params;
+  if (bad_scan_args<T, Params>(n_params, B, cap, max_syms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ScanGeom g = scan_geom<T>(B, cap, ring_floats);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const GardnerParamsT<T> p = gardner_params(params);
-  const cudaError_t e = g.resident ? gs_prepare<T, true>(g)
-                                   : gs_prepare<T, false>(g);
+  const Params p = clock_params<Params>(params);
+  const cudaError_t e = g.resident ? gs_prepare<T, true, Clock>(g)
+                                   : gs_prepare<T, false, Clock>(g);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (g.resident) {
-    gardner_scan_kernel<T, true><<<B, kGsThreads, g.smem, st>>>(
+    scan_kernel<T, true, Clock><<<B, kGsThreads, g.smem, st>>>(
         x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
         st_f_out, st_i_out, count, B, cap, max_syms, g.lt, g.tiles,
         g.ring_floats, p);
   } else {
-    gardner_scan_kernel<T, false><<<B, kGsThreads, g.smem, st>>>(
+    scan_kernel<T, false, Clock><<<B, kGsThreads, g.smem, st>>>(
         x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
         st_f_out, st_i_out, count, B, cap, max_syms, g.lt, g.tiles,
         g.ring_floats, p);
@@ -1171,26 +1567,20 @@ int launch_scan(const T* x, const T* t, const int* n_valid,
 // a CTA, resident CTAs an SM (cudaOccupancyMaxActiveBlocksPer-
 // Multiprocessor), registers a thread, local bytes a thread.  Returns a
 // cudaError_t.
-template <typename T>
+template <typename T, typename Clock>
 int scan_config(int B, int cap, int ring_floats, int* out) {
   if (B <= 0 || cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const ScanGeom g = scan_geom<T>(B, cap, ring_floats);
-  cudaError_t e = g.resident ? gs_prepare<T, true>(g)
-                             : gs_prepare<T, false>(g);
+  const auto kernel = g.resident ? &scan_kernel<T, true, Clock>
+                                 : &scan_kernel<T, false, Clock>;
+  cudaError_t e = g.resident ? gs_prepare<T, true, Clock>(g)
+                             : gs_prepare<T, false, Clock>(g);
   cudaFuncAttributes a;
   int ctas = 0;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
   if (e == cudaSuccess) {
-    e = g.resident ? cudaFuncGetAttributes(&a, gardner_scan_kernel<T, true>)
-                   : cudaFuncGetAttributes(&a,
-                                           gardner_scan_kernel<T, false>);
-  }
-  if (e == cudaSuccess) {
-    e = g.resident ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &ctas, gardner_scan_kernel<T, true>, kGsThreads,
-                         g.smem)
-                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &ctas, gardner_scan_kernel<T, false>, kGsThreads,
-                         g.smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                      kGsThreads, g.smem);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = g.ring_floats;
@@ -1245,7 +1635,7 @@ int launch_scan_serial(const T* x, const T* t, const int* n_valid,
                        uint8_t* emit, T* st_f_out, int* st_i_out, int* count,
                        int B, int cap, int max_syms, const T* params,
                        int n_params, void* stream) {
-  if (bad_scan_args<T>(n_params, B, cap, max_syms)) {
+  if (bad_scan_args<T, GardnerParamsT<T>>(n_params, B, cap, max_syms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((B + kThreads - 1) / kThreads);
@@ -1256,174 +1646,14 @@ int launch_scan_serial(const T* x, const T* t, const int* n_valid,
   return static_cast<int>(cudaGetLastError());
 }
 
-
-// --- the other clocks of the exact chain, one thread a lane
-
-// the M&M clock's constants: the adaptive step's clamp, the loop gain,
-// the Manchester resync threshold (ops/kernels/scan_kernels.py::MMParams)
-template <typename T>
-struct MmParamsT {
-  T step_min, step_max, kp, resync_threshold;
-};
-
-// the upsampling clocks' constants: the step and the half step as (integer
-// part, fraction), the error limit, the loop gain, the Manchester resync
-// threshold (scan_kernels.py::UpsamplingParams)
-template <typename T>
-struct UpParamsT {
-  T step_int, step_frac, half_int, half_frac, err_limit, kp,
-      resync_threshold;
-};
-
-// a split pointer renormalised so that the fraction lies in [0, 1)
-// (clock.py:266-269)
-template <typename T>
-__device__ __forceinline__ void split_norm(T i, T f, T& oi, T& of) {
-  const T k = num::floor(f);
-  oi = i + k;
-  of = f - k;
-}
-
-__device__ __forceinline__ int clamp_index(int i, int cap) {
-  return min(max(i, 0), cap - 1);
-}
-
-// Each clock's timing half of a slot.  kRows: its timing rows at the head
-// of st_f (the Manchester rows cur, prev, prevprev follow); slot() reads
-// the slot's on-time value into cur, advances the state where the slot is
-// active and returns the on-time index (its time's).
-//
-// mm (clock.py:128-141): rows next_sample, step, prev_bit; reads at
-// rint(next_sample); next_sample rolled over by n at the end (:146).
-template <typename T>
-struct MmClock {
-  static constexpr int kRows = 3;
-  using Params = MmParamsT<T>;
-  T ns, ss, prev;
-
-  __device__ void load(const T* f, int B, int b) {
-    ns = f[b];
-    ss = f[B + b];
-    prev = f[2 * B + b];
-  }
-  __device__ int slot(const T* __restrict__ xr, int cap, T nf, T,
-                      const Params& p, bool& active, T& cur) {
-    const T idxf = num::rint(ns);
-    active = idxf < nf;
-    const int ii = clamp_index(num::to_int_rz(idxf), cap);
-    cur = xr[ii];
-    const T err = sgn(prev) * cur - sgn(cur) * prev;
-    const T ss_new = num::min(num::max(ss + p.kp * err, p.step_min),
-                              p.step_max);
-    const T ns_new = ns + ss_new;
-    if (active) {
-      ns = ns_new;
-      prev = cur;
-      ss = ss_new;
-    }
-    return ii;
-  }
-  __device__ void store(T* f, int B, int b, int n) const {
-    f[b] = ns - static_cast<T>(n);
-    f[B + b] = ss;
-    f[2 * B + b] = prev;
-  }
-};
-
-// upsampling Gardner (clock.py:305-335): rows next_sample int, frac,
-// half_raw int, frac, prev_bit; reads at int + (frac >= 0.5), the mid-bit
-// read 0 outside [0, cap); no rollover (the chain shifts the integer
-// parts).
-template <typename T>
-struct UpGardnerClock {
-  static constexpr int kRows = 5;
-  using Params = UpParamsT<T>;
-  T ni, nf, hi, hf, prev;
-
-  __device__ void load(const T* f, int B, int b) {
-    ni = f[b];
-    nf = f[B + b];
-    hi = f[2 * B + b];
-    hf = f[3 * B + b];
-    prev = f[4 * B + b];
-  }
-  __device__ int slot(const T* __restrict__ xr, int cap, T n_f, T capf,
-                      const Params& p, bool& active, T& cur) {
-    const T idx = ni + (nf >= T(0.5) ? T(1) : T(0));
-    active = idx < n_f;
-    const int ii = clamp_index(num::to_int_rz(idx), cap);
-    cur = xr[ii];
-    const T hidx = hi + (hf >= T(0.5) ? T(1) : T(0));
-    const bool in_img = hidx >= T(0) && hidx < capf;
-    const T hval = in_img ? xr[clamp_index(num::to_int_rz(hidx), cap)]
-                          : T(0);
-    T err = p.kp * (cur - prev) * hval;
-    err = num::min(num::max(err, -p.err_limit), p.err_limit);
-    T ai, af, nhi, nhf, nni, nnf;
-    split_norm<T>(ni, nf - err, ai, af);                        // -= Error
-    split_norm<T>(ai + p.half_int, af + p.half_frac, nhi, nhf);  // + step/2
-    split_norm<T>(ai + p.step_int, af + p.step_frac, nni, nnf);  // + step
-    if (active) {
-      ni = nni;
-      nf = nnf;
-      hi = nhi;
-      hf = nhf;
-      prev = cur;
-    }
-    return ii;
-  }
-  __device__ void store(T* f, int B, int b, int) const {
-    f[b] = ni;
-    f[B + b] = nf;
-    f[2 * B + b] = hi;
-    f[3 * B + b] = hf;
-    f[4 * B + b] = prev;
-  }
-};
-
-// upsampling M&M (clock.py:362-377): rows next_sample int, frac, prev_bit;
-// a fixed step and the clipped sign-law error added to the pointer.
-template <typename T>
-struct UpMmClock {
-  static constexpr int kRows = 3;
-  using Params = UpParamsT<T>;
-  T ni, nf, prev;
-
-  __device__ void load(const T* f, int B, int b) {
-    ni = f[b];
-    nf = f[B + b];
-    prev = f[2 * B + b];
-  }
-  __device__ int slot(const T* __restrict__ xr, int cap, T n_f, T,
-                      const Params& p, bool& active, T& cur) {
-    const T idx = ni + (nf >= T(0.5) ? T(1) : T(0));
-    active = idx < n_f;
-    const int ii = clamp_index(num::to_int_rz(idx), cap);
-    cur = xr[ii];
-    T err = p.kp * (sgn(prev) * cur - sgn(cur) * prev);
-    err = num::min(num::max(err, -p.err_limit), p.err_limit);
-    T ai, af, nni, nnf;
-    split_norm<T>(ni, nf + err, ai, af);                        // += Error
-    split_norm<T>(ai + p.step_int, af + p.step_frac, nni, nnf);  // + step
-    if (active) {
-      ni = nni;
-      nf = nnf;
-      prev = cur;
-    }
-    return ii;
-  }
-  __device__ void store(T* f, int B, int b, int) const {
-    f[b] = ni;
-    f[B + b] = nf;
-    f[2 * B + b] = prev;
-  }
-};
+// --- the clocks' simple design, one thread a lane: the serial twins of
+// mm_manchester_scan and upsampling_gardner_manchester_scan, and
+// upsampling_mm_manchester_scan's kernel
 
 // One lane of a clock followed by the Manchester decision, max_syms slots
 // over the lane's (cap,) images x and t in device memory: each slot's
 // on-time value is its soft symbol, its time the bit's time; an inactive
-// slot freezes the state.  st_f rows: the clock's kRows, then Manchester
-// cur, prev, prevprev; st_i rows: clockmod, evenodd.
+// slot freezes the state (ClockLane's rows).
 template <typename T, typename Clock>
 __device__ __forceinline__ void clock_manchester_lane(
     const T* __restrict__ x, const T* __restrict__ t,
@@ -1436,15 +1666,8 @@ __device__ __forceinline__ void clock_manchester_lane(
     const typename Clock::Params& p) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  constexpr int r = Clock::kRows;
-  Clock c;
-  c.load(st_f_in, B, b);
-  SlotStateT<T> m;            // the Manchester fields only
-  m.m_cur = st_f_in[r * B + b];
-  m.m_prev = st_f_in[(r + 1) * B + b];
-  m.m_prevprev = st_f_in[(r + 2) * B + b];
-  m.clockmod = st_i_in[b];
-  m.evenodd = st_i_in[B + b];
+  ClockLane<T, Clock> g;
+  g.load(st_f_in, st_i_in, B, b);
   const int n = n_valid[b];
   const T nf = static_cast<T>(n);
   const T capf = static_cast<T>(cap);
@@ -1455,8 +1678,8 @@ __device__ __forceinline__ void clock_manchester_lane(
   for (int s = 0; s < max_syms; ++s) {
     bool active;
     T cur;
-    const int ii = c.slot(xr, cap, nf, capf, p, active, cur);
-    const int be = manchester_slot(m, cur, active, p.resync_threshold);
+    const int ii = g.k.slot(xr, cap, nf, capf, p, active, cur);
+    const int be = manchester_slot(g.m, cur, active, p.resync_threshold);
     const size_t o = row + s;
     syms[o] = cur;
     times[o] = tr[ii];
@@ -1465,12 +1688,8 @@ __device__ __forceinline__ void clock_manchester_lane(
     emit[o] = static_cast<uint8_t>(be >> 1);
     active_slots += active ? 1 : 0;
   }
-  c.store(st_f_out, B, b, n);
-  st_f_out[r * B + b] = m.m_cur;
-  st_f_out[(r + 1) * B + b] = m.m_prev;
-  st_f_out[(r + 2) * B + b] = m.m_prevprev;
-  st_i_out[b] = m.clockmod;
-  st_i_out[B + b] = m.evenodd;
+  g.store_timing(st_f_out, B, b, n);
+  g.store_manchester(st_f_out, st_i_out, B, b);
   count[b] = active_slots;
 }
 
@@ -1491,8 +1710,8 @@ __device__ __forceinline__ void clock_manchester_lane(
                                        max_syms, p);                        \
   }
 
-PDT_CLOCK_KERNEL(mm_manchester_scan, MmClock)
-PDT_CLOCK_KERNEL(upsampling_gardner_manchester_scan, UpGardnerClock)
+PDT_CLOCK_KERNEL(mm_manchester_scan_serial, MmClock)
+PDT_CLOCK_KERNEL(upsampling_gardner_manchester_scan_serial, UpGardnerClock)
 PDT_CLOCK_KERNEL(upsampling_mm_manchester_scan, UpMmClock)
 #undef PDT_CLOCK_KERNEL
 
@@ -1512,12 +1731,10 @@ int launch_clock(ClockKernel<T, Clock> kernel, const T* x, const T* t,
                  int B, int cap, int max_syms, const T* params,
                  int n_params, void* stream) {
   using Params = typename Clock::Params;
-  if (n_params != static_cast<int>(sizeof(Params) / sizeof(T)) || B <= 0 ||
-      cap <= 0 || max_syms <= 0) {
+  if (bad_scan_args<T, Params>(n_params, B, cap, max_syms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p;
-  memcpy(&p, params, sizeof(Params));
+  const Params p = clock_params<Params>(params);
   const dim3 grid((B + kThreads - 1) / kThreads);
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
@@ -1674,15 +1891,16 @@ extern "C" int pdt_gardner_scan(const float* x, const float* t,
                                 int* count, int B, int cap, int max_syms,
                                 int ring_floats, const float* params,
                                 int n_params, void* stream) {
-  return launch_scan(x, t, n_valid, st_f_in, st_i_in, syms, times, valid,
-                     bits, emit, st_f_out, st_i_out, count, B, cap, max_syms,
-                     ring_floats, params, n_params, stream);
+  return launch_scan<float, GardnerScan<float>>(
+      x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
+      st_f_out, st_i_out, count, B, cap, max_syms, ring_floats, params,
+      n_params, stream);
 }
 
 // The float32 Gardner scan kernel's launch configuration (scan_config).
 extern "C" int pdt_gardner_scan_config(int B, int cap, int ring_floats,
                                        int* out) {
-  return scan_config<float>(B, cap, ring_floats, out);
+  return scan_config<float, GardnerScan<float>>(B, cap, ring_floats, out);
 }
 
 // The serial Gardner scan kernel, as pdt_gardner_scan but one thread a
@@ -1708,15 +1926,16 @@ extern "C" int pdt_gardner_scan_f64(
     uint8_t* valid, uint8_t* bits, uint8_t* emit, double* st_f_out,
     int* st_i_out, int* count, int B, int cap, int max_syms,
     int ring_floats, const double* params, int n_params, void* stream) {
-  return launch_scan(x, t, n_valid, st_f_in, st_i_in, syms, times, valid,
-                     bits, emit, st_f_out, st_i_out, count, B, cap, max_syms,
-                     ring_floats, params, n_params, stream);
+  return launch_scan<double, GardnerScan<double>>(
+      x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,
+      st_f_out, st_i_out, count, B, cap, max_syms, ring_floats, params,
+      n_params, stream);
 }
 
 // The float64 Gardner scan kernel's launch configuration (scan_config).
 extern "C" int pdt_gardner_scan_f64_config(int B, int cap, int ring_floats,
                                            int* out) {
-  return scan_config<double>(B, cap, ring_floats, out);
+  return scan_config<double, GardnerScan<double>>(B, cap, ring_floats, out);
 }
 
 // gardner_manchester_scan_f64_serial: the serial kernel in double, as
@@ -1733,20 +1952,50 @@ extern "C" int pdt_gardner_scan_f64_serial(
                             cap, max_syms, params, n_params, stream);
 }
 
-// The clock kernels' entry points, as pdt_gardner_scan_serial: one thread
-// a lane over lane-major (B, cap) images x, t; n_valid (B,) int32 valid
-// lengths; st_f rows: the clock's timing rows, then Manchester cur, prev,
-// prevprev; st_i rows: clockmod, evenodd.  Writes syms, times (B,
-// max_syms), valid, bits, emit (B, max_syms) uint8, the final state and
-// count (B,) int32, the active slots.  Returns the cudaError_t of the
-// launch.  pdt_X_scan is the float instance, pdt_X_scan_f64 the double
-// one (double images, state, outputs and params).
+// The other clocks' entry points, each followed by the Manchester decision,
+// over lane-major (B, cap) images x, t; n_valid (B,) int32 valid lengths;
+// st_f rows: the clock's timing rows, then Manchester cur, prev, prevprev;
+// st_i rows: clockmod, evenodd.  Write syms, times (B, max_syms), valid,
+// bits, emit (B, max_syms) uint8, the final state and count (B,) int32,
+// the active slots.  Return the cudaError_t of the launch.  pdt_X_scan is
+// the float instance, pdt_X_scan_f64 the double one (double images, state,
+// outputs and params).
 //  - pdt_mm_scan: the M&M clock; timing rows next_sample (rolled over by
 //    n_valid), step, prev_bit; params the 4 values of MmParamsT.
 //  - pdt_upsampling_gardner_scan: rows next_sample int, frac, half_raw
 //    int, frac, prev_bit (not rolled over); params the 7 of UpParamsT.
 //  - pdt_upsampling_mm_scan: rows next_sample int, frac, prev_bit (not
 //    rolled over); params the 7 of UpParamsT.
+// The first two run the whole-image kernel, as pdt_gardner_scan (and take
+// its ring_floats); pdt_X_scan_config and pdt_X_scan_f64_config report
+// their launch configuration (scan_config).  pdt_X_scan_serial and
+// pdt_X_scan_f64_serial run their simple design, one thread a lane over
+// the image in device memory (their serial twins, on no path), as
+// pdt_upsampling_mm_scan runs its own.
+#define PDT_SCAN_ENTRY(ENTRY, T, POLICY)                                  \
+  extern "C" int ENTRY(const T* x, const T* t, const int* n_valid,        \
+                       const T* st_f_in, const int* st_i_in, T* syms,     \
+                       T* times, uint8_t* valid, uint8_t* bits,           \
+                       uint8_t* emit, T* st_f_out, int* st_i_out,         \
+                       int* count, int B, int cap, int max_syms,          \
+                       int ring_floats, const T* params, int n_params,    \
+                       void* stream) {                                    \
+    return launch_scan<T, POLICY<T>>(                                     \
+        x, t, n_valid, st_f_in, st_i_in, syms, times, valid, bits, emit,  \
+        st_f_out, st_i_out, count, B, cap, max_syms, ring_floats, params, \
+        n_params, stream);                                                \
+  }                                                                       \
+  extern "C" int ENTRY##_config(int B, int cap, int ring_floats,          \
+                                int* out) {                               \
+    return scan_config<T, POLICY<T>>(B, cap, ring_floats, out);           \
+  }
+
+PDT_SCAN_ENTRY(pdt_mm_scan, float, MmScan)
+PDT_SCAN_ENTRY(pdt_mm_scan_f64, double, MmScan)
+PDT_SCAN_ENTRY(pdt_upsampling_gardner_scan, float, UpGardnerScan)
+PDT_SCAN_ENTRY(pdt_upsampling_gardner_scan_f64, double, UpGardnerScan)
+#undef PDT_SCAN_ENTRY
+
 #define PDT_CLOCK_ENTRY(ENTRY, T, KERNEL, CLOCK)                          \
   extern "C" int ENTRY(const T* x, const T* t, const int* n_valid,        \
                        const T* st_f_in, const int* st_i_in, T* syms,     \
@@ -1760,12 +2009,14 @@ extern "C" int pdt_gardner_scan_f64_serial(
         n_params, stream);                                                \
   }
 
-PDT_CLOCK_ENTRY(pdt_mm_scan, float, mm_manchester_scan, MmClock)
-PDT_CLOCK_ENTRY(pdt_mm_scan_f64, double, mm_manchester_scan, MmClock)
-PDT_CLOCK_ENTRY(pdt_upsampling_gardner_scan, float,
-                upsampling_gardner_manchester_scan, UpGardnerClock)
-PDT_CLOCK_ENTRY(pdt_upsampling_gardner_scan_f64, double,
-                upsampling_gardner_manchester_scan, UpGardnerClock)
+PDT_CLOCK_ENTRY(pdt_mm_scan_serial, float, mm_manchester_scan_serial,
+                MmClock)
+PDT_CLOCK_ENTRY(pdt_mm_scan_f64_serial, double, mm_manchester_scan_serial,
+                MmClock)
+PDT_CLOCK_ENTRY(pdt_upsampling_gardner_scan_serial, float,
+                upsampling_gardner_manchester_scan_serial, UpGardnerClock)
+PDT_CLOCK_ENTRY(pdt_upsampling_gardner_scan_f64_serial, double,
+                upsampling_gardner_manchester_scan_serial, UpGardnerClock)
 PDT_CLOCK_ENTRY(pdt_upsampling_mm_scan, float, upsampling_mm_manchester_scan,
                 UpMmClock)
 PDT_CLOCK_ENTRY(pdt_upsampling_mm_scan_f64, double,

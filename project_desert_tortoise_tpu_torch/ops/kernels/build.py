@@ -98,12 +98,23 @@ _SIGNATURES = {
     "pdt_gardner_scan_f64_config": [_I] * 3 + [_P],
     # the serial kernel in double, as pdt_gardner_scan_serial
     "pdt_gardner_scan_f64_serial": [_P] * 13 + [_I] * 3 + [_P, _I, _P],
-    # the exact chain's other clocks, float and double, as
-    # pdt_gardner_scan_serial: x, t, n_valid, st_f_in, st_i_in, syms,
-    # times, valid, bits, emit, st_f_out, st_i_out, count, B, cap,
-    # max_syms, params, n_params, stream
-    **{f"pdt_{clock}_scan{suffix}": [_P] * 13 + [_I] * 3 + [_P, _I, _P]
-       for clock in ("mm", "upsampling_gardner", "upsampling_mm")
+    # the exact chain's other clocks, float and double: the whole-image
+    # kernel as pdt_gardner_scan (with ring_floats) and its config entry
+    # for "mm" and "upsampling_gardner"; their serial twins and
+    # "upsampling_mm" as pdt_gardner_scan_serial: x, t, n_valid, st_f_in,
+    # st_i_in, syms, times, valid, bits, emit, st_f_out, st_i_out, count,
+    # B, cap, max_syms, params, n_params, stream
+    **{f"pdt_{clock}_scan{suffix}": [_P] * 13 + [_I] * 4 + [_P, _I, _P]
+       for clock in ("mm", "upsampling_gardner")
+       for suffix in ("", "_f64")},
+    **{f"pdt_{clock}_scan{suffix}_config": [_I] * 3 + [_P]
+       for clock in ("mm", "upsampling_gardner")
+       for suffix in ("", "_f64")},
+    **{f"pdt_{clock}_scan{suffix}_serial": [_P] * 13 + [_I] * 3
+       + [_P, _I, _P]
+       for clock in ("mm", "upsampling_gardner")
+       for suffix in ("", "_f64")},
+    **{f"pdt_upsampling_mm_scan{suffix}": [_P] * 13 + [_I] * 3 + [_P, _I, _P]
        for suffix in ("", "_f64")},
     # variant, in, st_in, out, st_out, B, L, params, n_params, stream
     "pdt_ablate_kernel": [_I] + [_P] * 4 + [_I] * 2 + [_P, _I, _P],

@@ -43,9 +43,14 @@ per launch at the main path's size, so each is a hand-written kernel in
 - :func:`mm_manchester_scan`, :func:`upsampling_gardner_manchester_scan`
   and :func:`upsampling_mm_manchester_scan` are the exact chain's other
   clocks (JAX ``clock.py::mm_scan``, ``upsampling_gardner_scan``,
-  ``upsampling_mm_scan``, each followed by ``manchester_scan``): one thread
-  a lane over the image in device memory, float32, and float64 through
-  their ``_f64`` instances; ``*_ref`` are their plain versions.
+  ``upsampling_mm_scan``, each followed by ``manchester_scan``), float32,
+  and float64 through their ``_f64`` instances; ``*_ref`` are their plain
+  versions.  The first two run the whole-image kernel of
+  :func:`gardner_manchester_scan` under their clock
+  (:func:`clock_scan_launch_config`); their ``*_serial`` twins (and
+  ``*_f64_serial``) launch the simple design, one thread a lane over the
+  image in device memory, on no path; :func:`upsampling_mm_manchester_scan`
+  still runs that design.
 """
 
 from __future__ import annotations
@@ -597,10 +602,8 @@ def gardner_scan_launch_config(B: int, cap: int, ring_floats: int = 0,
     threads and dynamic shared memory bytes a CTA, the CTAs resident on an
     SM at that size, and registers and local (spill) bytes a thread, as
     the card reports them."""
-    entry = ("pdt_gardner_scan_f64_config" if dtype == torch.float64
-             else "pdt_gardner_scan_config")
-    return kernel_config(device, entry, B, cap, ring_floats,
-                         fields=GARDNER_SCAN_CONFIG_FIELDS)
+    return clock_scan_launch_config("gardner", B, cap, ring_floats, device,
+                                    dtype)
 
 
 # --- the other clocks of the exact chain: "mm", "upsampling_gardner" and
@@ -790,36 +793,61 @@ def upsampling_mm_manchester_scan_ref(fstate, istate, x, t, n,
                                  rollover=False)
 
 
-def _clock_wrapper(name: str, entry: str, ref, f64=None,
-                   dtype=torch.float32):
-    """A clock kernel's wrapper that launches `entry` (one thread a lane)
-    on `dtype` tensors on the card and counts its launches.  The float32
+def _clock_wrapper(name: str, entry: str, ref=None, f64=None,
+                   dtype=torch.float32, ring: bool = False):
+    """A clock kernel's wrapper that launches `entry` on `dtype` tensors on
+    the card and counts its launches.  `ring`: `entry` is the whole-image
+    kernel (one lane a CTA, the image staged in shared memory), and the
+    wrapper takes :func:`gardner_manchester_scan`'s ``ring_floats``
+    keyword; else the simple design (one thread a lane).  The float32
     wrapper runs `ref` on CPU tensors and hands float64 tensors on the card
-    to `f64`, the double instance's wrapper; that one (dtype float64)
-    raises on CPU tensors."""
-    def wrapper(fstate, istate, x, t, n, p, max_syms: int):
+    to `f64`, the double instance's wrapper; without `ref` (the double
+    instances, the serial twins) it raises on CPU tensors."""
+    def run(fstate, istate, x, t, n, p, max_syms, extra, kw):
         dev = x.device
         if not on_card(name, dev):
-            if dtype == torch.float64:
+            if ref is None:
                 raise ValueError(f"{name} runs on a CUDA device only")
             return ref(fstate, istate, x, t, n, p, max_syms)
         if f64 is not None and x.dtype == torch.float64:
-            return f64(fstate, istate, x, t, n, p, max_syms)
+            return f64(fstate, istate, x, t, n, p, max_syms, **kw)
         out = _launch_scan(entry, fstate, istate, x, t, n, p, max_syms,
-                           dtype=dtype)
+                           *extra, dtype=dtype)
         wrapper.launches += 1
         return out
+    if ring:
+        def wrapper(fstate, istate, x, t, n, p, max_syms: int, *,
+                    ring_floats: int = 0):
+            return run(fstate, istate, x, t, n, p, max_syms,
+                       (int(ring_floats),), dict(ring_floats=ring_floats))
+    else:
+        def wrapper(fstate, istate, x, t, n, p, max_syms: int):
+            return run(fstate, istate, x, t, n, p, max_syms, (), {})
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.launches = 0
     return wrapper
 
 
+def _serial_twin(clock: str, entry: str, dtype):
+    """The serial twin of a redesigned clock kernel: its simple design, one
+    thread a lane over the image in device memory.  No path calls it: the
+    card checks and ``chip_smoke.py`` hold the whole-image kernel to it and
+    time the two in one run.  CUDA tensors only."""
+    suffix = "_f64" if dtype == torch.float64 else ""
+    w = _clock_wrapper(f"{clock}_manchester_scan{suffix}_serial", entry,
+                       dtype=dtype)
+    w.__doc__ = (f":func:`{clock}_manchester_scan{suffix}` on its serial "
+                 "twin, one thread a lane reading the image from device "
+                 "memory; on no path.  CUDA tensors only.")
+    return w
+
+
 mm_manchester_scan_f64 = _clock_wrapper(
-    "mm_manchester_scan_f64", "pdt_mm_scan_f64", mm_manchester_scan_ref,
-    dtype=torch.float64)
+    "mm_manchester_scan_f64", "pdt_mm_scan_f64", dtype=torch.float64,
+    ring=True)
 mm_manchester_scan = _clock_wrapper(
     "mm_manchester_scan", "pdt_mm_scan", mm_manchester_scan_ref,
-    mm_manchester_scan_f64)
+    mm_manchester_scan_f64, ring=True)
 mm_manchester_scan.__doc__ = """The M&M clock with its adaptive step, then
 the Manchester decision, over whole (B, cap) buffer images `x`, `t`,
 max_syms slots (JAX ``mm_scan`` + ``manchester_scan``).  fstate: six (B,)
@@ -827,20 +855,26 @@ planes in the images' dtype (next_sample, step, prev_bit, Manchester cur,
 prev, prevprev); istate: (clockmod, evenodd) int32; n: (B,) int32 valid
 lengths; p: :func:`mm_params`.  Returns (fstate, istate, syms, times,
 valid, bits uint8, emit, count) as :func:`gardner_manchester_scan`,
-next_sample rolled over by n.  CPU tensors run
+next_sample rolled over by n.  The kernel is the whole-image one, each
+lane's image staged in a ring of shared memory, ``ring_floats`` as
+:func:`gardner_manchester_scan`'s.  CPU tensors run
 :func:`mm_manchester_scan_ref`; float64 tensors on the card launch
 :func:`mm_manchester_scan_f64`."""
 mm_manchester_scan_f64.__doc__ = """:func:`mm_manchester_scan` in float64,
-the kernel's double instance.  CUDA tensors only."""
+the kernel's double instance (``ring_floats`` in doubles).  CUDA tensors
+only."""
+mm_manchester_scan_serial = _serial_twin("mm", "pdt_mm_scan_serial",
+                                         torch.float32)
+mm_manchester_scan_f64_serial = _serial_twin(
+    "mm", "pdt_mm_scan_f64_serial", torch.float64)
 
 upsampling_gardner_manchester_scan_f64 = _clock_wrapper(
     "upsampling_gardner_manchester_scan_f64",
-    "pdt_upsampling_gardner_scan_f64", upsampling_gardner_manchester_scan_ref,
-    dtype=torch.float64)
+    "pdt_upsampling_gardner_scan_f64", dtype=torch.float64, ring=True)
 upsampling_gardner_manchester_scan = _clock_wrapper(
     "upsampling_gardner_manchester_scan", "pdt_upsampling_gardner_scan",
     upsampling_gardner_manchester_scan_ref,
-    upsampling_gardner_manchester_scan_f64)
+    upsampling_gardner_manchester_scan_f64, ring=True)
 upsampling_gardner_manchester_scan.__doc__ = """The Gardner clock on an
 upsampled stream with split (integer part, fraction) pointers, then the
 Manchester decision (JAX ``upsampling_gardner_scan`` +
@@ -852,19 +886,42 @@ rolled over (the chain shifts their integer parts).  Otherwise as
 upsampling_gardner_manchester_scan_f64.__doc__ = """
 :func:`upsampling_gardner_manchester_scan` in float64, the kernel's double
 instance.  CUDA tensors only."""
+upsampling_gardner_manchester_scan_serial = _serial_twin(
+    "upsampling_gardner", "pdt_upsampling_gardner_scan_serial",
+    torch.float32)
+upsampling_gardner_manchester_scan_f64_serial = _serial_twin(
+    "upsampling_gardner", "pdt_upsampling_gardner_scan_f64_serial",
+    torch.float64)
 
 upsampling_mm_manchester_scan_f64 = _clock_wrapper(
     "upsampling_mm_manchester_scan_f64", "pdt_upsampling_mm_scan_f64",
-    upsampling_mm_manchester_scan_ref, dtype=torch.float64)
+    dtype=torch.float64)
 upsampling_mm_manchester_scan = _clock_wrapper(
     "upsampling_mm_manchester_scan", "pdt_upsampling_mm_scan",
     upsampling_mm_manchester_scan_ref, upsampling_mm_manchester_scan_f64)
 upsampling_mm_manchester_scan.__doc__ = """The M&M clock on an upsampled
 stream with a fixed step and a split next-sample pointer, then the
-Manchester decision (JAX ``upsampling_mm_scan`` + ``manchester_scan``).
+Manchester decision (JAX ``upsampling_mm_scan`` + ``manchester_scan``), on
+the simple design: one thread a lane over the image in device memory.
 fstate: six (B,) planes (next_sample int, frac, prev_bit, Manchester cur,
 prev, prevprev).  Otherwise as
-:func:`upsampling_gardner_manchester_scan`."""
+:func:`upsampling_gardner_manchester_scan`, without ``ring_floats``."""
 upsampling_mm_manchester_scan_f64.__doc__ = """
 :func:`upsampling_mm_manchester_scan` in float64, the kernel's double
 instance.  CUDA tensors only."""
+
+# the whole-image kernel's clocks: their config entry points' stems
+SCAN_CLOCKS = {"gardner": "pdt_gardner_scan", "mm": "pdt_mm_scan",
+               "upsampling_gardner": "pdt_upsampling_gardner_scan"}
+
+
+def clock_scan_launch_config(clock: str, B: int, cap: int,
+                             ring_floats: int = 0, device="cuda",
+                             dtype=torch.float32) -> dict:
+    """The whole-image kernel's launch configuration under `clock` (a key
+    of :data:`SCAN_CLOCKS`), in `dtype`, for B lanes of cap samples: the
+    fields of :func:`gardner_scan_launch_config`, as the card reports
+    them."""
+    entry = SCAN_CLOCKS[clock] + ("_f64" if dtype == torch.float64 else "")
+    return kernel_config(device, entry + "_config", B, cap, ring_floats,
+                         fields=GARDNER_SCAN_CONFIG_FIELDS)

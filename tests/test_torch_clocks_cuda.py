@@ -4,7 +4,10 @@ versions, on the card: ``mm_manchester_scan``,
 ``upsampling_mm_manchester_scan``, each in float32 and in float64 (their
 ``_f64`` instances), at 1 and 5 lanes, from a fresh and from a carried
 state, over full and ragged valid lengths, the upsampling Gardner mid-bit
-pointer inside, before and past the image; and three chunks of
+pointer inside, before and past the image; the first two (the whole-image
+kernel) also against their serial twins (``*_serial``) and on rings capped
+at 64 and 1,024 elements, the float64 POES images on the recycled ring the
+kernel chooses; and three chunks of
 ``chain.chunk_step`` with each clock (``"mm"`` in both quirks modes, the
 upsampling clocks without), float32 and float64, the kernels against the
 plain versions on the same card.  Every output and state bit for bit.
@@ -79,24 +82,21 @@ def _image(B, cap, step, dev, dtype, seed):
     return torch.tensor(x, dtype=dtype, device=dev)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 5])
-@pytest.mark.parametrize("start", ["fresh", "carried"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("algorithm", list(CLOCKS))
-def test_clock_kernel_matches_plain_on_card(card, algorithm, dtype, start,
-                                            B):
-    f32, f64, ref = CLOCKS[algorithm]
+def _clock_args(algorithm, dtype, start, B, dev):
+    """A clock kernel's arguments at B lanes of one POES chunk's image: a
+    fresh or a carried state, ragged final chunks on every other lane, the
+    upsampling Gardner mid-bit pointer past, inside and before the image on
+    lanes 1-3."""
     if algorithm == "mm":
         cap = 30016
-        x = _image(B, cap, STEP, card, dtype, B)
+        x = _image(B, cap, STEP, dev, dtype, B)
         p = sk.mm_params(150000.0, 8320.0, 3.0, 0.15, 0.4)
         rows = ([0.0, STEP, 0.0] if start == "fresh"
                 else [3.4, STEP * 1.0007, 0.8])
         msyms = chain.max_symbols(cap, STEP)
     else:
         cap0 = 10016
-        x = resample.upsample(_image(B, cap0, STEP / 3, card, dtype, B), 4,
+        x = resample.upsample(_image(B, cap0, STEP / 3, dev, dtype, B), 4,
                               "cubic").contiguous()
         cap = x.shape[1]
         p = sk.upsampling_params(STEP / 3 * 4, 2.0, 1.0, 0.4)
@@ -109,20 +109,32 @@ def test_clock_kernel_matches_plain_on_card(card, algorithm, dtype, start,
             rows = ([64.0, 0.0, 0.0] if start == "fresh"
                     else [63.0, 0.51, 0.9])
     man = [0.0, 0.0, 0.0] if start == "fresh" else [0.9, -0.8, 0.7]
-    fstate = [torch.full((B,), float(v), dtype=dtype, device=card)
+    fstate = [torch.full((B,), float(v), dtype=dtype, device=dev)
               for v in rows + man]
     if algorithm == "upsampling_gardner" and B > 1:
         fstate[2][1:] = torch.tensor([cap + 3.0, 20.0, -1.0, 5.0][:B - 1],
                                      dtype=dtype)   # mid-bit past, inside,
     fstate = tuple(fstate)                          # and before the image
-    istate = (torch.zeros(B, dtype=torch.int32, device=card),
+    istate = (torch.zeros(B, dtype=torch.int32, device=dev),
               torch.full((B,), int(start == "carried"), dtype=torch.int32,
-                         device=card))
-    t = (torch.arange(1, cap + 1, device=card, dtype=dtype) / FS).expand(
+                         device=dev))
+    t = (torch.arange(1, cap + 1, device=dev, dtype=dtype) / FS).expand(
         B, cap).contiguous()
-    n = torch.full((B,), cap, dtype=torch.int32, device=card)
+    n = torch.full((B,), cap, dtype=torch.int32, device=dev)
     n[::2] = cap - 3 * 1111                          # ragged final chunks
-    args = (fstate, istate, x, t, n, p, msyms)
+    return (fstate, istate, x, t, n, p, msyms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("start", ["fresh", "carried"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("algorithm", list(CLOCKS))
+def test_clock_kernel_matches_plain_on_card(card, algorithm, dtype, start,
+                                            B):
+    f32, f64, ref = CLOCKS[algorithm]
+    args = _clock_args(algorithm, dtype, start, B, card)
+    msyms = args[-1]
     wrapper = f64 if dtype == torch.float64 else f32
     before = wrapper.launches
     got = f32(*args)              # the float32 wrapper routes float64
@@ -132,6 +144,38 @@ def test_clock_kernel_matches_plain_on_card(card, algorithm, dtype, start,
     _equal(got, want)
     count = got[-1]
     assert int(count.min()) > 0 and int(count.max()) < msyms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("start", ["fresh", "carried"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("algorithm", ["mm", "upsampling_gardner"])
+def test_whole_image_clock_matches_plain_and_serial_on_card(
+        card, algorithm, dtype, start, B):
+    """The whole-image kernel under "mm" and "upsampling_gardner", on the
+    ring it chooses (float32: the image resident; float64: 16 tiles
+    recycled) and on rings capped at 64 and 1,024 elements, against the
+    plain version and the serial twin, bit for bit."""
+    f32, _, ref = CLOCKS[algorithm]
+    suffix = "_f64" if dtype == torch.float64 else ""
+    twin = getattr(sk, f"{algorithm}_manchester_scan{suffix}_serial")
+    args = _clock_args(algorithm, dtype, start, B, card)
+    B, cap = args[2].shape
+    want = ref(*args)
+    before = twin.launches
+    _equal(twin(*args), want)
+    assert twin.launches == before + 1
+    for ring_floats in (0, 64, 1024):
+        cfg = sk.clock_scan_launch_config(algorithm, B, cap, ring_floats,
+                                          dtype=dtype)
+        assert cfg["resident"] == (ring_floats == 0
+                                   and dtype == torch.float32)
+        assert cfg["local_bytes"] == 0 and cfg["ctas_per_sm"] >= 1
+        got = f32(*args, ring_floats=ring_floats)
+        torch.cuda.synchronize()
+        _equal(got, want)
+        assert torch.equal(got[-1], got[4].sum(1, dtype=torch.int32))
 
 
 def _plain_kernels(monkeypatch):
