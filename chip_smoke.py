@@ -48,7 +48,10 @@ and drives the port's three entry points:
   payloads must be the JAX exact chain's (``CLOCK_REFERENCE``), the
   upsampling clocks also at 7,000-sample chunks with the same lines;
 - the two ablation tools (``project_desert_tortoise_tpu_torch/tools``),
-  every variant at 128 and at 4,224 lanes (``ablation`` lines);
+  every variant at 128 and at 4,224 lanes (``ablation`` lines); the staged
+  ``ablate_fused`` against its serial twin ``ablate_fused_serial`` at the
+  tool's full size, both timed in turns (``ablation_vs_serial``,
+  ``design``; ``ablation_chain`` has both times);
 - multi-channel serving (``serving``): a ``ChannelBank`` of 256 POES
   channels of 1,228,800 int16 samples (32 synthetic recordings, each on 8
   channels), pushed by producer threads and pumped in 128-lane batches,
@@ -87,11 +90,10 @@ bounds at the FP64 latency that ``fp64_latency`` measures first).  The
 three clock kernels are held to their plain versions at one lane over one
 POES chunk's image, in float32 and float64, from a fresh and a carried
 state, over the whole image and a ragged final chunk (``clock_kernels``:
-their ms, bytes and chain bounds); the two on the whole-image kernel,
-``mm_manchester_scan`` and ``upsampling_gardner_manchester_scan``, also
-against their serial twins (``*_serial``, ``*_f64_serial``) and on a
-forced small ring (``whole_chunk_vs_serial`` and ``design`` lines, the
-chain bounds at the float add and ``ld.shared`` latencies that
+their ms, bytes and chain bounds); each (all three run the whole-image
+kernel) also against its serial twin (``*_serial``, ``*_f64_serial``) and
+on a forced small ring (``whole_chunk_vs_serial`` and ``design`` lines,
+the chain bounds at the float add and ``ld.shared`` latencies that
 ``fp64_latency`` measures).
 
 It holds the decoupled ``fused_demod``, ``pll_fir_agc``, ``pll_scan`` and
@@ -259,27 +261,28 @@ KERNELS = {
                                            JAX + "ops/clock.py:58, " + JAX
                                            + "ops/manchester.py:34"),
     # the exact chain's other clocks, each followed by its Manchester scan,
-    # and their double instances (JAX runs them under x64 there); the
-    # serial twins of the two on the whole-image kernel, kept in the same
-    # way
+    # and their double instances (JAX runs them under x64 there); their
+    # serial twins, kept in the same way
     **{name + suffix: (CSRC + "scan_kernels.cu",
                        JAX + f"ops/clock.py:{line}, " + JAX
                        + "ops/manchester.py:34")
        for name, line in (("mm_manchester_scan", 111),
                           ("upsampling_gardner_manchester_scan", 272),
                           ("upsampling_mm_manchester_scan", 344))
-       for suffix in ("", "_f64", "_serial", "_f64_serial")
-       if "upsampling_mm" not in name or "serial" not in suffix},
+       for suffix in ("", "_f64", "_serial", "_f64_serial")},
     "ablate_kernel": (CSRC + "ablate_kernel.cu", "tools/ablate_kernel.py:32"),
     "ablate_fused": (CSRC + "ablate_fused.cu", "tools/ablate_fused.py:42"),
+    # its serial design, kept as the oracle and the timing baseline
+    "ablate_fused_serial": (CSRC + "ablate_fused.cu",
+                            "tools/ablate_fused.py:42"),
 }
 # the three clock kernels' wrappers in scan_kernels, float32 and float64,
-# and the serial twins of the two on the whole-image kernel
+# and their serial twins
 CLOCK_KERNELS = tuple(f"{clock}_manchester_scan{suffix}"
                       for clock in ("mm", "upsampling_gardner",
                                     "upsampling_mm")
                       for suffix in ("", "_f64"))
-WHOLE_IMAGE_CLOCKS = ("mm", "upsampling_gardner")
+WHOLE_IMAGE_CLOCKS = ("mm", "upsampling_gardner", "upsampling_mm")
 CLOCK_TWINS = tuple(f"{clock}_manchester_scan{suffix}_serial"
                     for clock in WHOLE_IMAGE_CLOCKS
                     for suffix in ("", "_f64"))
@@ -358,7 +361,8 @@ def kernel_fns() -> dict:
             **{name: getattr(scan_kernels, name)
                for name in CLOCK_KERNELS + CLOCK_TWINS},
             "ablate_kernel": ablate_kernel.ablate_kernel,
-            "ablate_fused": ablate_fused.ablate_fused}
+            "ablate_fused": ablate_fused.ablate_fused,
+            "ablate_fused_serial": ablate_fused.ablate_fused_serial}
 
 
 def drive(path, fn):
@@ -2452,6 +2456,19 @@ ABLATE_KERNEL_OPS = {"empty_c1": 1, "empty_c8": 8, "empty_c73": 73,
                      "store3": 4}
 ABLATE_FUSED_OPS = {"pll": (40, 6), "fir": (2 * 78 + 8 * 3, 4),
                     "ring": (0, 32), "gm": (3 * 32 + 30, 1), "store": (0, 0)}
+# csrc/ablate_fused.cu's staged kernel: its stages' loop-carried chains a
+# step as (dependent operations, dependent
+# shared-memory loads) when on and when stubbed: the PLL 18 or 1; the AGC
+# three gains, 3 x AGC_CHAIN_OPS, or the gain's 1; the rings 0 (their
+# reads are Gardner's) or 1; Gardner's next_sample 15 and a load (rintf,
+# float->int, the clamp at 0, the age's subtract and clamps, the row
+# address; the load of the value ring; subtract, two multiplies, two
+# clamps, subtract, add, select) or 1; the stores 0.  Each stage runs on
+# its own warp, so a step costs the longest chain
+ABLATE_FUSED_STAGE_CHAINS = {
+    "pll": ((PLL_F64_SERIAL_CHAIN_OPS, 0), (1, 0)),
+    "fir": ((3 * AGC_CHAIN_OPS, 0), (1, 0)), "ring": ((0, 0), (1, 0)),
+    "gm": ((15, 1), (1, 0)), "store": ((0, 0), (0, 0))}
 # dependent operations a step on each variant's longest loop-carried chain,
 # counted from the same bodies.  ablate_kernel: empty_c* 1 (each
 # carried value's add, the values independent); mac26, mac78 2 a
@@ -2468,7 +2485,9 @@ ABLATE_FUSED_OPS = {"pll": (40, 6), "fir": (2 * 78 + 8 * 3, 4),
 # subtract, add, select) or 1; the stores 0.  The stages' chains are
 # independent recurrences, so a variant's is the longest of them.  The
 # chain bound is computed at the measured float add latency, not measured:
-# on the ablation_chain lines, not in the table.
+# on the ablation_chain lines, not in the table.  (The serial kernel,
+# ablate_fused_serial, runs these chains; ABLATE_FUSED_STAGE_CHAINS counts
+# the staged kernel's.)
 ABLATE_KERNEL_CHAIN_OPS = {"empty_c1": 1, "empty_c8": 1, "empty_c73": 1,
                            "mac26": 52, "mac78": 156,
                            "pll": PLL_F64_SERIAL_CHAIN_OPS, "ring16": 17,
@@ -2479,12 +2498,25 @@ ABLATE_FUSED_CHAIN_OPS = {"pll": (PLL_F64_SERIAL_CHAIN_OPS, 1),
 
 
 def ablation_chain_ops(tool, name: str) -> int:
-    """A variant's counted chain a step (ABLATE_*_CHAIN_OPS)."""
+    """A variant's counted chain a step on its serial kernel
+    (ABLATE_*_CHAIN_OPS)."""
     if tool.__name__.endswith("ablate_kernel"):
         return ABLATE_KERNEL_CHAIN_OPS[name]
     flags = tool.VARIANTS[name]
     return max(on if s in flags else off
                for s, (on, off) in ABLATE_FUSED_CHAIN_OPS.items())
+
+
+def staged_chain_cycles(flags) -> dict:
+    """Cycles a step on each stage's chain of the staged ablate_fused
+    kernel for a variant's flags, at the measured float add and dependent
+    ld.shared latencies (ABLATE_FUSED_STAGE_CHAINS)."""
+    out = {}
+    for stage, (on, off) in ABLATE_FUSED_STAGE_CHAINS.items():
+        ops, loads = on if stage in flags else off
+        out[stage] = (ops * LATENCY_CYCLES["f32_add"]
+                      + loads * LATENCY_CYCLES["ld_shared"])
+    return out
 
 
 def ablation_bound(tool, name: str, steps: int, B: int) -> dict:
@@ -2496,8 +2528,10 @@ def ablation_bound(tool, name: str, steps: int, B: int) -> dict:
         ops = ABLATE_KERNEL_OPS[name]
     else:
         flags = tool.VARIANTS[name]
+        # re and tn always, im only where the PLL reads it
+        planes_in = 2 + ("pll" in flags)
         rows = 3 if "store" in flags else 3.0 / 1024
-        n_bytes = steps * B * 4.0 * (3 + rows) + 2 * 73 * B * 4.0
+        n_bytes = steps * B * 4.0 * (planes_in + rows) + 2 * 73 * B * 4.0
         ops = sum(on if s in flags else off
                   for s, (on, off) in ABLATE_FUSED_OPS.items())
     return bound(n_bytes, steps * B * float(ops))
@@ -2531,6 +2565,9 @@ def phase_ablation(stats: dict) -> dict:
                 lambda: AF.ablate_fused(name, *xs, state, window),
                 lambda: AF.ablate_fused_ref(name, *xs, state, window),
                 [S * AF.LANES, steps], {})
+            check_equal(AF.ablate_fused(name, *xs, state, window),
+                        AF.ablate_fused_serial(name, *xs, state, window),
+                        f"ablate_fused {name}, {S * 128} lanes, vs serial")
         del xs, state
 
     launches = collections.Counter()
@@ -2573,13 +2610,26 @@ def phase_ablation(stats: dict) -> dict:
         chain = {v: chain_bound_ms(L, k, cycles) for v, k in ops.items()}
         variant_ms = {v: ns[tname, v, s_max] * L * 1e-6
                       for v in tool.VARIANTS}
+        staged = {}
+        if tool is AF:
+            # the staged kernel's own chains: the longest stage's a step
+            staged = {v: max(staged_chain_cycles(tool.VARIANTS[v]).values())
+                      for v in tool.VARIANTS}
+            chain = {v: chain_bound_ms(L, 1, c) for v, c in staged.items()}
+            serial_ms = ablation_vs_serial(L, s_max, stats)
+            staged = dict(chain_cycles_a_step=staged,
+                          serial_chain_ops_a_step=ops, serial_ms=serial_ms,
+                          serial_ms_sum=sum(serial_ms.values()),
+                          speedup={v: serial_ms[v] / variant_ms[v]
+                                   for v in tool.VARIANTS})
+        else:
+            staged = dict(chain_ops_a_step=ops, chain_cycles=cycles)
         emit("ablation_chain", tool=tname, S=s_max, steps=L,
-             chain_ops_a_step=ops, chain_cycles=cycles,
              chain_bound_ms=chain, chain_bound_ms_sum=sum(chain.values()),
              ms=variant_ms, ms_sum=sum(variant_ms.values()),
              share_of_chain_bound={v: chain[v] / variant_ms[v]
                                    for v in tool.VARIANTS},
-             card=card_line())
+             **staged, card=card_line())
         by = collections.Counter()
         for b in bounds:
             by[b["bound_by"]] += b["bound_ms"]
@@ -2594,7 +2644,59 @@ def phase_ablation(stats: dict) -> dict:
             plain_shape=[B, steps],
             check_ms=sum(checks[tname, v, s_max][0] for v in tool.VARIANTS),
             max_abs_err=max(checks[k][2] for k in checks if k[0] == tname))
+    for f in ("bound_ms", "bound_by", "plain_ms", "plain_shape"):
+        stats["ablate_fused_serial"][f] = stats["ablate_fused"][f]
     return launches
+
+
+def ablation_vs_serial(L: int, S: int, stats: dict) -> dict:
+    """The staged ablate_fused kernel against its serial twin at S x 128
+    lanes and L steps (the tool's inputs and window), every variant bit for
+    bit, both timed in this run in turns (serial, staged, staged, serial);
+    one `ablation_vs_serial` line a variant and one `design` line (the
+    launch configuration the card reports a variant, the stages' chain
+    cycles a step).  Returns {variant: the twin's ms}."""
+    import torch
+    from project_desert_tortoise_tpu_torch.tools import ablate_fused as AF
+
+    dev = torch.device("cuda")
+    window = 1024
+    xs, state = AF.inputs(L, S, dev)
+    B = S * AF.LANES
+    out_new, out_old = (AF.output_buffers(L, B, dev) for _ in range(2))
+    ms, serial_ms, configs = {}, {}, {}
+    for name in AF.VARIANTS:
+        for o in (out_new, out_old):
+            o[0].zero_()
+        ms[name], serial_ms[name], got, want = old_new_ms(
+            lambda: AF.ablate_fused(name, *xs, state, window, out_new),
+            lambda: AF.ablate_fused_serial(name, *xs, state, window,
+                                           out_old), reps=1)
+        check_equal(got, want, f"ablate_fused {name} vs serial, {B} x {L}")
+        configs[name] = dict(AF.ablate_fused_launch_config(name),
+                             chain_cycles_a_step=staged_chain_cycles(
+                                 AF.VARIANTS[name]))
+        emit("ablation_vs_serial", variant=name, shape=[B, L],
+             bit_exact=True, ms=ms[name], serial_ms=serial_ms[name],
+             ns_per_step=ms[name] * 1e6 / L,
+             serial_ns_per_step=serial_ms[name] * 1e6 / L,
+             speedup=serial_ms[name] / ms[name], card=card_line())
+    cfg = configs["full"]
+    emit("design", mode="ablate_fused, staged", shape=[B, L],
+         ctas=-(-B // AF.CTA_LANES), stage_warps=dict(
+             pll=cfg["pll_warp"], agc=cfg["agc_warp"],
+             gardner_manchester_stores=cfg["gardner_warp"],
+             loader=cfg["loader_warp"],
+             fir_and_pll_input_terms=[w for w in range(32)
+                                      if cfg["fir_warp_mask"] >> w & 1]),
+         latency_cycles=dict(LATENCY_CYCLES), variants=configs, ms=ms,
+         serial_ms=serial_ms, card=card_line())
+    stats["ablate_fused_serial"] = dict(
+        ms=sum(serial_ms.values()), shape=[B, L], variants=len(ms),
+        staged_ms=sum(ms.values()), max_abs_err=0.0)
+    del xs, state, out_new, out_old
+    torch.cuda.empty_cache()
+    return serial_ms
 
 
 # ---------------------------------------------------------------------------
@@ -3321,20 +3423,10 @@ def phase_realtime(workdir: str) -> dict:
 
 # --- the exact chain's other clocks and the flat whole-file path
 
-# dependent operations a symbol slot on each clock kernel's next-sample
-# chain (csrc/scan_kernels.cu), counted as GM_SLOT_CHAIN_OPS is: "mm"
-# (MmClock::slot) 16: rint, compare, float->int, two clamps, the read's
-# address and load, sign (compare, select), multiply, subtract, multiply,
-# add, two clamps, add, select; the upsampling ones (UpGardnerClock,
-# UpMmClock) 20: compare, select, add, float->int, two clamps, address,
-# load, the error (subtract or sign, two multiplies), two clamps, then the
-# split pointer: subtract, floor, subtract, add, floor, subtract, select.
-# The Manchester decision is off that chain.
-CLOCK_CHAIN_OPS = {"mm": 16, "upsampling_gardner": 20, "upsampling_mm": 20}
 # operations a slot, timing and Manchester (for the operations bound)
 CLOCK_SLOT_OPS = {"mm": 35, "upsampling_gardner": 45, "upsampling_mm": 40}
 # The redesigned clock kernels' chains (the whole-image kernel's
-# chain_segment overloads for MmScan and UpGardnerScan,
+# chain_segment overloads for MmScan, UpGardnerScan and UpMmScan,
 # csrc/scan_kernels.cu), a slot as (floating-point, integer, floor)
 # dependent operations besides its one shared-memory load.  "mm",
 # float32, 12 + 4 + 0: the rounding add, the integer subtract, two clamps
@@ -3343,7 +3435,11 @@ CLOCK_SLOT_OPS = {"mm": 35, "upsampling_gardner": 45, "upsampling_mm": 40}
 # rounding add's low word is the integer: no subtract).
 # "upsampling_gardner" 14 + 3 + 2: compare, select, add, float->int, two
 # clamps, the address; the load; subtract, two multiplies, two clamps,
-# subtract, floor, subtract, add, floor, subtract, select.  Each
+# subtract, floor, subtract, add, floor, subtract, select.
+# "upsampling_mm" 17 + 3 + 2: compare, select, add, float->int, two
+# clamps, the address; the load; sign (compare, select, subtract),
+# multiply, subtract, multiply, two clamps, add, floor, subtract, add,
+# floor, subtract, select.  Each
 # floating-point operation at the float add's latency (float32) or
 # chain_cycles_f64() (float64), each integer one at the float add's, a
 # float floor at its own (the measured floor-and-add less the add; in
@@ -3352,7 +3448,9 @@ CLOCK_SLOT_OPS = {"mm": 35, "upsampling_gardner": 45, "upsampling_mm": 40}
 # (whole_image_chain_cycles).
 WHOLE_IMAGE_CHAIN_OPS = {("mm", False): (12, 4, 0), ("mm", True): (12, 3, 0),
                          ("upsampling_gardner", False): (14, 3, 2),
-                         ("upsampling_gardner", True): (14, 3, 2)}
+                         ("upsampling_gardner", True): (14, 3, 2),
+                         ("upsampling_mm", False): (17, 3, 2),
+                         ("upsampling_mm", True): (17, 3, 2)}
 
 
 def whole_image_chain_cycles(clock: str, f64: bool) -> float:
@@ -3454,19 +3552,17 @@ def phase_clock_kernels(stats: dict):
     in float64 (the _f64 instances), at one lane over one POES chunk's
     image (clock_images): from a fresh state over the whole image and from
     a carried one over a ragged final chunk (tests/test_torch_clocks_cuda.py
-    has the other combinations and more lanes).  The two on the
-    whole-image kernel (WHOLE_IMAGE_CLOCKS) also against their serial twins
-    in both cases, both timed in this run (`whole_chunk_vs_serial` lines),
-    and on a forced small ring (SMALL_RING, SMALL_RING_F64); one `design`
-    line each: the launch configuration the card reports, the times and
-    the chain bound at the measured latencies (whole_image_chain_cycles, a
-    slot up to the first inactive one).  One `clock_kernel` line each
-    kernel: ms a launch (CUDA events, fresh state, whole image), the bytes
-    bound of those inputs (each value the chain reads, and the outputs,
-    once), the chain bound (upsampling_mm_manchester_scan: CLOCK_CHAIN_OPS
-    a slot at 4 cycles in float32 and at the measured FP64 latency in
-    float64, computed), the plain version's ms; the launches on the main
-    paths are the clocks_exact lines' and the kernels line's."""
+    has the other combinations and more lanes).  Each (on the whole-image
+    kernel) also against its serial twin in both cases, both timed in this
+    run (`whole_chunk_vs_serial` lines), and on a forced small ring
+    (SMALL_RING, SMALL_RING_F64); one `design` line each: the launch
+    configuration the card reports, the times and the chain bound at the
+    measured latencies (whole_image_chain_cycles, a slot up to the first
+    inactive one).  One `clock_kernel` line each kernel: ms a launch (CUDA
+    events, fresh state, whole image), the bytes bound of those inputs
+    (each value the chain reads, and the outputs, once), the chain bound,
+    the plain version's ms; the launches on the main paths are the
+    clocks_exact lines' and the kernels line's."""
     import torch
     from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
 
@@ -3475,7 +3571,7 @@ def phase_clock_kernels(stats: dict):
     case_of = lambda carried, ragged: (
         f"{'carried' if carried else 'fresh'} state, "
         f"{'ragged final chunk' if ragged else 'whole image'}")
-    for clock in ("mm", "upsampling_gardner", "upsampling_mm"):
+    for clock in WHOLE_IMAGE_CLOCKS:
         for dtype in (torch.float32, torch.float64):
             f64 = dtype == torch.float64
             name = f"{clock}_manchester_scan" + ("_f64" if f64 else "")
@@ -3498,22 +3594,15 @@ def phase_clock_kernels(stats: dict):
             w = 8.0 if f64 else 4.0
             reads = 3.0 if clock == "upsampling_gardner" else 2.0
             n_bytes = count * reads * w + msyms * (2 * w + 3)
-            if clock in WHOLE_IMAGE_CLOCKS:
-                chain = dict(
-                    chain_ops_a_slot=dict(zip(
-                        ("floating_point", "integer", "floor"),
-                        WHOLE_IMAGE_CHAIN_OPS[clock, f64]), ld_shared=1),
-                    chain_cycles_a_slot=whole_image_chain_cycles(clock, f64))
-                chain["chain_bound_ms"] = chain_bound_ms(
-                    computed, 1, chain["chain_cycles_a_slot"])
-                clock_vs_serial(clock, name, dtype, cases, case_of, chain,
-                                stats)
-            else:
-                cycles = chain_cycles_f64() if f64 else CHAIN_CYCLES
-                chain = dict(chain_bound_ms=chain_bound_ms(
-                    computed, CLOCK_CHAIN_OPS[clock], cycles),
-                    chain_ops_a_slot=CLOCK_CHAIN_OPS[clock],
-                    chain_cycles=cycles)
+            chain = dict(
+                chain_ops_a_slot=dict(zip(
+                    ("floating_point", "integer", "floor"),
+                    WHOLE_IMAGE_CHAIN_OPS[clock, f64]), ld_shared=1),
+                chain_cycles_a_slot=whole_image_chain_cycles(clock, f64))
+            chain["chain_bound_ms"] = chain_bound_ms(
+                computed, 1, chain["chain_cycles_a_slot"])
+            clock_vs_serial(clock, name, dtype, cases, case_of, chain,
+                            stats)
             b = bound(n_bytes, msyms * CLOCK_SLOT_OPS[clock],
                       FP64_FLOP_S if f64 else FP32_FLOP_S)
             # the chain bound is computed: on this line, not in the table

@@ -104,24 +104,24 @@
 // 120 KB-320 KB image, nothing at 3.35 TB/s: each is bound by its chain
 // of dependent operations a slot, the read of the image among them.
 // pdt_gardner_scan's kernel is a template over a clock policy
-// (scan_kernel<T, RESIDENT, Clock>): GardnerScan, and MmScan and
-// UpGardnerScan for pdt_mm_scan and pdt_upsampling_gardner_scan (float and
-// double instances), so that their chain thread reads the image from the
-// ring in shared memory (M&M one read a slot; upsampling Gardner the
-// on-time and the mid-bit read, the mid-bit 0 outside [0, cap) as
-// Gardner's) and the Manchester decision and the stores run on the
-// movers.  The float32 POES images (120 KB, 160 KB) are resident; the
-// float64 ones (240 KB, 320 KB) exceed a CTA's shared memory and recycle
-// a ring of 16 tiles.  Both pointers move forward (M&M's step is clamped
-// to [step_min, step_max] > 0; upsampling Gardner's advances by the step
-// less an error of at most err_limit), and a read behind or outside the
-// staged tiles reads device memory, so even a pointer that moved back
-// would read right.  The simple design, one thread stepping one lane over
-// the image in device memory and writing every slot, stays as their
-// serial twins (pdt_mm_scan_serial, pdt_upsampling_gardner_scan_serial
-// and the _f64_serial ones), the card-side oracles and timing baselines,
-// on no path; upsampling_mm_manchester_scan still runs it
-// (pdt_upsampling_mm_scan).
+// (scan_kernel<T, RESIDENT, Clock>): GardnerScan, and MmScan, UpGardnerScan
+// and UpMmScan for pdt_mm_scan, pdt_upsampling_gardner_scan and
+// pdt_upsampling_mm_scan (float and double instances), so that their
+// chain thread reads the image from the ring in shared memory (M&M and
+// upsampling M&M one read a slot; upsampling Gardner the on-time and the
+// mid-bit read, the mid-bit 0 outside [0, cap) as Gardner's) and the
+// Manchester decision and the stores run on the movers.  The float32 POES
+// images (120 KB, 160 KB) are resident; the float64 ones (240 KB, 320 KB)
+// exceed a CTA's shared memory and recycle a ring of 16 tiles.  The
+// pointers move forward (M&M's step is clamped to [step_min, step_max] >
+// 0; the upsampling clocks' advance by the step less an error of at most
+// err_limit), and a read behind or outside the staged tiles reads device
+// memory, so even a pointer that moved back would read right.  The simple
+// design, one thread stepping one lane over the image in device memory
+// and writing every slot, stays as their serial twins
+// (pdt_mm_scan_serial, pdt_upsampling_gardner_scan_serial,
+// pdt_upsampling_mm_scan_serial and the _f64_serial ones), the card-side
+// oracles and timing baselines, on no path.
 //
 // Numerics as in pdt_common.cuh.
 
@@ -970,7 +970,8 @@ __device__ __forceinline__ int clamp_index(int i, int cap) {
 // half: it reads the on-time value from the image in device memory into
 // cur, advances the state and returns the on-time index (its time's).
 // The whole-image kernel computes the indices itself and reads through
-// its ring (the chain_segment overloads of MmScan and UpGardnerScan).
+// its ring (the chain_segment overloads of MmScan, UpGardnerScan and
+// UpMmScan).
 //
 // mm (clock.py:128-141): rows next_sample, step, prev_bit; reads at
 // rint(next_sample); next_sample rolled over by n at the end (:146).
@@ -1083,12 +1084,9 @@ struct UpMmClock {
     nf = f[B + b];
     prev = f[2 * B + b];
   }
-  __device__ int slot(const T* __restrict__ xr, int cap, T n_f, T,
-                      const Params& p, bool& active, T& cur) {
-    const T idx = ni + (nf >= T(0.5) ? T(1) : T(0));
-    active = idx < n_f;
-    const int ii = clamp_index(num::to_int_rz(idx), cap);
-    cur = xr[ii];
+  // the on-time read index, as a value of T
+  __device__ T on_time() const { return ni + (nf >= T(0.5) ? T(1) : T(0)); }
+  __device__ void advance(Arg<T> cur, bool active, const Params& p) {
     T err = p.kp * (sgn(prev) * cur - sgn(cur) * prev);
     err = num::min(num::max(err, -p.err_limit), p.err_limit);
     T ai, af, nni, nnf;
@@ -1099,6 +1097,14 @@ struct UpMmClock {
       nf = nnf;
       prev = cur;
     }
+  }
+  __device__ int slot(const T* __restrict__ xr, int cap, T n_f, T,
+                      const Params& p, bool& active, T& cur) {
+    const T idx = on_time();
+    active = idx < n_f;
+    const int ii = clamp_index(num::to_int_rz(idx), cap);
+    cur = xr[ii];
+    advance(cur, active, p);
     return ii;
   }
   __device__ void store(T* f, int B, int b, int) const {
@@ -1300,12 +1306,62 @@ __device__ __forceinline__ int chain_segment(
   return -1;
 }
 
+// Upsampling M&M (upsampling_mm_manchester_scan): the on-time read alone,
+// at int + (frac >= 0.5) clamped to [0, cap - 1] (clock.py:363-365),
+// converted as the serial kernel converts it: no rounding add, as
+// UpGardnerScan.
+template <typename T>
+struct UpMmScan {
+  using Params = UpParamsT<T>;
+  using Consts = UpConstsT<T>;
+  using State = ClockLane<T, UpMmClock<T>>;
+
+  static __device__ __forceinline__ T per_slot(const Consts&) {
+    return T(INFINITY);
+  }
+  static __device__ __forceinline__ T lead(const State& g) { return g.k.ni; }
+  static __device__ __forceinline__ T trail(const State& g) { return g.k.ni; }
+};
+
+template <bool ADD, typename T, bool RESIDENT>
+__device__ __forceinline__ int chain_segment(
+    ClockLane<T, UpMmClock<T>>& g, Ring<T, RESIDENT>& r, int* ridx, T* rsym,
+    int s0, int s1, int n, const UpConstsT<T>& c) {
+  UpMmClock<T>& k = g.k;
+  const int cap_m1 = r.cap - 1;
+  const T n_f = static_cast<T>(n);
+  const int len = s1 - s0;
+  const unsigned tile = 1u << r.lt;
+  int lo_lim = r.lo << r.lt, hi_lim = r.hi << r.lt;
+  for (int j = 0; j < len; ++j) {
+    const T idx = k.on_time();
+    const bool active = idx < n_f;                            // :364
+    const int ii = min(max(num::to_int_rz(idx), 0), cap_m1);
+    T cur = ld_shared(r.addr(ii), T());
+    const bool staged =
+        ii < hi_lim &&
+        (RESIDENT || static_cast<unsigned>(ii - lo_lim) < tile);
+    if (__builtin_expect(!staged, 0)) {
+      T unused;
+      r.slow(ii, ii, false, cur, unused);
+      lo_lim = r.lo << r.lt;
+      hi_lim = r.hi << r.lt;
+    }
+    ridx[j] = ii;
+    rsym[j] = cur;
+    k.advance(cur, active, c);
+    if (!active) return s0 + j;
+  }
+  return -1;
+}
+
 // The whole-image kernel: a clock followed by the Manchester decision over
 // a lane's image staged in the ring, one lane a CTA.  T = double is the
 // float64 exact chain's instance; ring_floats: the ring's elements of T.
 // Clock: GardnerScan (gardner_manchester_scan and its _f64 instance),
 // MmScan (mm_manchester_scan), UpGardnerScan
-// (upsampling_gardner_manchester_scan).
+// (upsampling_gardner_manchester_scan), UpMmScan
+// (upsampling_mm_manchester_scan).
 template <typename T, bool RESIDENT, typename Clock>
 __global__ void __launch_bounds__(kGsThreads, 1)
 scan_kernel(const T* __restrict__ x, const T* __restrict__ t,
@@ -1647,8 +1703,8 @@ int launch_scan_serial(const T* x, const T* t, const int* n_valid,
 }
 
 // --- the clocks' simple design, one thread a lane: the serial twins of
-// mm_manchester_scan and upsampling_gardner_manchester_scan, and
-// upsampling_mm_manchester_scan's kernel
+// mm_manchester_scan, upsampling_gardner_manchester_scan and
+// upsampling_mm_manchester_scan
 
 // One lane of a clock followed by the Manchester decision, max_syms slots
 // over the lane's (cap,) images x and t in device memory: each slot's
@@ -1712,7 +1768,7 @@ __device__ __forceinline__ void clock_manchester_lane(
 
 PDT_CLOCK_KERNEL(mm_manchester_scan_serial, MmClock)
 PDT_CLOCK_KERNEL(upsampling_gardner_manchester_scan_serial, UpGardnerClock)
-PDT_CLOCK_KERNEL(upsampling_mm_manchester_scan, UpMmClock)
+PDT_CLOCK_KERNEL(upsampling_mm_manchester_scan_serial, UpMmClock)
 #undef PDT_CLOCK_KERNEL
 
 template <typename T, typename Clock>
@@ -1966,12 +2022,11 @@ extern "C" int pdt_gardner_scan_f64_serial(
 //    int, frac, prev_bit (not rolled over); params the 7 of UpParamsT.
 //  - pdt_upsampling_mm_scan: rows next_sample int, frac, prev_bit (not
 //    rolled over); params the 7 of UpParamsT.
-// The first two run the whole-image kernel, as pdt_gardner_scan (and take
-// its ring_floats); pdt_X_scan_config and pdt_X_scan_f64_config report
-// their launch configuration (scan_config).  pdt_X_scan_serial and
+// Each runs the whole-image kernel, as pdt_gardner_scan (and takes its
+// ring_floats); pdt_X_scan_config and pdt_X_scan_f64_config report their
+// launch configuration (scan_config).  pdt_X_scan_serial and
 // pdt_X_scan_f64_serial run their simple design, one thread a lane over
-// the image in device memory (their serial twins, on no path), as
-// pdt_upsampling_mm_scan runs its own.
+// the image in device memory (their serial twins, on no path).
 #define PDT_SCAN_ENTRY(ENTRY, T, POLICY)                                  \
   extern "C" int ENTRY(const T* x, const T* t, const int* n_valid,        \
                        const T* st_f_in, const int* st_i_in, T* syms,     \
@@ -1994,6 +2049,8 @@ PDT_SCAN_ENTRY(pdt_mm_scan, float, MmScan)
 PDT_SCAN_ENTRY(pdt_mm_scan_f64, double, MmScan)
 PDT_SCAN_ENTRY(pdt_upsampling_gardner_scan, float, UpGardnerScan)
 PDT_SCAN_ENTRY(pdt_upsampling_gardner_scan_f64, double, UpGardnerScan)
+PDT_SCAN_ENTRY(pdt_upsampling_mm_scan, float, UpMmScan)
+PDT_SCAN_ENTRY(pdt_upsampling_mm_scan_f64, double, UpMmScan)
 #undef PDT_SCAN_ENTRY
 
 #define PDT_CLOCK_ENTRY(ENTRY, T, KERNEL, CLOCK)                          \
@@ -2017,8 +2074,8 @@ PDT_CLOCK_ENTRY(pdt_upsampling_gardner_scan_serial, float,
                 upsampling_gardner_manchester_scan_serial, UpGardnerClock)
 PDT_CLOCK_ENTRY(pdt_upsampling_gardner_scan_f64_serial, double,
                 upsampling_gardner_manchester_scan_serial, UpGardnerClock)
-PDT_CLOCK_ENTRY(pdt_upsampling_mm_scan, float, upsampling_mm_manchester_scan,
-                UpMmClock)
-PDT_CLOCK_ENTRY(pdt_upsampling_mm_scan_f64, double,
-                upsampling_mm_manchester_scan, UpMmClock)
+PDT_CLOCK_ENTRY(pdt_upsampling_mm_scan_serial, float,
+                upsampling_mm_manchester_scan_serial, UpMmClock)
+PDT_CLOCK_ENTRY(pdt_upsampling_mm_scan_f64_serial, double,
+                upsampling_mm_manchester_scan_serial, UpMmClock)
 #undef PDT_CLOCK_ENTRY

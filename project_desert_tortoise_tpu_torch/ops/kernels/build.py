@@ -99,28 +99,28 @@ _SIGNATURES = {
     # the serial kernel in double, as pdt_gardner_scan_serial
     "pdt_gardner_scan_f64_serial": [_P] * 13 + [_I] * 3 + [_P, _I, _P],
     # the exact chain's other clocks, float and double: the whole-image
-    # kernel as pdt_gardner_scan (with ring_floats) and its config entry
-    # for "mm" and "upsampling_gardner"; their serial twins and
-    # "upsampling_mm" as pdt_gardner_scan_serial: x, t, n_valid, st_f_in,
-    # st_i_in, syms, times, valid, bits, emit, st_f_out, st_i_out, count,
-    # B, cap, max_syms, params, n_params, stream
+    # kernel as pdt_gardner_scan (with ring_floats) and its config entry;
+    # their serial twins as pdt_gardner_scan_serial: x, t, n_valid,
+    # st_f_in, st_i_in, syms, times, valid, bits, emit, st_f_out,
+    # st_i_out, count, B, cap, max_syms, params, n_params, stream
     **{f"pdt_{clock}_scan{suffix}": [_P] * 13 + [_I] * 4 + [_P, _I, _P]
-       for clock in ("mm", "upsampling_gardner")
+       for clock in ("mm", "upsampling_gardner", "upsampling_mm")
        for suffix in ("", "_f64")},
     **{f"pdt_{clock}_scan{suffix}_config": [_I] * 3 + [_P]
-       for clock in ("mm", "upsampling_gardner")
+       for clock in ("mm", "upsampling_gardner", "upsampling_mm")
        for suffix in ("", "_f64")},
     **{f"pdt_{clock}_scan{suffix}_serial": [_P] * 13 + [_I] * 3
        + [_P, _I, _P]
-       for clock in ("mm", "upsampling_gardner")
-       for suffix in ("", "_f64")},
-    **{f"pdt_upsampling_mm_scan{suffix}": [_P] * 13 + [_I] * 3 + [_P, _I, _P]
+       for clock in ("mm", "upsampling_gardner", "upsampling_mm")
        for suffix in ("", "_f64")},
     # variant, in, st_in, out, st_out, B, L, params, n_params, stream
     "pdt_ablate_kernel": [_I] + [_P] * 4 + [_I] * 2 + [_P, _I, _P],
     # flags, re, im, tn, st_in, bit, btime, emit, st_out, B, L, window,
-    # params, n_params, stream
+    # params, n_params, stream: the staged kernel and its serial twin
     "pdt_ablate_fused": [_I] + [_P] * 8 + [_I] * 3 + [_P, _I, _P],
+    "pdt_ablate_fused_serial": [_I] + [_P] * 8 + [_I] * 3 + [_P, _I, _P],
+    # flags, out
+    "pdt_ablate_fused_config": [_I, _P],
     # kind, in, out, cycles, steps, stream
     "pdt_fp64_latency": [_I, _P, _P, _P, _I, _P],
 }

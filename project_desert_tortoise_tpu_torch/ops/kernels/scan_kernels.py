@@ -45,12 +45,11 @@ per launch at the main path's size, so each is a hand-written kernel in
   clocks (JAX ``clock.py::mm_scan``, ``upsampling_gardner_scan``,
   ``upsampling_mm_scan``, each followed by ``manchester_scan``), float32,
   and float64 through their ``_f64`` instances; ``*_ref`` are their plain
-  versions.  The first two run the whole-image kernel of
-  :func:`gardner_manchester_scan` under their clock
+  versions.  Each runs the whole-image kernel of
+  :func:`gardner_manchester_scan` under its clock
   (:func:`clock_scan_launch_config`); their ``*_serial`` twins (and
   ``*_f64_serial``) launch the simple design, one thread a lane over the
-  image in device memory, on no path; :func:`upsampling_mm_manchester_scan`
-  still runs that design.
+  image in device memory, on no path.
 """
 
 from __future__ import annotations
@@ -895,24 +894,29 @@ upsampling_gardner_manchester_scan_f64_serial = _serial_twin(
 
 upsampling_mm_manchester_scan_f64 = _clock_wrapper(
     "upsampling_mm_manchester_scan_f64", "pdt_upsampling_mm_scan_f64",
-    dtype=torch.float64)
+    dtype=torch.float64, ring=True)
 upsampling_mm_manchester_scan = _clock_wrapper(
     "upsampling_mm_manchester_scan", "pdt_upsampling_mm_scan",
-    upsampling_mm_manchester_scan_ref, upsampling_mm_manchester_scan_f64)
+    upsampling_mm_manchester_scan_ref, upsampling_mm_manchester_scan_f64,
+    ring=True)
 upsampling_mm_manchester_scan.__doc__ = """The M&M clock on an upsampled
 stream with a fixed step and a split next-sample pointer, then the
-Manchester decision (JAX ``upsampling_mm_scan`` + ``manchester_scan``), on
-the simple design: one thread a lane over the image in device memory.
+Manchester decision (JAX ``upsampling_mm_scan`` + ``manchester_scan``).
 fstate: six (B,) planes (next_sample int, frac, prev_bit, Manchester cur,
 prev, prevprev).  Otherwise as
-:func:`upsampling_gardner_manchester_scan`, without ``ring_floats``."""
+:func:`upsampling_gardner_manchester_scan`."""
 upsampling_mm_manchester_scan_f64.__doc__ = """
 :func:`upsampling_mm_manchester_scan` in float64, the kernel's double
 instance.  CUDA tensors only."""
+upsampling_mm_manchester_scan_serial = _serial_twin(
+    "upsampling_mm", "pdt_upsampling_mm_scan_serial", torch.float32)
+upsampling_mm_manchester_scan_f64_serial = _serial_twin(
+    "upsampling_mm", "pdt_upsampling_mm_scan_f64_serial", torch.float64)
 
 # the whole-image kernel's clocks: their config entry points' stems
 SCAN_CLOCKS = {"gardner": "pdt_gardner_scan", "mm": "pdt_mm_scan",
-               "upsampling_gardner": "pdt_upsampling_gardner_scan"}
+               "upsampling_gardner": "pdt_upsampling_gardner_scan",
+               "upsampling_mm": "pdt_upsampling_mm_scan"}
 
 
 def clock_scan_launch_config(clock: str, B: int, cap: int,

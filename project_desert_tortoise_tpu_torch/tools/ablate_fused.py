@@ -14,6 +14,13 @@ each window stores.  POES TIP at 50 kHz, as in the JAX tool.
 - :func:`ablate_fused` is the entry point.  A CUDA tensor launches the
   hand-written kernel or raises; a CPU tensor runs :func:`ablate_fused_ref`,
   the plain PyTorch version.  ``ablate_fused.launches`` counts launches.
+  The kernel stages its 32 lanes a CTA in chunks of 48 steps, each serial
+  stage (PLL; AGC; rings, Gardner and Manchester) on its own warp a chunk
+  apart, the FIR and the PLL's input terms on four more
+  (:func:`ablate_fused_launch_config`).
+- :func:`ablate_fused_serial` launches the serial kernel, one thread a
+  lane running every stage of a step in turn: the staged kernel's
+  card-side oracle and timing baseline, on no path.
 - :func:`main` times every variant on one draw of the inputs: a warm
   call, then the median of 3 (CUDA events on the card), each into output
   buffers allocated and zeroed before the timing.
@@ -37,7 +44,8 @@ from project_desert_tortoise_tpu_torch.ops import pll as pll_ops
 from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
     AGC_MAX_GAIN, AGC_MIN_GAIN, AGC_REFERENCE, agc_step, lane_const,
     polyphase)
-from project_desert_tortoise_tpu_torch.ops.kernels.common import check, launch
+from project_desert_tortoise_tpu_torch.ops.kernels.common import (
+    check, kernel_config, launch, on_card)
 from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
     ring_read)
 from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
@@ -213,19 +221,14 @@ def output_buffers(L: int, B: int, device):
                         device=device))
 
 
-def ablate_fused(name: str, re, im, tn, state, window: int, out=None):
-    """Variant `name` over time-major (L, B) float32 planes re, im, tn from
-    `state` (73, B); returns (bit, bit_time, emit) (L, B) planes and the
-    final state.  Rows a variant does not store are 0 (``no_store`` stores
-    the first step of each window).  `out`: on the card, buffers from
-    :func:`output_buffers` to write into (so that a timed call allocates
-    and zeroes nothing), else fresh ones.  CPU tensors run
-    :func:`ablate_fused_ref`, which allocates its own."""
+# lanes a CTA of the staged kernel
+CTA_LANES = 32
+
+
+def _launch(entry: str, name: str, re, im, tn, state, window: int, out):
+    """Launch `entry` (pdt_ablate_fused or its serial twin) for variant
+    `name` on CUDA tensors; returns what :func:`ablate_fused` returns."""
     dev = state.device
-    if dev.type == "cpu":
-        return ablate_fused_ref(name, re, im, tn, state, window)
-    if dev.type != "cuda":
-        raise ValueError(f"ablate_fused runs on cpu or cuda, not {dev}")
     flags = VARIANTS[name]
     cp = chain_params()
     L, B = re.shape
@@ -243,15 +246,65 @@ def ablate_fused(name: str, re, im, tn, state, window: int, out=None):
     if not (out.is_contiguous() and st_out.is_contiguous()):
         raise ValueError("ablate_fused's out buffers must be contiguous")
     p = _param_block()
-    launch(dev, "pdt_ablate_fused", sum(FLAG_BITS[f] for f in flags),
+    launch(dev, entry, sum(FLAG_BITS[f] for f in flags),
            *(t.data_ptr() for t in planes), st_in.data_ptr(),
            *(o.data_ptr() for o in out), st_out.data_ptr(), B, L, window,
            p.ctypes.data_as(ctypes.c_void_p), p.size)
-    ablate_fused.launches += 1
     return (*out.unbind(0), st_out)
 
 
+def ablate_fused(name: str, re, im, tn, state, window: int, out=None):
+    """Variant `name` over time-major (L, B) float32 planes re, im, tn from
+    `state` (73, B); returns (bit, bit_time, emit) (L, B) planes and the
+    final state.  Rows a variant does not store are 0 (``no_store`` stores
+    the first step of each window).  `out`: on the card, buffers from
+    :func:`output_buffers` to write into (so that a timed call allocates
+    and zeroes nothing), else fresh ones.  CPU tensors run
+    :func:`ablate_fused_ref`, which allocates its own."""
+    dev = state.device
+    if not on_card("ablate_fused", dev):
+        return ablate_fused_ref(name, re, im, tn, state, window)
+    got = _launch("pdt_ablate_fused", name, re, im, tn, state, window, out)
+    ablate_fused.launches += 1
+    return got
+
+
 ablate_fused.launches = 0
+
+
+def ablate_fused_serial(name: str, re, im, tn, state, window: int,
+                        out=None):
+    """:func:`ablate_fused` on the serial kernel, one thread a lane: the
+    staged kernel's oracle and timing baseline, on no path.  CUDA tensors
+    only."""
+    if not on_card("ablate_fused_serial", state.device):
+        raise ValueError("ablate_fused_serial runs on a CUDA device only")
+    got = _launch("pdt_ablate_fused_serial", name, re, im, tn, state, window,
+                  out)
+    ablate_fused_serial.launches += 1
+    return got
+
+
+ablate_fused_serial.launches = 0
+
+# ablate_fused_launch_config's fields, in the order of
+# pdt_ablate_fused_config's out[]
+LAUNCH_CONFIG_FIELDS = ("lanes_per_cta", "chunk_steps", "threads",
+                        "fir_warps", "smem_bytes", "ctas_per_sm",
+                        "registers", "local_bytes", "serial_registers",
+                        "serial_local_bytes", "pll_warp", "agc_warp",
+                        "gardner_warp", "loader_warp", "fir_warp_mask")
+
+
+def ablate_fused_launch_config(name: str, device="cuda") -> dict:
+    """The staged kernel's launch configuration for variant `name`, as the
+    card reports it: lanes a CTA, steps a chunk, threads and FIR warps a
+    CTA, dynamic shared memory bytes, resident CTAs an SM, registers and
+    local (spill) bytes a thread; the serial kernel's registers and local
+    bytes; and each stage's warp (the FIR warps as a bit mask)."""
+    flags = sum(FLAG_BITS[f] for f in VARIANTS[name])
+    return kernel_config(device, "pdt_ablate_fused_config", flags,
+                         fields=LAUNCH_CONFIG_FIELDS)
 
 
 def main(argv=None) -> int:

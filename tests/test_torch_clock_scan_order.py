@@ -1,13 +1,15 @@
 """The whole-image kernel's order of evaluation under the exact chain's
-``"mm"`` and ``"upsampling_gardner"`` clocks, modelled on the CPU, against
-the plain versions ``mm_manchester_scan_ref`` and
-``upsampling_gardner_manchester_scan_ref`` bit for bit (``torch.equal``)
-and against JAX's ``mm_scan`` or ``upsampling_gardner_scan`` followed by
-``manchester_scan`` exactly (under x64 for float64).
+``"mm"``, ``"upsampling_gardner"`` and ``"upsampling_mm"`` clocks,
+modelled on the CPU, against the plain versions ``mm_manchester_scan_ref``,
+``upsampling_gardner_manchester_scan_ref`` and
+``upsampling_mm_manchester_scan_ref`` bit for bit (``torch.equal``) and
+against JAX's ``mm_scan``, ``upsampling_gardner_scan`` or
+``upsampling_mm_scan`` followed by ``manchester_scan`` exactly (under x64
+for float64).
 
 ``csrc/scan_kernels.cu::scan_kernel`` is ``gardner_manchester_scan``'s
 kernel made a template over a clock policy (``MmScan``,
-``UpGardnerScan``): one lane a CTA, the lane's image staged in a ring of
+``UpGardnerScan``, ``UpMmScan``): one lane a CTA, the lane's image staged in a ring of
 shared-memory tiles (``tests/test_torch_gardner_scan_order.py`` models the
 ring, whose ``Ring`` this file uses: a tile's slot reads NaN from its issue
 until its copy is waited, a read outside the staged tiles reads device
@@ -15,7 +17,7 @@ memory).  One thread runs the clock's timing half of each slot, reading
 through the ring: M&M one read a slot at rint(next_sample), rounded by the
 add where next_sample stays below its limit over the segment; upsampling
 Gardner the on-time read at int + (frac >= 0.5) and the mid-bit read, 0
-outside [0, cap).  It records each slot's clamped on-time index and soft
+outside [0, cap); upsampling M&M the on-time read alone.  It records each slot's clamped on-time index and soft
 symbol in segments of 256 slots and stops at the first inactive slot (an
 inactive slot freezes the state, so the active slots are a prefix and the
 count is the stop).  One mover thread makes the Manchester decision on the
@@ -92,6 +94,19 @@ def _split(i, f):
     return i + fl, f - fl
 
 
+def um_advance(st, cur, active, k):
+    """UpMmClock::advance: the clipped sign-law error added to the split
+    pointer, then the fixed step."""
+    ni, nf, prev = st
+    err = torch.clamp(k["kp"] * (fastmath.sign(prev) * cur
+                                 - fastmath.sign(cur) * prev),
+                      -k["lim"], k["lim"])
+    ai, af = _split(ni, nf + err)
+    nni, nnf = _split(ai + k["si"], af + k["sf"])
+    keep = lambda new, old: torch.where(active, new, old)
+    return keep(nni, ni), keep(nnf, nf), keep(cur, prev)
+
+
 def up_advance(st, cur, hval, active, k):
     """UpGardnerClock::advance."""
     ni, nf, hi, hf, prev = st
@@ -115,7 +130,7 @@ def clock_order(clock, fstate, istate, x, t, n, p, max_syms: int,
     geom = scan_geom(B, cap, ring_floats, size=size)
     npt = np.float64 if size == 8 else np.float32
     limit = RINT_ADD_LIMIT_D if size == 8 else RINT_ADD_LIMIT
-    n_rows = 3 if clock == "mm" else 5
+    n_rows = 5 if clock == "upsampling_gardner" else 3
     if clock == "mm":
         per_slot = max(abs(npt(p.step_min)), abs(npt(p.step_max))) + npt(1)
     outs = {k: [] for k in ("syms", "times", "valid", "bits", "emit")}
@@ -151,6 +166,11 @@ def clock_order(clock, fstate, istate, x, t, n, p, max_syms: int,
                               else torch.round(st[0]) < nf)
                     ii = hc = min(max(ir, 0), cap - 1)
                     in_img = False
+                elif clock == "upsampling_mm":
+                    idx = st[0] + (st[1] >= k["half"]).to(dt)
+                    active = idx < nf
+                    ii = hc = min(max(int(idx.to(torch.int32)), 0), cap - 1)
+                    in_img = False
                 else:
                     idx = st[0] + (st[1] >= k["half"]).to(dt)
                     active = idx < nf
@@ -166,6 +186,8 @@ def clock_order(clock, fstate, istate, x, t, n, p, max_syms: int,
                     lo_lim, hi_lim = ring.lo << ring.lt, ring.hi << ring.lt
                 if clock == "mm":
                     st = mm_advance(st, cur, active, k)
+                elif clock == "upsampling_mm":
+                    st = um_advance(st, cur, active, k)
                 else:
                     st = up_advance(st, cur, h if in_img else k["zero"],
                                     active, k)
@@ -275,6 +297,8 @@ def clock_case(clock: str, case: str, dtype, seed: int = 0):
             hf[:] = rng.uniform(0, 1, B).astype(dtype)
             prev = x[:, 5] * dtype(0.5)
         f = np.stack([ni, nf, hi, hf, prev])
+        if clock == "upsampling_mm":          # no mid-bit pointer
+            f = np.stack([ni, nf, prev])
     if case == "lanes":
         n -= 97 * np.arange(B, dtype=np.int32)
         n[3] = cap // 3               # stops early: a long fill
@@ -313,6 +337,11 @@ def _jax(clock, args):
             tj, nj, MM["fs"], MM["baud"], MM["step_range"], MM["kp"],
             max_syms)
         rows = (st[0], st[2], st[1])
+    elif clock == "upsampling_mm":
+        st, syms, times, valid, count = JK.upsampling_mm_scan(
+            (jnp.asarray(f[0:2].T), jnp.asarray(f[2])), xj, tj, nj, UP_STEP,
+            UP["err_limit"], UP["kp"], max_syms)
+        rows = (st[0][:, 0], st[0][:, 1], st[1])
     else:
         g = JK.GardnerState(next_sample=jnp.asarray(f[0:2].T),
                             half_raw=jnp.asarray(f[2:4].T),
@@ -333,7 +362,8 @@ def _flat(out):
 
 
 REFS = {"mm": sk.mm_manchester_scan_ref,
-        "upsampling_gardner": sk.upsampling_gardner_manchester_scan_ref}
+        "upsampling_gardner": sk.upsampling_gardner_manchester_scan_ref,
+        "upsampling_mm": sk.upsampling_mm_manchester_scan_ref}
 
 
 def _check_case(clock, case, ring, dtype):
@@ -378,14 +408,16 @@ def _check_case(clock, case, ring, dtype):
 
 @pytest.mark.parametrize("ring", ["resident", "small"])
 @pytest.mark.parametrize("case", ["fresh", "carried", "lanes"])
-@pytest.mark.parametrize("clock", ["mm", "upsampling_gardner"])
+@pytest.mark.parametrize("clock", ["mm", "upsampling_gardner",
+                                   "upsampling_mm"])
 def test_clock_order_matches_plain_and_jax(clock, case, ring):
     _check_case(clock, case, ring, np.float32)
 
 
 @pytest.mark.parametrize("ring", ["resident", "small"])
 @pytest.mark.parametrize("case", ["fresh", "carried", "lanes"])
-@pytest.mark.parametrize("clock", ["mm", "upsampling_gardner"])
+@pytest.mark.parametrize("clock", ["mm", "upsampling_gardner",
+                                   "upsampling_mm"])
 def test_clock_order_f64_matches_plain_and_jax_x64(x64, clock, case, ring):
     _check_case(clock, case, ring, np.float64)
 
@@ -411,6 +443,9 @@ def test_mm_order_beyond_the_add_limit():
     ("upsampling_gardner", np.float64, 10000, False, 16384),
     ("mm", np.float32, 7000, True, 21016),        # the second chunk size
     ("upsampling_gardner", np.float32, 7000, True, 28064),
+    ("upsampling_mm", np.float32, 10000, True, 40064),
+    ("upsampling_mm", np.float64, 10000, False, 16384),
+    ("upsampling_mm", np.float32, 7000, True, 28064),
 ])
 def test_clock_scan_geometry(clock, dtype, chunk, resident, ring):
     """The ring the kernel chooses at one lane of the exact chain's POES
@@ -425,7 +460,8 @@ def test_clock_scan_geometry(clock, dtype, chunk, resident, ring):
         assert (tiles, 1 << lt) == (16, 1024) and cap * size > 227 * 1024
 
 
-CLOCK_WRAPPERS = ("mm_manchester_scan", "upsampling_gardner_manchester_scan")
+CLOCK_WRAPPERS = ("mm_manchester_scan", "upsampling_gardner_manchester_scan",
+                  "upsampling_mm_manchester_scan")
 
 
 @pytest.mark.parametrize("name", CLOCK_WRAPPERS)

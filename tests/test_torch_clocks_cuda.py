@@ -4,9 +4,9 @@ versions, on the card: ``mm_manchester_scan``,
 ``upsampling_mm_manchester_scan``, each in float32 and in float64 (their
 ``_f64`` instances), at 1 and 5 lanes, from a fresh and from a carried
 state, over full and ragged valid lengths, the upsampling Gardner mid-bit
-pointer inside, before and past the image; the first two (the whole-image
-kernel) also against their serial twins (``*_serial``) and on rings capped
-at 64 and 1,024 elements, the float64 POES images on the recycled ring the
+pointer inside, before and past the image; each (the whole-image kernel)
+also against its serial twin (``*_serial``) and on rings capped at 64 and
+1,024 elements, the float64 POES images on the recycled ring the
 kernel chooses; and three chunks of
 ``chain.chunk_step`` with each clock (``"mm"`` in both quirks modes, the
 upsampling clocks without), float32 and float64, the kernels against the
@@ -150,10 +150,10 @@ def test_clock_kernel_matches_plain_on_card(card, algorithm, dtype, start,
 @pytest.mark.parametrize("B", [1, 5])
 @pytest.mark.parametrize("start", ["fresh", "carried"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("algorithm", ["mm", "upsampling_gardner"])
+@pytest.mark.parametrize("algorithm", list(CLOCKS))
 def test_whole_image_clock_matches_plain_and_serial_on_card(
         card, algorithm, dtype, start, B):
-    """The whole-image kernel under "mm" and "upsampling_gardner", on the
+    """The whole-image kernel under each clock, on the
     ring it chooses (float32: the image resident; float64: 16 tiles
     recycled) and on rings capped at 64 and 1,024 elements, against the
     plain version and the serial twin, bit for bit."""
