@@ -49,9 +49,10 @@ and drives the port's three entry points:
   upsampling clocks also at 7,000-sample chunks with the same lines;
 - the two ablation tools (``project_desert_tortoise_tpu_torch/tools``),
   every variant at 128 and at 4,224 lanes (``ablation`` lines); the staged
-  ``ablate_fused`` against its serial twin ``ablate_fused_serial`` at the
-  tool's full size, both timed in turns (``ablation_vs_serial``,
-  ``design``; ``ablation_chain`` has both times);
+  ``ablate_kernel`` and ``ablate_fused`` against their serial twins
+  ``ablate_kernel_serial`` and ``ablate_fused_serial`` at the tools' full
+  sizes, both timed in turns (``ablation_vs_serial``, ``design``;
+  ``ablation_chain`` has both times);
 - multi-channel serving (``serving``): a ``ChannelBank`` of 256 POES
   channels of 1,228,800 int16 samples (32 synthetic recordings, each on 8
   channels), pushed by producer threads and pumped in 128-lane batches,
@@ -209,8 +210,10 @@ SMALL_RING = 2048
 SMALL_RING_F64 = 256            # doubles: four tiles of 64, the chunk 2,400
 # the ablation tools: lane counts (S x 128) of the timed runs, at each of
 # which every variant is checked against its plain version over
-# (steps, window)
+# (steps, window); ablate_kernel also on seeded varied inputs at these lane
+# counts and at ABLATION_PART_LANES (a part-full last CTA)
 ABLATION_S = (1, 33)
+ABLATION_PART_LANES = (100, 4200)
 ABLATION_CHECK = (512, 256)
 CSRC = "project_desert_tortoise_tpu_torch/csrc/"
 JAX = "project_desert_tortoise_tpu/"
@@ -271,6 +274,9 @@ KERNELS = {
                           ("upsampling_mm_manchester_scan", 344))
        for suffix in ("", "_f64", "_serial", "_f64_serial")},
     "ablate_kernel": (CSRC + "ablate_kernel.cu", "tools/ablate_kernel.py:32"),
+    # its serial design, kept as the oracle and the timing baseline
+    "ablate_kernel_serial": (CSRC + "ablate_kernel.cu",
+                             "tools/ablate_kernel.py:32"),
     "ablate_fused": (CSRC + "ablate_fused.cu", "tools/ablate_fused.py:42"),
     # its serial design, kept as the oracle and the timing baseline
     "ablate_fused_serial": (CSRC + "ablate_fused.cu",
@@ -361,6 +367,7 @@ def kernel_fns() -> dict:
             **{name: getattr(scan_kernels, name)
                for name in CLOCK_KERNELS + CLOCK_TWINS},
             "ablate_kernel": ablate_kernel.ablate_kernel,
+            "ablate_kernel_serial": ablate_kernel.ablate_kernel_serial,
             "ablate_fused": ablate_fused.ablate_fused,
             "ablate_fused_serial": ablate_fused.ablate_fused_serial}
 
@@ -370,8 +377,9 @@ def drive(path, fn):
     read just after; fails unless each kernel of the path launched and no
     other did (the serial kernels among them, gardner_manchester_serial,
     gardner_manchester_scan_serial, the float64 twins pll_scan_f64_serial
-    and gardner_manchester_scan_f64_serial and the clocks' CLOCK_TWINS
-    too).  Returns (fn's result, {kernel: launches})."""
+    and gardner_manchester_scan_f64_serial, the clocks' CLOCK_TWINS and the
+    ablation tools' ablate_kernel_serial and ablate_fused_serial too).
+    Returns (fn's result, {kernel: launches})."""
     import torch
     fns = kernel_fns()
     for f in fns.values():
@@ -2469,29 +2477,40 @@ ABLATE_FUSED_STAGE_CHAINS = {
     "pll": ((PLL_F64_SERIAL_CHAIN_OPS, 0), (1, 0)),
     "fir": ((3 * AGC_CHAIN_OPS, 0), (1, 0)), "ring": ((0, 0), (1, 0)),
     "gm": ((15, 1), (1, 0)), "store": ((0, 0), (0, 0))}
-# dependent operations a step on each variant's longest loop-carried chain,
-# counted from the same bodies.  ablate_kernel: empty_c* 1 (each
-# carried value's add, the values independent); mac26, mac78 2 a
-# multiply-add (-fmad=false: a multiply, then an add); pll 18, the serial
-# PLL step's (PLL_F64_SERIAL_CHAIN_OPS: the phase update and the lock
-# signal that feeds back through `locked`; sinf/cosf and q_rsqrt not
-# counted); ring16 17 (the newest value through the 16 compare-selects of
-# the read, then the add; the shift is register renaming); store3 0 (no
-# carried value changes).  ablate_fused, per stage on and stubbed: the PLL
-# 18 or 1; the FIR stage's three AGC gains 3 x AGC_CHAIN_OPS or the
-# gain's 1; the rings 0 (a shift) or 1; Gardner's next_sample 31 (rintf,
+# csrc/ablate_kernel.cu's staged kernel: each variant's loop-carried chain
+# a step as (dependent operations, dependent shared-memory loads):
+# empty_c* 1 (each carried value's add, the values independent, spread
+# over warps); mac26, mac78 2 a multiply-add (-fmad=false: a multiply, then
+# an add; x is read from a staged row off the chain); pll 18, the PLL
+# step's (PLL_F64_SERIAL_CHAIN_OPS: the phase update and the lock signal
+# that feeds back through `locked`; sincosf and the division not counted;
+# the sample's own terms are on the B warps); ring16 3 (the ring in
+# registers: the newest value enters the last select, so a step costs that
+# select and the add, but an older one comes through the tree's four
+# selects, the last one and the add: six over two steps); store3 0 (no
+# carried value changes)
+ABLATE_KERNEL_CHAIN_OPS = {"empty_c1": (1, 0), "empty_c8": (1, 0),
+                           "empty_c73": (1, 0), "mac26": (52, 0),
+                           "mac78": (156, 0),
+                           "pll": (PLL_F64_SERIAL_CHAIN_OPS, 0),
+                           "ring16": (3, 0), "store3": (0, 0)}
+# dependent operations a step on each variant's longest loop-carried chain on
+# the serial kernels.  ablate_kernel_serial: as the staged kernel's but ring16
+# 17 (the newest value through the 16 compare-selects of the read, then the
+# add; the shift is register renaming); its global load of x a step, off these
+# counts, lies on every chain that reads x.  ablate_fused, per stage on and
+# stubbed: the PLL 18 or 1; the FIR stage's three AGC gains 3 x AGC_CHAIN_OPS
+# or the gain's 1; the rings 0 (a shift) or 1; Gardner's next_sample 31 (rintf,
 # float->int, the clamp at 0, the age's subtract and clamps, the 16
 # compare-selects of the ring read, subtract, two multiplies, two clamps,
 # subtract, add, select) or 1; the stores 0.  The stages' chains are
-# independent recurrences, so a variant's is the longest of them.  The
-# chain bound is computed at the measured float add latency, not measured:
-# on the ablation_chain lines, not in the table.  (The serial kernel,
-# ablate_fused_serial, runs these chains; ABLATE_FUSED_STAGE_CHAINS counts
-# the staged kernel's.)
-ABLATE_KERNEL_CHAIN_OPS = {"empty_c1": 1, "empty_c8": 1, "empty_c73": 1,
-                           "mac26": 52, "mac78": 156,
-                           "pll": PLL_F64_SERIAL_CHAIN_OPS, "ring16": 17,
-                           "store3": 0}
+# independent recurrences, so a variant's is the longest of them.  The chain
+# bound is computed at the measured float add latency, not measured: on the
+# ablation_chain lines, not in the table.  (The serial kernel,
+# ablate_fused_serial, runs these chains; ABLATE_FUSED_STAGE_CHAINS counts the
+# staged kernel's.)
+ABLATE_KERNEL_SERIAL_CHAIN_OPS = dict(
+    {v: ops for v, (ops, _) in ABLATE_KERNEL_CHAIN_OPS.items()}, ring16=17)
 ABLATE_FUSED_CHAIN_OPS = {"pll": (PLL_F64_SERIAL_CHAIN_OPS, 1),
                           "fir": (3 * AGC_CHAIN_OPS, 1), "ring": (0, 1),
                           "gm": (31, 1), "store": (0, 0)}
@@ -2499,12 +2518,24 @@ ABLATE_FUSED_CHAIN_OPS = {"pll": (PLL_F64_SERIAL_CHAIN_OPS, 1),
 
 def ablation_chain_ops(tool, name: str) -> int:
     """A variant's counted chain a step on its serial kernel
-    (ABLATE_*_CHAIN_OPS)."""
+    (ABLATE_KERNEL_SERIAL_CHAIN_OPS, ABLATE_FUSED_CHAIN_OPS)."""
     if tool.__name__.endswith("ablate_kernel"):
-        return ABLATE_KERNEL_CHAIN_OPS[name]
+        return ABLATE_KERNEL_SERIAL_CHAIN_OPS[name]
     flags = tool.VARIANTS[name]
     return max(on if s in flags else off
                for s, (on, off) in ABLATE_FUSED_CHAIN_OPS.items())
+
+
+def staged_cycles(tool, name: str) -> float:
+    """Cycles a step on a variant's chain on the staged kernel of either
+    tool, at the measured float add and dependent ld.shared latencies:
+    ablate_kernel's (ABLATE_KERNEL_CHAIN_OPS), ablate_fused's longest
+    stage's (staged_chain_cycles)."""
+    if tool.__name__.endswith("ablate_fused"):
+        return max(staged_chain_cycles(tool.VARIANTS[name]).values())
+    ops, loads = ABLATE_KERNEL_CHAIN_OPS[name]
+    return (ops * LATENCY_CYCLES["f32_add"]
+            + loads * LATENCY_CYCLES["ld_shared"])
 
 
 def staged_chain_cycles(flags) -> dict:
@@ -2524,7 +2555,11 @@ def ablation_bound(tool, name: str, steps: int, B: int) -> dict:
     once, each stored plane written once, the carry read and written."""
     if tool.__name__.endswith("ablate_kernel"):
         v = tool.VARIANTS[name]
-        n_bytes = steps * B * 4.0 * (v.n_in + v.n_out) + 2 * v.n_carry * B * 4.0
+        # the empty variants read no plane: the plain version and both
+        # kernels leave x unread
+        planes_in = 0 if name.startswith("empty") else v.n_in
+        n_bytes = (steps * B * 4.0 * (planes_in + v.n_out)
+                   + 2 * v.n_carry * B * 4.0)
         ops = ABLATE_KERNEL_OPS[name]
     else:
         flags = tool.VARIANTS[name]
@@ -2539,10 +2574,12 @@ def ablation_bound(tool, name: str, steps: int, B: int) -> dict:
 
 def phase_ablation(stats: dict) -> dict:
     """The two ablation tools: every variant's kernel against its plain
-    version bit for bit over 512 steps at each lane count of ABLATION_S,
-    then each tool's CLI (its ``main``) on the card at those lane counts,
-    as a main path whose launches are counted; one ``ablation`` line a
-    variant and lane count.  Returns {tool: launches}."""
+    version and its serial twin bit for bit over 512 steps at each lane
+    count of ABLATION_S (ablate_kernel also on seeded varied inputs there
+    and at ABLATION_PART_LANES), then each tool's CLI (its ``main``) on the
+    card at those lane counts, as a main path whose launches are counted;
+    one ``ablation`` line a variant and lane count.  Returns {tool:
+    launches}."""
     import torch
     from project_desert_tortoise_tpu_torch.tools import ablate_fused as AF
     from project_desert_tortoise_tpu_torch.tools import ablate_kernel as AK
@@ -2559,6 +2596,9 @@ def phase_ablation(stats: dict) -> dict:
                 lambda: AK.ablate_kernel(name, ins, st, window),
                 lambda: AK.ablate_kernel_ref(name, ins, st, window),
                 [S * AK.LANES, steps], {})
+            check_equal(AK.ablate_kernel(name, ins, st, window),
+                        AK.ablate_kernel_serial(name, ins, st, window),
+                        f"ablate_kernel {name}, {S * 128} lanes, vs serial")
         for name in AF.VARIANTS:
             checks["ablate_fused", name, S] = time_pair(
                 "ablate_fused", f"{name}, {S * 128} lanes",
@@ -2569,6 +2609,18 @@ def phase_ablation(stats: dict) -> dict:
                         AF.ablate_fused_serial(name, *xs, state, window),
                         f"ablate_fused {name}, {S * 128} lanes, vs serial")
         del xs, state
+    for lanes in sorted({S * AK.LANES for S in ABLATION_S}
+                        | set(ABLATION_PART_LANES)):
+        for name in AK.VARIANTS:
+            ins, st = AK.varied_inputs(name, steps, lanes, seed=lanes,
+                                       device=dev)
+            want = AK.ablate_kernel_ref(name, ins, st, window)
+            what = f"ablate_kernel {name}, {lanes} varied lanes"
+            check_equal(AK.ablate_kernel(name, ins, st, window), want, what)
+            check_equal(AK.ablate_kernel_serial(name, ins, st, window), want,
+                        what + ", serial")
+        emit("ablate_kernel_varied", lanes=lanes, steps=steps,
+             variants=len(AK.VARIANTS), bit_exact=True)
 
     launches = collections.Counter()
     ns = {}
@@ -2604,32 +2656,29 @@ def phase_ablation(stats: dict) -> dict:
         tname = tool.__name__.rsplit(".", 1)[1]
         L, B = default_steps[tname], s_max * 128
         bounds = [ablation_bound(tool, v, L, B) for v in tool.VARIANTS]
-        # every lane's chain runs beside the others' (one warp an SM at
-        # s_max): a run's chain bound is one lane's
+        # every lane's chain runs beside the others' (one chain warp an SM
+        # at s_max): a run's chain bound is one lane's.  The staged
+        # kernels' own chains (ablate_fused: the longest stage's) a step,
+        # and the serial twins' counted ones
         ops = {v: ablation_chain_ops(tool, v) for v in tool.VARIANTS}
-        chain = {v: chain_bound_ms(L, k, cycles) for v, k in ops.items()}
+        staged = {v: staged_cycles(tool, v) for v in tool.VARIANTS}
+        chain = {v: chain_bound_ms(L, 1, c) for v, c in staged.items()}
         variant_ms = {v: ns[tname, v, s_max] * L * 1e-6
                       for v in tool.VARIANTS}
-        staged = {}
-        if tool is AF:
-            # the staged kernel's own chains: the longest stage's a step
-            staged = {v: max(staged_chain_cycles(tool.VARIANTS[v]).values())
-                      for v in tool.VARIANTS}
-            chain = {v: chain_bound_ms(L, 1, c) for v, c in staged.items()}
-            serial_ms = ablation_vs_serial(L, s_max, stats)
-            staged = dict(chain_cycles_a_step=staged,
-                          serial_chain_ops_a_step=ops, serial_ms=serial_ms,
-                          serial_ms_sum=sum(serial_ms.values()),
-                          speedup={v: serial_ms[v] / variant_ms[v]
-                                   for v in tool.VARIANTS})
-        else:
-            staged = dict(chain_ops_a_step=ops, chain_cycles=cycles)
+        serial_ms = (ablation_vs_serial if tool is AF
+                     else ablate_kernel_vs_serial)(L, s_max, stats)
         emit("ablation_chain", tool=tname, S=s_max, steps=L,
              chain_bound_ms=chain, chain_bound_ms_sum=sum(chain.values()),
              ms=variant_ms, ms_sum=sum(variant_ms.values()),
              share_of_chain_bound={v: chain[v] / variant_ms[v]
                                    for v in tool.VARIANTS},
-             **staged, card=card_line())
+             chain_cycles_a_step=staged, f32_add_cycles=cycles,
+             serial_chain_ops_a_step=ops,
+             serial_chain_bound_ms={v: chain_bound_ms(L, k, cycles)
+                                    for v, k in ops.items()},
+             serial_ms=serial_ms, serial_ms_sum=sum(serial_ms.values()),
+             speedup={v: serial_ms[v] / variant_ms[v]
+                      for v in tool.VARIANTS}, card=card_line())
         by = collections.Counter()
         for b in bounds:
             by[b["bound_by"]] += b["bound_ms"]
@@ -2644,9 +2693,54 @@ def phase_ablation(stats: dict) -> dict:
             plain_shape=[B, steps],
             check_ms=sum(checks[tname, v, s_max][0] for v in tool.VARIANTS),
             max_abs_err=max(checks[k][2] for k in checks if k[0] == tname))
-    for f in ("bound_ms", "bound_by", "plain_ms", "plain_shape"):
-        stats["ablate_fused_serial"][f] = stats["ablate_fused"][f]
+    for twin in ("ablate_kernel", "ablate_fused"):
+        for f in ("bound_ms", "bound_by", "plain_ms", "plain_shape"):
+            stats[twin + "_serial"][f] = stats[twin][f]
     return launches
+
+
+def ablate_kernel_vs_serial(L: int, S: int, stats: dict) -> dict:
+    """The staged ablate_kernel kernel against its serial twin at S x 128
+    lanes and L steps (the tool's inputs and window), every variant bit for
+    bit, both timed in this run in turns (serial, staged, staged, serial);
+    one `ablation_vs_serial` line a variant and one `design` line (the
+    launch configuration the card reports a variant, the chain cycles a
+    step).  Returns {variant: the twin's ms}."""
+    import torch
+    from project_desert_tortoise_tpu_torch.tools import ablate_kernel as AK
+
+    dev = torch.device("cuda")
+    window = 1024
+    B = S * AK.LANES
+    ms, serial_ms, configs = {}, {}, {}
+    for name in AK.VARIANTS:
+        ins, state = AK.inputs(name, L, S, dev)
+        ms[name], serial_ms[name], got, want = old_new_ms(
+            lambda: AK.ablate_kernel(name, ins, state, window),
+            lambda: AK.ablate_kernel_serial(name, ins, state, window),
+            reps=1)
+        check_equal(got, want, f"ablate_kernel {name} vs serial, {B} x {L}")
+        configs[name] = dict(AK.ablate_kernel_launch_config(name),
+                             chain_cycles_a_step=staged_cycles(AK, name))
+        emit("ablation_vs_serial", tool="ablate_kernel", variant=name,
+             shape=[B, L], bit_exact=True, ms=ms[name],
+             serial_ms=serial_ms[name], ns_per_step=ms[name] * 1e6 / L,
+             serial_ns_per_step=serial_ms[name] * 1e6 / L,
+             speedup=serial_ms[name] / ms[name], card=card_line())
+        del ins, state, got, want
+    emit("design", mode="ablate_kernel, staged", shape=[B, L],
+         ctas=-(-B // AK.CTA_LANES), chunk_steps=AK.CHUNK_STEPS,
+         warp_roles={name: dict(
+             chain=[w for w in range(32) if c["chain_warp_mask"] >> w & 1],
+             b_terms=[w for w in range(32) if c["b_warp_mask"] >> w & 1],
+             loader=c["loader_warp"]) for name, c in configs.items()},
+         latency_cycles=dict(LATENCY_CYCLES), variants=configs, ms=ms,
+         serial_ms=serial_ms, card=card_line())
+    stats["ablate_kernel_serial"] = dict(
+        ms=sum(serial_ms.values()), shape=[B, L], variants=len(ms),
+        staged_ms=sum(ms.values()), max_abs_err=0.0)
+    torch.cuda.empty_cache()
+    return serial_ms
 
 
 def ablation_vs_serial(L: int, S: int, stats: dict) -> dict:
@@ -2676,9 +2770,9 @@ def ablation_vs_serial(L: int, S: int, stats: dict) -> dict:
         configs[name] = dict(AF.ablate_fused_launch_config(name),
                              chain_cycles_a_step=staged_chain_cycles(
                                  AF.VARIANTS[name]))
-        emit("ablation_vs_serial", variant=name, shape=[B, L],
-             bit_exact=True, ms=ms[name], serial_ms=serial_ms[name],
-             ns_per_step=ms[name] * 1e6 / L,
+        emit("ablation_vs_serial", tool="ablate_fused", variant=name,
+             shape=[B, L], bit_exact=True, ms=ms[name],
+             serial_ms=serial_ms[name], ns_per_step=ms[name] * 1e6 / L,
              serial_ns_per_step=serial_ms[name] * 1e6 / L,
              speedup=serial_ms[name] / ms[name], card=card_line())
     cfg = configs["full"]

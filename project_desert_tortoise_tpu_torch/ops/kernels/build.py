@@ -113,8 +113,12 @@ _SIGNATURES = {
        + [_P, _I, _P]
        for clock in ("mm", "upsampling_gardner", "upsampling_mm")
        for suffix in ("", "_f64")},
-    # variant, in, st_in, out, st_out, B, L, params, n_params, stream
+    # variant, in, st_in, out, st_out, B, L, params, n_params, stream: the
+    # staged kernel and its serial twin
     "pdt_ablate_kernel": [_I] + [_P] * 4 + [_I] * 2 + [_P, _I, _P],
+    "pdt_ablate_kernel_serial": [_I] + [_P] * 4 + [_I] * 2 + [_P, _I, _P],
+    # variant, out
+    "pdt_ablate_kernel_config": [_I, _P],
     # flags, re, im, tn, st_in, bit, btime, emit, st_out, B, L, window,
     # params, n_params, stream: the staged kernel and its serial twin
     "pdt_ablate_fused": [_I] + [_P] * 8 + [_I] * 3 + [_P, _I, _P],

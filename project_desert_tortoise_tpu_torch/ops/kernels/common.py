@@ -42,6 +42,17 @@ def on_card(name: str, device) -> bool:
     return device.type == "cuda"
 
 
+def one_device(name: str, *tensors) -> torch.device:
+    """The device that every one of `tensors` lies on; raises if they lie
+    on more than one (a wrapper that chose its kernel or its plain version
+    by one argument would otherwise run the wrong one)."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}'s tensors lie on {sorted(map(str, devs))}"
+                         ", not on one device")
+    return devs.pop()
+
+
 def state_rows(pll_state, *extra):
     """The kernels' (6 + len(extra), B) state rows in the state's dtype
     (float32, or float64): PLL phase, freq, locksig, avg_phase, sweep,

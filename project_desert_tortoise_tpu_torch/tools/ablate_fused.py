@@ -45,7 +45,7 @@ from project_desert_tortoise_tpu_torch.ops.kernels.chain_kernel import (
     AGC_MAX_GAIN, AGC_MIN_GAIN, AGC_REFERENCE, agc_step, lane_const,
     polyphase)
 from project_desert_tortoise_tpu_torch.ops.kernels.common import (
-    check, kernel_config, launch, on_card)
+    check, kernel_config, launch, on_card, one_device)
 from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
     ring_read)
 from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
@@ -260,9 +260,10 @@ def ablate_fused(name: str, re, im, tn, state, window: int, out=None):
     the first step of each window).  `out`: on the card, buffers from
     :func:`output_buffers` to write into (so that a timed call allocates
     and zeroes nothing), else fresh ones.  CPU tensors run
-    :func:`ablate_fused_ref`, which allocates its own."""
-    dev = state.device
-    if not on_card("ablate_fused", dev):
+    :func:`ablate_fused_ref`, which allocates its own.  The planes and the
+    state must lie on one device."""
+    if not on_card("ablate_fused", one_device("ablate_fused", re, im, tn,
+                                              state)):
         return ablate_fused_ref(name, re, im, tn, state, window)
     got = _launch("pdt_ablate_fused", name, re, im, tn, state, window, out)
     ablate_fused.launches += 1
@@ -277,7 +278,8 @@ def ablate_fused_serial(name: str, re, im, tn, state, window: int,
     """:func:`ablate_fused` on the serial kernel, one thread a lane: the
     staged kernel's oracle and timing baseline, on no path.  CUDA tensors
     only."""
-    if not on_card("ablate_fused_serial", state.device):
+    if not on_card("ablate_fused_serial",
+                   one_device("ablate_fused_serial", re, im, tn, state)):
         raise ValueError("ablate_fused_serial runs on a CUDA device only")
     got = _launch("pdt_ablate_fused_serial", name, re, im, tn, state, window,
                   out)

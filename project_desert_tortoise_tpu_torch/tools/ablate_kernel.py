@@ -3,17 +3,25 @@
 of increasing complexity on the card.
 
 Counterpart of ``tools/ablate_kernel.py`` (``build_variant``) of the JAX
-package: a generic loop, one thread per lane, that carries ``n_carry``
-float32 values, reads one time-major input plane per step, runs one of the
-bodies below and stores ``n_out`` planes, to locate where a serial
-chain's time goes: loop overhead, carry width, PLL transcendentals,
-multiply-add chains, ring compare-selects, stores.
+package: a generic loop that carries ``n_carry`` float32 values a lane,
+reads one time-major input plane per step, runs one of the bodies below
+and stores ``n_out`` planes, to locate where a serial chain's time goes:
+loop overhead, carry width, PLL transcendentals, multiply-add chains, ring
+reads, stores.
 
 - :func:`ablate_kernel` is the entry point.  A CUDA tensor launches the
   hand-written kernel ``csrc/ablate_kernel.cu`` or raises; a CPU tensor
   runs :func:`ablate_kernel_ref`, the plain PyTorch version (a loop over
   the steps, all lanes at once, in the kernel's float32 operations).
-  ``ablate_kernel.launches`` counts kernel launches.
+  ``ablate_kernel.launches`` counts kernel launches.  The kernel gives a
+  CTA 32 lanes, one a thread of each warp: the empty variants spread
+  their carried values over warps and read nothing; the others read the
+  input from rows a loader warp stages in shared memory a 256-step chunk
+  ahead, the PLL's input terms and the ring's ages computed on two more
+  warps a chunk ahead (:func:`ablate_kernel_launch_config`).
+- :func:`ablate_kernel_serial` launches the serial kernel, one thread a
+  lane reading its input from device memory each step: the card-side
+  oracle and timing baseline, on no path.
 - :func:`ns_per_step` times one variant as the JAX tool's ``run`` does: a
   warm call, then the median of 3 (CUDA events on the card).
 
@@ -34,7 +42,8 @@ import torch
 
 from project_desert_tortoise_tpu_torch import chain
 from project_desert_tortoise_tpu_torch.ops import pll as pll_ops
-from project_desert_tortoise_tpu_torch.ops.kernels.common import check, launch
+from project_desert_tortoise_tpu_torch.ops.kernels.common import (
+    check, kernel_config, launch, on_card, one_device)
 from project_desert_tortoise_tpu_torch.ops.kernels.fused_kernel import (
     ring_read)
 from project_desert_tortoise_tpu_torch.ops.kernels.pll_kernel import (
@@ -89,6 +98,33 @@ def inputs(name: str, steps: int, S: int, device):
     return ins, state
 
 
+def varied_inputs(name: str, steps: int, B: int, seed: int = 0,
+                  device="cpu"):
+    """Seeded inputs beside the tool's constant ones, for the checks: the
+    plane uniform in [-3, 20] (ring16's ages clamped at 0 and at 15 and
+    everything between), the carry uniform in [-1, 1].  For `pll` the second
+    half of the plane is constant (1.0) and the carry a PLL state: phases and
+    avg_phase spread (some lanes sweep), freq within the band, the sweep
+    step of either sign, the lock signal spread from 0 to just under the
+    threshold (the constant stretch locks some lanes: `locked` goes from 0
+    to 1 within the run), every eighth lane locked from the start."""
+    v = VARIANTS[name]
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-3.0, 20.0, (steps, B))
+    state = rng.uniform(-1.0, 1.0, (v.n_carry, B))
+    if name == "pll":
+        pp = pll_params()
+        x[steps // 2:] = 1.0
+        state[0] = rng.uniform(-np.pi, np.pi, B)
+        state[1] = rng.uniform(-0.5, 0.5, B) * pp.max_freq
+        state[2] = np.linspace(0.0, pp.lock_threshold * 0.999, B)
+        state[3] = rng.uniform(0.0, np.pi / 2 + 0.1, B)
+        state[4] = np.where(rng.random(B) < 0.5, -1.0, 1.0) * pp.sweep_step
+        state[5] = (np.arange(B) % 8 == 7).astype(np.float64)
+    as_t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return [as_t(x)], as_t(state)
+
+
 def _body(name: str, carry: list, x, k: dict):
     """One step of variant `name` on (B,) lanes: returns (carry, outs)."""
     if name.startswith("empty"):
@@ -136,18 +172,11 @@ def check_window(L: int, window: int):
                          f"{window}")
 
 
-def ablate_kernel(name: str, ins, state, window: int):
-    """Variant `name` over the time-major (L, B) input planes `ins` from
-    the carry `state` (n_carry, B); returns (outs: n_out (L, B) planes,
-    final carry (n_carry, B)).  The body stores every step, so `window`
-    (which must divide L) changes nothing but the check, as in the JAX
-    tool.  CPU tensors run :func:`ablate_kernel_ref`."""
+def _launch(entry: str, name: str, ins, state, window: int):
+    """Launch `entry` (pdt_ablate_kernel or its serial twin) for variant
+    `name` on CUDA tensors; returns what :func:`ablate_kernel` returns."""
     v = VARIANTS[name]
     dev = state.device
-    if dev.type == "cpu":
-        return ablate_kernel_ref(name, ins, state, window)
-    if dev.type != "cuda":
-        raise ValueError(f"ablate_kernel runs on cpu or cuda, not {dev}")
     L, B = ins[0].shape
     check_window(L, window)
     if len(ins) != v.n_in:
@@ -159,15 +188,67 @@ def ablate_kernel(name: str, ins, state, window: int):
     out = torch.empty((v.n_out, L, B), dtype=torch.float32, device=dev)
     st_out = torch.empty_like(st_in)
     p = _param_block()
-    launch(dev, "pdt_ablate_kernel", list(VARIANTS).index(name),
-           x.data_ptr(), st_in.data_ptr(),
-           out.data_ptr() if v.n_out else None, st_out.data_ptr(), B, L,
-           p.ctypes.data_as(ctypes.c_void_p), p.size)
-    ablate_kernel.launches += 1
+    launch(dev, entry, list(VARIANTS).index(name), x.data_ptr(),
+           st_in.data_ptr(), out.data_ptr() if v.n_out else None,
+           st_out.data_ptr(), B, L, p.ctypes.data_as(ctypes.c_void_p),
+           p.size)
     return list(out.unbind(0)), st_out
 
 
+def ablate_kernel(name: str, ins, state, window: int):
+    """Variant `name` over the time-major (L, B) input planes `ins` from
+    the carry `state` (n_carry, B); returns (outs: n_out (L, B) planes,
+    final carry (n_carry, B)).  The body stores every step, so `window`
+    (which must divide L) changes nothing but the check, as in the JAX
+    tool.  CPU tensors run :func:`ablate_kernel_ref`; the planes and the
+    carry must lie on one device."""
+    dev = one_device("ablate_kernel", *ins, state)
+    if not on_card("ablate_kernel", dev):
+        return ablate_kernel_ref(name, ins, state, window)
+    got = _launch("pdt_ablate_kernel", name, ins, state, window)
+    ablate_kernel.launches += 1
+    return got
+
+
 ablate_kernel.launches = 0
+
+
+def ablate_kernel_serial(name: str, ins, state, window: int):
+    """:func:`ablate_kernel` on the serial kernel, one thread a lane: the
+    staged kernel's oracle and timing baseline, on no path.  CUDA tensors
+    only."""
+    if not on_card("ablate_kernel_serial",
+                   one_device("ablate_kernel_serial", *ins, state)):
+        raise ValueError("ablate_kernel_serial runs on a CUDA device only")
+    got = _launch("pdt_ablate_kernel_serial", name, ins, state, window)
+    ablate_kernel_serial.launches += 1
+    return got
+
+
+ablate_kernel_serial.launches = 0
+
+# lanes a CTA and steps a chunk of the staged kernel
+CTA_LANES = 32
+CHUNK_STEPS = 256
+# ablate_kernel_launch_config's fields, in the order of
+# pdt_ablate_kernel_config's out[]
+LAUNCH_CONFIG_FIELDS = ("lanes_per_cta", "chunk_steps", "threads",
+                        "smem_bytes", "ctas_per_sm", "registers",
+                        "local_bytes", "serial_registers",
+                        "serial_local_bytes", "chain_warp_mask",
+                        "b_warp_mask", "loader_warp")
+
+
+def ablate_kernel_launch_config(name: str, device="cuda") -> dict:
+    """The staged kernel's launch configuration for variant `name`, as the
+    card reports it: lanes a CTA, steps a chunk (0 where nothing is
+    staged), threads a CTA, dynamic shared memory bytes, resident CTAs an
+    SM, registers and local (spill) bytes a thread; the serial kernel's
+    registers and local bytes; the warps that run the chain and the B
+    warps as bit masks, the loader's warp (-1: none)."""
+    return kernel_config(device, "pdt_ablate_kernel_config",
+                         list(VARIANTS).index(name),
+                         fields=LAUNCH_CONFIG_FIELDS)
 
 
 def median_ns_per_step(fn, steps: int, device) -> float:
