@@ -47,6 +47,20 @@ and drives the port's three entry points:
   ``upsampling_mm_manchester_scan`` or their ``_f64`` instances), whose
   payloads must be the JAX exact chain's (``CLOCK_REFERENCE``), the
   upsampling clocks also at 7,000-sample chunks with the same lines;
+- the port's upsampling-level study
+  (``tools/study_upsampling.py``, ``study``) at the committed study's
+  settings (22 dB, 10 frames, levels 1-6 and 8, both clocks and kinds: 28
+  ``DemodSession`` runs), each row's recovered frames the JAX tool's
+  (``STUDY_REFERENCE``), and for each clock and level whether the float32
+  whole-image kernel holds a chunk's upsampled image resident or recycles
+  its tiles;
+- the multi-device path over the one card: the POES pass through
+  ``demodulate_sharded`` on meshes (1, 1) and (1, 4), on branch False and
+  on the fused branch, each frame set ``demodulate_blocked``'s
+  (``multichip_sharded``); ``demodulate_multihost`` in one spawned NCCL
+  rank, its frames ``demodulate_sharded``'s (``multichip_multihost``); and
+  ``multichip_dryrun_torch.dryrun_multichip`` over four entries of the
+  card (``multichip_dryrun``);
 - the two ablation tools (``project_desert_tortoise_tpu_torch/tools``),
   every variant at 128 and at 4,224 lanes (``ablation`` lines); the staged
   ``ablate_kernel`` and ``ablate_fused`` against their serial twins
@@ -188,6 +202,31 @@ CLOCK_SECOND_CHUNK = 7000
 CLOCK_REFERENCE = {(clock, quirks, dtype): ((0, 1), (), ())
                    for clock, quirks in CLOCK_RUNS
                    for dtype in ("float32", "float64")}
+# the upsampling-level study (study): the port's tools/study_upsampling.py
+# at the settings of the committed docs/studies/upsampling_levels.json (22
+# dB, 10 frames, these levels: 28 rows), each row's frames_ok that of the
+# JAX package's tool at the same arguments on the CPU: 7 at every level
+# from 2, but 6 for the M&M clock's cubic kernel at level 2, and 0 at
+# level 1.  The committed file, from an earlier JAX tree, has 7 at that
+# level 2 and 1 for the M&M clock at level 1, both kinds.
+# tests/test_torch_study_upsampling.py recomputes the rows (marked slow)
+STUDY_SNR_DB, STUDY_FRAMES = 22.0, 10
+STUDY_LEVELS = (1, 2, 3, 4, 5, 6, 8)
+STUDY_REFERENCE = {
+    (alg, kind, lv): 0 if lv == 1 else 6 if (alg, kind, lv) == (
+        "upsampling_mm", "cubic", 2) else 7
+    for alg in ("upsampling_gardner", "upsampling_mm")
+    for kind in ("cubic", "linear") for lv in STUDY_LEVELS}
+# the study's float32 clock kernels held against their plain versions at
+# the study's own images (study_clock_checks): level 5 resident in shared
+# memory, 6 and 8 on the recycled tiles of the default ring, both kinds
+STUDY_CHECK_LEVELS = (5, 6, 8)
+STUDY_RECYCLED_FROM = 6
+# the multi-process path (multihost): one NCCL rank on a short recording
+# of this many frames, on a mesh of two entries of the card
+MULTIHOST_FRAMES = 40
+# the mesh-shape dry run (dryrun): entries, all on the one card
+DRYRUN_DEVICES = 4
 # the exact chain's B=1 checks of pll_scan and agc_scan from an unlocked
 # start: poes_tip's and poes_tip_realtime's chunks and a short final one
 EXACT_CHECK_L = (10000, 2400, 1234)
@@ -315,7 +354,17 @@ PATH_KERNELS = {"fused": ("fused_demod",),
                 **{f"exact_{clock}_f64": ("pll_scan_f64", "agc_scan_f64",
                                           f"{clock}_manchester_scan_f64")
                    for clock in ("mm", "upsampling_gardner",
-                                 "upsampling_mm")}}
+                                 "upsampling_mm")},
+                # the upsampling-level study: the exact chain under both
+                # upsampling clocks, float32
+                "study": ("pll_scan", "agc_scan",
+                          "upsampling_gardner_manchester_scan",
+                          "upsampling_mm_manchester_scan"),
+                # the mesh-shape dry run: the scan branch (its blocks of
+                # 30,720 samples take no 4,096-sample windows: the whole
+                # block in one Gardner scan), then the fused
+                "dryrun": ("pll_scan", "agc_scan", "gardner_manchester_scan",
+                           "fused_demod")}
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 and
 # fp64 (outside the tensor cores) flop/s
 HBM_BYTES_S = 3.35e12
@@ -3558,13 +3607,15 @@ def whole_image_chain_cycles(clock: str, f64: bool) -> float:
             + floors * floor + LATENCY_CYCLES["ld_shared"])
 
 
-def clock_cfg(cfg_mod, clock: str, dtype: str = "float32"):
+def clock_cfg(cfg_mod, clock: str, dtype: str = "float32", level: int = 4,
+              kind: str = "cubic"):
     """POES_TIP of `cfg_mod` (either package's utils/config.py) with the
     exact chain's `clock` in the JAX tests' settings: "mm" with
     error_limit 3 and gain 0.15 (tests/test_clock.py:118-121); the
-    upsampling clocks at level 4, cubic, gain 1, error_limit 2 behind a
-    plain low-pass at the input rate (tests/test_upsampling_clock.py:
-    18-27); in `dtype`."""
+    upsampling clocks at `level` (4), `kind` (cubic), gain 1, error_limit
+    2 behind a plain low-pass at the input rate
+    (tests/test_upsampling_clock.py:18-27, and the study's
+    configuration); in `dtype`."""
     import dataclasses
     P = dataclasses.replace(cfg_mod.POES_TIP, dtype=dtype)
     if clock == "mm":
@@ -3574,8 +3625,8 @@ def clock_cfg(cfg_mod, clock: str, dtype: str = "float32"):
         P, fir=cfg_mod.FIRConfig(cutoff_hz=11000.0, base_order=26,
                                  target_rate_hz=None, interp=1),
         gardner=dataclasses.replace(
-            P.gardner, algorithm=clock, upsample_level=4,
-            upsample_kind="cubic", gain=1.0, error_limit=2.0))
+            P.gardner, algorithm=clock, upsample_level=level,
+            upsample_kind=kind, gain=1.0, error_limit=2.0))
 
 
 def clock_recording(workdir: str):
@@ -3590,18 +3641,20 @@ def clock_recording(workdir: str):
     return wav, [bytes(f) for f in frames[1:]], bytes(frames[0])
 
 
-def clock_images(clock: str, dtype, dev, ragged: bool, carried: bool):
+def clock_images(clock: str, dtype, dev, ragged: bool, carried: bool,
+                 level: int = 4, kind: str = "cubic"):
     """A clock kernel's arguments at one POES chunk: the chunk-invariant
     image (TAIL_MARGIN + 10,000 samples at the mode's interpolation, for
-    the upsampling clocks at interp 1 upsampled 4 x, cubic), a fresh or a
-    carried state, the valid length the whole image or a ragged final
-    chunk's (7,409 samples), the parameters and max_syms."""
+    the upsampling clocks at interp 1 upsampled `level` x by `kind`), a
+    fresh or a carried state, the valid length the whole image or a ragged
+    final chunk's (7,409 samples), the parameters and max_syms."""
     import torch
     from project_desert_tortoise_tpu_torch import chain
     from project_desert_tortoise_tpu_torch.ops import resample
     from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
     from project_desert_tortoise_tpu_torch.utils import config as C
-    params = chain.make_params(clock_cfg(C, clock), POES_FS)
+    params = chain.make_params(clock_cfg(C, clock, level=level, kind=kind),
+                               POES_FS)
     m, L = chain.TAIL_MARGIN, C.POES_TIP.chunk_size
     cap0 = m + L * params.interp
     msyms = chain.max_symbols(cap0, params.step_size)
@@ -3836,6 +3889,295 @@ def phase_clocks_exact(workdir: str) -> collections.Counter:
     return launches
 
 
+def phase_study(workdir: str, stats: dict) -> collections.Counter:
+    """The port's upsampling-level study on the card (main path "study") at
+    the committed study's settings (STUDY_SNR_DB, STUDY_FRAMES,
+    STUDY_LEVELS): each row's frames_ok must be STUDY_REFERENCE's.  For
+    each clock and level, whether the float32 whole-image kernel holds a
+    chunk's image (TAIL_MARGIN + the mode's chunk, upsampled) resident in
+    shared memory or recycles its tiles, as the card reports its launch
+    geometry.  Then the two clock kernels against their plain versions at
+    the study's images (study_clock_checks).  Returns the launches."""
+    from project_desert_tortoise_tpu_torch.chain import TAIL_MARGIN
+    from project_desert_tortoise_tpu_torch.ops.kernels.scan_kernels import (
+        clock_scan_launch_config)
+    from project_desert_tortoise_tpu_torch.tools import study_upsampling as S
+    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
+
+    out = os.path.join(workdir, "study")
+    argv = ["--frames", str(STUDY_FRAMES), "--snr", str(STUDY_SNR_DB),
+            "--levels", ",".join(map(str, STUDY_LEVELS)), "--out-dir", out,
+            "--device", "cuda"]
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):     # the rows, as JSON
+        rc, counts = drive("study", lambda: S.main(argv))
+    wall = time.time() - t0
+    with open(os.path.join(out, "upsampling_levels.json")) as f:
+        rows = json.load(f)["rows"]
+    got = {(r["algorithm"], r["kind"], r["level"]): r["frames_ok"]
+           for r in rows}
+    differ = {"%s/%s/%d" % k: [got.get(k), v]
+              for k, v in STUDY_REFERENCE.items() if got.get(k) != v}
+    geometry = {}
+    for alg in S.ALGORITHMS:
+        for lv in STUDY_LEVELS:
+            cap = (TAIL_MARGIN + POES_TIP.chunk_size) * lv
+            g = clock_scan_launch_config(alg, 1, cap)
+            geometry["%s/%d" % (alg, lv)] = dict(
+                image=cap, tiles="resident" if g["resident"] else "recycled",
+                ring_floats=g["ring_floats"],
+                dynamic_smem_bytes=g["dynamic_smem_bytes"])
+    emit("study", rows=len(rows), wall_s=wall,
+         launches={k: counts[k] for k in PATH_KERNELS["study"]},
+         frames_ok={"%s/%s/%d" % k: v for k, v in got.items()},
+         unlike_reference=differ, float32_geometry=geometry,
+         card=card_line())
+    if rc != 0 or len(rows) != len(STUDY_REFERENCE) or differ:
+        raise AssertionError(f"study: rc {rc}, {len(rows)} rows, unlike "
+                             f"the reference {differ}")
+    study_clock_checks(stats)
+    return counts
+
+
+def study_clock_checks(stats: dict):
+    """Each upsampling clock kernel (float32) against its plain version on
+    the card, bit for bit, at STUDY_CHECK_LEVELS and both kinds, one lane
+    over one chunk's image at the study's configuration (clock_images:
+    fresh state, the whole image), both timed in this run (time_pair);
+    raises unless the levels from STUDY_RECYCLED_FROM take the recycled
+    tiles and the others stay resident.  One `study_clock_kernel` line
+    each: the launch geometry the card reports, ms, the plain version's
+    ms, the bound of those inputs counted as in phase_clock_kernels, and
+    the chain bound at the measured latencies.  The numbers go under
+    "study" in the kernel's stats (the kernels line), apart from its
+    level-4 row."""
+    import torch
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+
+    dev = torch.device("cuda")
+    for clock in ("upsampling_gardner", "upsampling_mm"):
+        name = f"{clock}_manchester_scan"
+        kern, plain = getattr(sk, name), getattr(sk, name + "_ref")
+        st = stats[name]
+        for lv in STUDY_CHECK_LEVELS:
+            for kind in ("cubic", "linear"):
+                args = clock_images(clock, torch.float32, dev, False, False,
+                                    lv, kind)
+                B, cap = args[2].shape
+                g = sk.clock_scan_launch_config(clock, B, cap)
+                tiles = "resident" if g["resident"] else "recycled"
+                if (tiles == "recycled") != (lv >= STUDY_RECYCLED_FROM):
+                    raise AssertionError(f"{name}, level {lv}: the image of "
+                                         f"{cap} floats is {tiles}")
+                case = f"study, level {lv}, {kind}, {tiles}"
+                ms, plain_ms, err = time_pair(
+                    name, case, lambda: kern(*args), lambda: plain(*args),
+                    [B, cap], {})
+                count, msyms = int(kern(*args)[-1][0]), args[-1]
+                reads = 3.0 if clock == "upsampling_gardner" else 2.0
+                b = bound(count * reads * 4.0 + msyms * 11.0,
+                          msyms * CLOCK_SLOT_OPS[clock])
+                chain_ms = chain_bound_ms(min(count + 1, msyms), 1,
+                                          whole_image_chain_cycles(clock,
+                                                                   False))
+                row = dict(ms=ms, plain_ms=plain_ms, shape=[B, cap],
+                           max_syms=msyms, active_slots=count,
+                           chain_bound_ms=chain_ms, **b)
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                st.setdefault("study", {})[f"level {lv}, {kind}"] = dict(
+                    tiles=tiles, **row)
+                emit("study_clock_kernel", kernel=name, level=lv, kind=kind,
+                     tiles=tiles, ring_floats=g["ring_floats"],
+                     dynamic_smem_bytes=g["dynamic_smem_bytes"],
+                     bit_exact=True, card=card_line(), **row)
+
+
+def phase_sharded(wav: str, scan_lines, fused_out: str, want,
+                  lead_in) -> collections.Counter:
+    """The POES pass through ``demodulate_sharded`` on meshes (1, 1) and
+    (1, 4) whose entries are all the one card (the halos CUDA tensors), on
+    branch False and on the fused branch: every payload once
+    (payload_check) and the frame set ``demodulate_blocked``'s on that
+    branch (the fast CLI's lines, the fused branch's file).  Every entry
+    is the same card, so the walls are no scaling measurement.  Returns
+    the launches."""
+    import torch
+    from project_desert_tortoise_tpu_torch.parallel.sharding import (
+        demodulate_sharded, make_mesh)
+    from project_desert_tortoise_tpu_torch.utils import wav as W
+    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
+    from project_desert_tortoise_tpu_torch.utils.output import (
+        parse_frames_file)
+
+    iq, t, fs, _ = W.load_iq_wav(wav, np.dtype(np.float32))
+    blocked = {False: sorted(scan_lines),
+               "fused": sorted((f"{tt:.5f}", bytes(b)) for tt, _, b in
+                               parse_frames_file(fused_out))}
+    card = torch.device("cuda", 0)
+    launches = collections.Counter()
+    for br in (False, "fused"):
+        for shape in ((1, 1), (1, 4)):
+            mesh = make_mesh(*shape, [card] * (shape[0] * shape[1]))
+            t0 = time.time()
+            res, counts = drive(br, lambda: demodulate_sharded(
+                iq[None], t, fs, POES_TIP, mesh, use_pallas=br))
+            wall = time.time() - t0
+            launches.update(counts)
+            got = sorted((f"{f.time:.5f}", bytes(f.data)) for f in res[0])
+            same = got == blocked[br]
+            emit("multichip_sharded", mesh="%dx%d" % shape, use_pallas=br,
+                 wall_s=wall,
+                 launches={k: counts[k] for k in PATH_KERNELS[br]},
+                 frame_set_as_blocked=same, blocked_frames=len(blocked[br]),
+                 card=card_line(),
+                 **payload_check("poes", [b for _, b in got], want, lead_in))
+            if not same:
+                raise AssertionError(f"mesh {shape}, branch {br}: the frame "
+                                     "set differs from demodulate_blocked's")
+    return launches
+
+
+def multihost_rank(port: int, rec: str):
+    """One NCCL rank, world size 1, in a process of its own:
+    ``demodulate_multihost`` of the recording `rec` (npz: iq, t, fs) on a
+    global mesh of two entries of the card.  Returns the backend, the
+    mesh's shape, the frames as (time, inverted, payload hex) and the
+    launches."""
+    import torch.distributed as dist
+    from project_desert_tortoise_tpu_torch.parallel import multihost as MH
+    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
+
+    dev = MH.init(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        mesh = MH.global_mesh(1, [dev, dev])
+        z = np.load(rec)
+        res, counts = drive(False, lambda: MH.demodulate_multihost(
+            z["iq"], z["t"], float(z["fs"]), POES_TIP, mesh))
+        frames = [(f.time, f.inverted, bytes(f.data).hex()) for f in res[0]]
+        return (dist.get_backend(), mesh.shape, frames,
+                {k: counts[k] for k in PATH_KERNELS[False]})
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multihost(workdir: str):
+    """``demodulate_multihost`` in one spawned NCCL rank (multihost_rank) on
+    a short recording (MULTIHOST_FRAMES frames): its frames must be
+    ``demodulate_sharded``'s in this process on the same mesh shape (1, 2)
+    of the card, time, polarity and payload."""
+    import concurrent.futures
+    import multiprocessing
+    import socket
+    import torch
+    from project_desert_tortoise_tpu_torch.parallel.sharding import (
+        demodulate_sharded, make_mesh)
+    from project_desert_tortoise_tpu_torch.utils import synth, wav as W
+    from project_desert_tortoise_tpu_torch.utils.config import POES_TIP
+
+    iq, sent = synth.make_poes_recording(n_frames=MULTIHOST_FRAMES,
+                                         fs=POES_FS)
+    t = W.time_axis(len(iq), POES_FS, np.float32)
+    rec = os.path.join(workdir, "multihost.npz")
+    np.savez(rec, iq=iq[None], t=t, fs=POES_FS)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.time()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        backend, shape, frames, counts = ex.submit(
+            multihost_rank, port, rec).result(timeout=600)
+    wall = time.time() - t0
+    card = torch.device("cuda", 0)
+    ref = demodulate_sharded(iq[None], t, POES_FS, POES_TIP,
+                             make_mesh(1, 2, [card, card]))
+    want = [(f.time, f.inverted, bytes(f.data).hex()) for f in ref[0]]
+    sset = {bytes(f).hex() for f in sent}
+    emit("multichip_multihost", backend=backend, world_size=1, mesh=shape,
+         wall_s=wall, launches=counts, frames=len(frames),
+         payloads_sent=sum(f[2] in sset for f in frames), of=len(sent),
+         as_sharded=frames == want, card=card_line())
+    if backend != "nccl" or frames != want:
+        raise AssertionError(f"multihost on {backend}: {len(frames)} "
+                             f"frames, demodulate_sharded {len(want)}; "
+                             "they differ")
+    return counts
+
+
+class ArgsKept:
+    """A kernel wrapper that keeps a copy of each call's arguments and then
+    makes the call; its ``launches`` are the wrapper's own."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, v: setattr(self.fn, "launches", v))
+
+    @staticmethod
+    def copy(a):
+        import torch
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        if isinstance(a, tuple) and not hasattr(a, "_fields"):
+            return tuple(ArgsKept.copy(x) for x in a)
+        return a
+
+    def __call__(self, *args, **kw):
+        self.calls.append(self.copy(args))
+        return self.fn(*args, **kw)
+
+
+def phase_dryrun(stats: dict) -> collections.Counter:
+    """``multichip_dryrun_torch.dryrun_multichip`` over DRYRUN_DEVICES
+    entries of the one card (main path "dryrun"): frame sets equal across
+    the mesh shapes and between the scan and the fused branch.  The scan
+    branch's gardner_manchester_scan launch on its first mesh (1 x n, the
+    halos crossing between shards), whose blocks take the window=0 layout
+    (one scan over each whole block), is kept (ArgsKept) and held against
+    its plain version on those arguments, bit for bit, both timed
+    (time_pair); one `dryrun_clock_kernel` line with the bound counted as
+    the exact CLI's (12 bytes and ~30 operations an active slot, 11 bytes
+    a slot) and the chain bound; under "dryrun" in the kernel's stats."""
+    import multichip_dryrun_torch
+    from project_desert_tortoise_tpu_torch.ops.kernels import scan_kernels as sk
+    t0 = time.time()
+    kept = ArgsKept(sk.gardner_manchester_scan)
+    with contextlib.redirect_stdout(io.StringIO()), \
+            patched(sk, "gardner_manchester_scan", kept):
+        out, counts = drive("dryrun", lambda:
+                            multichip_dryrun_torch.dryrun_multichip(
+                                DRYRUN_DEVICES, device="cuda"))
+    wall = time.time() - t0
+    args = kept.calls[0]
+    B, L = args[2].shape
+    ms, plain_ms, err = time_pair(
+        "gardner_manchester_scan", f"dry run, window=0 layout, {B} lanes",
+        lambda: sk.gardner_manchester_scan(*args),
+        lambda: sk.gardner_manchester_scan_ref(*args), [B, L], {})
+    active = sk.gardner_manchester_scan(*args)[-1]
+    n_syms, max_syms = int(active.sum()), args[-1]
+    row = dict(ms=ms, plain_ms=plain_ms, shape=[B, L], max_syms=max_syms,
+               active_slots=n_syms,
+               chain_bound_ms=chain_bound_ms(
+                   min(int(active.max()) + 1, max_syms), GM_SLOT_CHAIN_OPS),
+               **bound(n_syms * 12.0 + B * max_syms * 11.0, n_syms * 30.0))
+    st = stats["gardner_manchester_scan"]
+    st["max_abs_err"] = max(st["max_abs_err"], err)
+    st["dryrun"] = row
+    emit("dryrun_clock_kernel", kernel="gardner_manchester_scan",
+         layout="window=0", mesh="1x%d" % DRYRUN_DEVICES, bit_exact=True,
+         card=card_line(), **row)
+    emit("multichip_dryrun", devices=DRYRUN_DEVICES,
+         shapes=["%dx%d" % s for s in out["shapes"]], frames=out["frames"],
+         balanced="%dx%d" % out["balanced"], relabelled=out["relabelled"],
+         wall_s=wall,
+         launches={k: counts[k] for k in PATH_KERNELS["dryrun"]},
+         card=card_line())
+    return counts
+
+
 def phase_flat_path(wav: str, workdir: str, scan_out: str, fused_out: str,
                     want, lead_in) -> collections.Counter:
     """The flat whole-file path on the 12-minute POES pass (parallel/
@@ -4030,6 +4372,8 @@ def drive_all(exact_cpu, slice_cpu) -> int:
             if mode_name == "poes":
                 launches["poes"].update(phase_flat_path(
                     wav, workdir, out, fused_out, want, lead_in))
+                launches["poes"].update(phase_sharded(
+                    wav, lines, fused_out, want, lead_in))
             staged[mode_name], t_ext = phase_stages(mode_name, wav, workdir,
                                                     walls[mode_name])
             if mode_name == "poes":
@@ -4045,6 +4389,9 @@ def drive_all(exact_cpu, slice_cpu) -> int:
         del planes
         launches["poes"].update(phase_realtime(workdir))
         launches["poes"].update(phase_clocks_exact(workdir))
+        launches["poes"].update(phase_study(workdir, stats["poes"]))
+        launches["poes"].update(phase_multihost(workdir))
+        launches["poes"].update(phase_dryrun(stats["poes"]))
     ablation_launches = phase_ablation(stats["poes"])
     slice_frames = slice_cpu.result()
     phase_slice("poes", slice_frames)

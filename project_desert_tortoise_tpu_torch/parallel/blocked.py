@@ -594,17 +594,17 @@ def demodulate_blocked(iq, t, fs, mode_cfg, norm_factor: Optional[float] = None,
 
 
 def fetch_channel_frames(stitched, label) -> List[tuple]:
-    """Host (channel, Frame) pairs from a channel-aware stitch, in
-    (channel, position) order; ``label(ci, p)`` is the time of channel
-    ci's sample p (its float32 accumulated axis)."""
+    """Host (channel, sync position, Frame) triples from a channel-aware
+    stitch, in (channel, position) order; ``label(ci, p)`` is the time of
+    channel ci's sample p (its float32 accumulated axis)."""
     pos, inv, data, n, chan = (x.cpu().numpy() for x in stitched)
     n = int(n)
     pos = pos[:n].astype(np.int64)
     out = []
     for j in range(n):
-        ci = int(chan[j])
-        out.append((ci, Frame(float(label(ci, pos[j])), bool(inv[j]),
-                              data[j].copy())))
+        ci, p = int(chan[j]), int(pos[j])
+        out.append((ci, p, Frame(float(label(ci, p)), bool(inv[j]),
+                                 data[j].copy())))
     return out
 
 
@@ -646,7 +646,8 @@ def demodulate_many(iqs, t, fs, mode_cfg, norm_factor: Optional[float] = None,
     pending = None
 
     def drain(stitched):
-        for ci, fr in fetch_channel_frames(stitched, lambda ci, p: t_ext[p]):
+        for ci, _, fr in fetch_channel_frames(stitched,
+                                              lambda ci, p: t_ext[p]):
             res[ci].append(fr)
 
     for w0 in range(0, len(work), batch_blocks):

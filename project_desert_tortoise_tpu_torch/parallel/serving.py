@@ -337,7 +337,7 @@ class ChannelBank:
         def label(ci, p):
             buf, off = times[ci]
             return buf[p - off]
-        for ci, fr in BL.fetch_channel_frames(stitched, label):
+        for ci, _, fr in BL.fetch_channel_frames(stitched, label):
             self.frames[ci].append(fr)
             if self.on_frame:
                 self.on_frame(ci, fr)
